@@ -42,9 +42,9 @@ def multilevel_cluster(
     """Recursive ε-sampling initialization + K-means at every level.
 
     ``kmeans_fn`` replaces the host K-means at every level — pass
-    ``repro_torch.dist.cluster_dist.distributed_kmeans_fn(mesh)`` to run the
-    large levels mesh-sharded.  It must accept the keyword signature of
-    :func:`repro_torch.core.kmeans.kmeans`.
+    ``repro_torch.dist.cluster_dist.distributed_kmeans_fn(devices)`` to run
+    the large levels as row shards on the devices.  It must accept the
+    keyword signature of :func:`repro_torch.core.kmeans.kmeans`.
     """
     solve = kmeans_fn or kmeans
     n = view.n_docs

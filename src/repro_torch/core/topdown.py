@@ -43,8 +43,9 @@ def topdown_cluster(
     kmeans_fn: Optional[Callable] = None,
 ) -> TopDownResult:
     """``kmeans_fn`` is forwarded to every ``multilevel_cluster`` split —
-    pass ``repro_torch.dist.cluster_dist.distributed_kmeans_fn(mesh)`` to solve
-    the big top-level splits on the mesh while small recursion leaves stay
+    pass ``repro_torch.dist.cluster_dist.distributed_kmeans_fn(devices)`` to
+    solve the big top-level splits on the devices (the CUDA
+    ``cluster_score`` kernel scores them) while small recursion leaves stay
     on the host."""
     n_total = view.n_docs
     leaf_size = n_total / max(k, 1)

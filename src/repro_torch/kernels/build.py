@@ -1,0 +1,157 @@
+"""Build, load and count the port's CUDA kernels.
+
+Sources live in ``src/repro_torch/csrc/``: ``fold.cu`` (the multi-stage
+fold of the device engine), ``intersect.cu`` (the intersect trio) and
+``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means).
+Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
+its own shared library under ``build/repro_torch/`` at the repository
+root, named by a hash of the source and the compiler flags, so an edited
+source rebuilds and an unchanged one loads at once.  All sources compile
+in parallel, one ``nvcc`` each.  Without ``nvcc``, or when a build
+fails, the build raises: there is no fallback.
+
+Each library exports plain C launchers (bound with ``ctypes``) that
+launch on the stream they are given and return ``cudaGetLastError()``.
+The launchers of :mod:`repro_torch.kernels.intersect.kernel` and
+:mod:`repro_torch.kernels.cluster_score.kernel` call them through
+:func:`lib`, raise through :func:`check`, and add one to their entry of
+:data:`LAUNCHES` per launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+__all__ = ["LAUNCHES", "SOURCES", "build_libraries", "check", "lib", "reset_launch_counts",
+           "stream_of"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+SOURCES = ("fold", "intersect", "cluster_score")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_SIGNATURES = {
+    "fold": {
+        "segment_fold_launch": (_P, _L, _P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
+    },
+    "intersect": {
+        name: (_P, _P, _L, _L, _L, _P, _P)
+        for name in (
+            "intersect_members_launch",
+            "intersect_members_count_launch",
+            "intersect_count_launch",
+        )
+    },
+    "cluster_score": {
+        "cluster_scores_launch": (_P, _L, _L, _P, _P, _L, _L, _P, _P),
+    },
+}
+
+# Launch counts of the kernels: one per launch, incremented only where a
+# kernel is launched (never on the plain CPU path).
+LAUNCHES: Dict[str, int] = {
+    "segment_fold": 0,
+    "intersect_members_kernel": 0,
+    "intersect_members_count_kernel": 0,
+    "intersect_count_kernel": 0,
+    "cluster_scores_kernel": 0,
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of repro_torch are built from "
+        "src/repro_torch/csrc at first use and need the CUDA toolkit"
+    )
+
+
+def _library_path(stem: str) -> Path:
+    digest = hashlib.sha256()
+    digest.update((CSRC / f"{stem}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build_libraries() -> Dict[str, Path]:
+    """Compile every missing library (one ``nvcc`` per source, all started
+    together) and load them.  Returns the library path of each source."""
+    with _build_lock:
+        paths = {stem: _library_path(stem) for stem in SOURCES}
+        todo = [s for s in SOURCES if s not in _libs and not paths[s].exists()]
+        if todo:
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            procs = []
+            for stem in todo:
+                tmp = paths[stem].with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+                procs.append((stem, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                )))
+            errors = []
+            for stem, tmp, proc in procs:
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{out}")
+                else:
+                    os.replace(tmp, paths[stem])
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        for stem in SOURCES:
+            if stem in _libs:
+                continue
+            loaded = ctypes.CDLL(str(paths[stem]))
+            for fn_name, argtypes in _SIGNATURES[stem].items():
+                fn = getattr(loaded, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _libs[stem] = loaded
+        return paths
+
+
+def lib(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    if stem not in _libs:
+        build_libraries()
+    return _libs[stem]
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a launcher reported a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def stream_of(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

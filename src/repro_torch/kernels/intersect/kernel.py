@@ -1,153 +1,29 @@
-"""CUDA kernels of the search path, built with ``nvcc`` for ``sm_90a``
-and bound with ``ctypes``.
+"""Launchers of the search path's CUDA kernels: the fold
+(``csrc/fold.cu``) and the intersect trio (``csrc/intersect.cu``).
 
-Sources live in ``src/repro_torch/csrc/``: ``fold.cu`` (the multi-stage
-fold of the device engine) and ``intersect.cu`` (the intersect trio).
-Each source is compiled on first use into its own shared library under
-``build/repro_torch/`` at the repository root, named by a hash of the
-source and the compiler flags, so an edited source rebuilds and an
-unchanged one loads at once.  Both sources compile in parallel.  Without
-``nvcc``, or when a build fails, the build raises: there is no fallback.
-
-Every launcher checks device, dtype, contiguity and shape, allocates its
-outputs with ``torch.empty``/``torch.zeros``, launches on
+The libraries are built, loaded and counted by
+:mod:`repro_torch.kernels.build`.  Every launcher checks device, dtype,
+contiguity and shape, allocates its outputs with
+``torch.empty``/``torch.zeros``, launches on
 ``torch.cuda.current_stream()``, raises when the launch reports a CUDA
-error, and adds one to its entry of :data:`LAUNCHES`.
+error, and adds one to its entry of
+:data:`repro_torch.kernels.build.LAUNCHES`.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
+
 __all__ = [
-    "LAUNCHES",
-    "reset_launch_counts",
-    "build_libraries",
     "segment_fold_cuda",
     "intersect_members_cuda",
     "intersect_members_count_cuda",
     "intersect_count_cuda",
 ]
-
-_PKG = Path(__file__).resolve().parents[2]
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
-SOURCES = ("fold", "intersect")
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_int64
-_SIGNATURES = {
-    "fold": {
-        "segment_fold_launch": (_P, _L, _P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
-    },
-    "intersect": {
-        name: (_P, _P, _L, _L, _L, _P, _P)
-        for name in (
-            "intersect_members_launch",
-            "intersect_members_count_launch",
-            "intersect_count_launch",
-        )
-    },
-}
-
-# Launch counts of the four kernels: one per launch, incremented only
-# where a kernel is launched (never on the plain CPU path).
-LAUNCHES: Dict[str, int] = {
-    "segment_fold": 0,
-    "intersect_members_kernel": 0,
-    "intersect_members_count_kernel": 0,
-    "intersect_count_kernel": 0,
-}
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found: the CUDA kernels of repro_torch are built from "
-        "src/repro_torch/csrc at first use and need the CUDA toolkit"
-    )
-
-
-def _library_path(stem: str) -> Path:
-    digest = hashlib.sha256()
-    digest.update((CSRC / f"{stem}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
-
-
-def build_libraries() -> Dict[str, Path]:
-    """Compile every missing library (one ``nvcc`` per source, all started
-    together) and load them.  Returns the library path of each source."""
-    with _build_lock:
-        paths = {stem: _library_path(stem) for stem in SOURCES}
-        todo = [s for s in SOURCES if s not in _libs and not paths[s].exists()]
-        if todo:
-            nvcc = _nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            procs = []
-            for stem in todo:
-                tmp = paths[stem].with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
-                procs.append((stem, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                )))
-            errors = []
-            for stem, tmp, proc in procs:
-                out, _ = proc.communicate()
-                if proc.returncode != 0:
-                    errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{out}")
-                else:
-                    os.replace(tmp, paths[stem])
-            if errors:
-                raise RuntimeError("\n".join(errors))
-        for stem in SOURCES:
-            if stem in _libs:
-                continue
-            lib = ctypes.CDLL(str(paths[stem]))
-            for fn_name, argtypes in _SIGNATURES[stem].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _libs[stem] = lib
-        return paths
-
-
-def _lib(stem: str) -> ctypes.CDLL:
-    if stem not in _libs:
-        build_libraries()
-    return _libs[stem]
-
-
-def _check(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
 def _check_int32_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -160,10 +36,6 @@ def _check_int32_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return device
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def segment_fold_cuda(
@@ -194,7 +66,7 @@ def segment_fold_cuda(
         else None
     )
     iters = torch.tensor(list(stage_iters), dtype=torch.int32).to(device)
-    status = _lib("fold").segment_fold_launch(
+    status = lib("fold").segment_fold_launch(
         post_docs.data_ptr(),
         post_docs.shape[0],
         cells.data_ptr(),
@@ -208,9 +80,9 @@ def segment_fold_cuda(
         counts.data_ptr(),
         entering.data_ptr(),
         members.data_ptr() if members is not None else None,
-        _stream(device),
+        stream_of(device),
     )
-    _check(status, "segment_fold")
+    check(status, "segment_fold")
     LAUNCHES["segment_fold"] += 1
     return counts, entering, members
 
@@ -219,16 +91,16 @@ def _rows_call(fn_name: str, counter: str, short, long, out):
     device = _check_int32_cuda(counter, short, long)
     if short.dim() != 2 or long.dim() != 2 or short.shape[0] != long.shape[0]:
         raise ValueError(f"{counter}: short (B, Ls) and long (B, Ll) expected")
-    status = getattr(_lib("intersect"), fn_name)(
+    status = getattr(lib("intersect"), fn_name)(
         short.data_ptr(),
         long.data_ptr(),
         short.shape[0],
         short.shape[1],
         long.shape[1],
         out.data_ptr(),
-        _stream(device),
+        stream_of(device),
     )
-    _check(status, counter)
+    check(status, counter)
     LAUNCHES[counter] += 1
     return out
 
