@@ -4,7 +4,8 @@
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of ``src/repro_torch/csrc`` for ``sm_90a``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) and prints ptxas's
+   registers and spills of each kernel;
 3. holds each kernel against its plain PyTorch version on the card, on
    random and edge-case inputs: the search kernels exactly (their outputs
    are integers), ``cluster_scores`` within ``rtol=2e-5, atol=1e-5``;
@@ -24,9 +25,27 @@
 6. runs one K-means round at full size through the kernel and through
    the plain version on the card (equal counts, bit-equal tables, scores
    within the tolerance, assignments equal but for near-ties);
-7. times each kernel against its plain version at the main path's
+7. holds ``flash_attention_kernel`` against its plain version computed
+   in float32 from the same inputs, on random and edge-case inputs and at
+   the LM path's shapes (``FLASH_CASES`` and ``FLASH_TOL`` of
+   ``tests/_torch_parity.py``, which the kernel tests share: float32
+   within ``rtol=atol=2e-4``, bfloat16 within half a bf16 step);
+8. drives the LM serving path through the launcher's own functions
+   (``repro_torch.launch.serve``): gemma3-4b at its full width with
+   seeded random weights, ``LM_REQUESTS`` prompts of ``LM_PROMPT_LEN``
+   tokens, ``LM_DECODE_STEPS`` greedy steps — counters set to 0 just
+   before and the attention kernel's read just after (one launch per
+   layer per call) — then replays the same run with attention through the
+   plain version, fed the kernel route's tokens, and compares every
+   step's logits (within ``LOGIT_RTOL``) and tokens (equal but at
+   near-ties), and at each attention call of that replay holds the kernel
+   on the same inputs to ``FLASH_TOL``; two controls, plain attention with
+   a fault (the window ignored on local layers; the ragged tail tile of
+   keys dropped), must land beyond ``LOGIT_RTOL`` in the logit comparison,
+   and the second beyond ``FLASH_TOL`` at the first decode step;
+9. times each kernel against its plain version at the main path's
    shapes, and prints one JSON line listing every kernel;
-8. prints ``{"ok": true, "device": {...}}`` as its last line.
+10. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
 GPU, or without the rest of the repository beside it, it exits non-zero
@@ -61,6 +80,33 @@ DOC_GRAINED_BELOW = 512
 # version's: the tolerance of tests/test_kernels_cluster_score.py:40-41.
 SCORE_RTOL, SCORE_ATOL = 2e-5, 1e-5
 PAD_MAX = 2**31 - 1
+# H100 SXM bf16 tensor-core rate, dense (NVIDIA data sheet): the peak for
+# attention's products on bf16 inputs.
+BF16_OPS_PER_S = 989e12
+# scaled_dot_product_attention, a yardstick with bf16 products of its own,
+# against the plain version: the reference's bf16 tolerance
+# (tests/test_kernels_flash_attention.py:88).
+LIBRARY_TOL = 3e-2
+# The flash kernel's tile of keys (csrc/flash_attention.cu): a fault
+# control drops the ragged last one.
+KEY_TILE = 32
+# The LM path: gemma3-4b at its published widths, 8 requests of 2048
+# tokens (past the 1024 window, so the local layers skip key tiles) and
+# 16 greedy steps, a cache of 2064 positions.
+LM_ARCH = "gemma3-4b"
+LM_REQUESTS = 8
+LM_PROMPT_LEN = 2048
+LM_DECODE_STEPS = 16
+# Logits of the kernel route against the plain route, per step:
+# max |a - b| <= LOGIT_RTOL * max |b|.  Both routes round every attention
+# output and every activation to bf16 (a step is 2**-7 to 2**-8 of the
+# value); the fp32 differences inside attention (sum order, exp) flip a few
+# of those roundings by one step, and 34 layers carry the flips on.  Sound
+# runs read 0.0085-0.0108 on the card (PERF.md); every run also reads two
+# faulty attentions through the same comparison and fails unless both land
+# beyond the limit.  Greedy tokens must be equal except where the plain
+# route's two logits lie within the same bound.
+LOGIT_RTOL = 2e-2
 SOURCES = {
     "segment_fold": ("src/repro_torch/csrc/fold.cu", "src/repro/core/device_engine.py:396"),
     "intersect_members_kernel": (
@@ -71,6 +117,8 @@ SOURCES = {
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
     "cluster_scores_kernel": (
         "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
+    "flash_attention_kernel": (
+        "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -634,6 +682,351 @@ def cluster_scores_rows(torch, view, ell, p, tables8, launches, checked_err):
     return entry
 
 
+# ----------------------------------------------------------------------
+# The LM serving path: flash attention
+# ----------------------------------------------------------------------
+
+
+def plain_attention(q, k, v, causal=True, window=None):
+    """The plain version in float32 from the same inputs, cast back to q's
+    dtype: what the plain route of the LM path runs."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window).to(q.dtype)
+
+
+def global_attention(q, k, v, causal=True, window=None):
+    """A fault control: plain attention with the window ignored, so local
+    layers attend to every earlier key."""
+    return plain_attention(q, k, v, causal, None)
+
+
+def tail_dropped_attention(q, k, v, causal=True, window=None):
+    """A fault control: plain attention without the keys past the last
+    whole ``KEY_TILE``: at decode the newest 1-16 tokens, at the 2048-token
+    prefill none."""
+    lk = k.shape[2]
+    keep = lk - lk % KEY_TILE
+    if keep == lk:
+        return plain_attention(q, k, v, causal, window)
+    if q.shape[2] != 1:
+        raise ValueError("the tail control takes one query at a ragged length")
+    # The query stays at position lk - 1: its window keeps its lower edge.
+    return plain_attention(q, k[:, :, :keep], v[:, :, :keep], causal,
+                           None if window is None else window - (lk - keep))
+
+
+def assert_close_tol(name: str, got, want, tol: float) -> float:
+    """Largest |got - want| (in float32); raises when ``got`` is not finite
+    or an element lies outside ``tol + tol·|want|``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - want).abs()
+    if bool((err > tol + tol * want.abs()).any()):
+        raise AssertionError(f"{name}: disagrees with the plain version beyond rtol=atol={tol} "
+                             f"(max |err| {float(err.max())})")
+    return float(err.max())
+
+
+def check_flash_cases(torch, dev) -> dict:
+    """Every case of ``FLASH_CASES`` in float32 and bfloat16, half of them
+    in the model's strided layout; returns the largest error and share of
+    the limit per dtype."""
+    from _torch_parity import FLASH_CASES, flash_close, flash_inputs
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        err = share = 0.0
+        for n, (b, h, hkv, lq, lk, d, causal, window) in enumerate(FLASH_CASES):
+            q, k, v = flash_inputs(dev, dtype, b, h, hkv, lq, lk, d, seed=n,
+                                   model_layout=n % 2 == 0)
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            if got.stride() != q.stride():
+                raise AssertionError("flash_attention_kernel: the output lost q's layout")
+            want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+            try:
+                e, sh = flash_close(got, want)
+            except AssertionError as exc:
+                raise AssertionError(f"flash_attention_kernel, case {FLASH_CASES[n]} "
+                                     f"{dtype}: {exc}") from exc
+            err, share = max(err, e), max(share, sh)
+            del q, k, v, got, want
+        # a window of one key returns that key's value row
+        q, k, v = flash_inputs(dev, dtype, 1, 2, 2, 20, 50, 64, seed=99, model_layout=True)
+        got = flash_attention_cuda(q, k, v, causal=True, window=1)
+        err = max(err, assert_close_tol("flash_attention_kernel (window 1)", got, v[:, :, 30:], 1e-6))
+        errs[str(dtype).removeprefix("torch.")] = {"max_abs_err": err, "share_of_limit": share}
+    torch.cuda.synchronize()
+    print(f"flash_attention_kernel: {len(FLASH_CASES) + 1} random/edge cases in float32 and "
+          f"bfloat16 within FLASH_TOL of the plain version: " + "; ".join(
+              f"{t} max |err| {e['max_abs_err']:.3g} ({e['share_of_limit']:.3g} of the limit)"
+              for t, e in errs.items()), flush=True)
+    return errs
+
+
+class CheckedPlain:
+    """Attention for the plain route: the plain version, in float32 from
+    the same inputs and cast to q's dtype.  At every call it also runs the
+    kernel on the same inputs and holds it to ``FLASH_TOL``, and, where
+    the keys end in a ragged tile, reads the tail-dropped control's share
+    of the same limit."""
+
+    def __init__(self):
+        self.calls, self.max_abs_err, self.share, self.control_shares = 0, 0.0, 0.0, []
+
+    def __call__(self, q, k, v, causal=True, window=None):
+        from _torch_parity import flash_close, flash_error
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+        from repro_torch.kernels.flash_attention.ref import attention_ref
+
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+        try:
+            err, share = flash_close(flash_attention_cuda(q, k, v, causal=causal, window=window),
+                                     want)
+        except AssertionError as exc:
+            raise AssertionError(f"serve path, attention call {self.calls} (q {tuple(q.shape)}, "
+                                 f"{k.shape[2]} keys, window {window}): {exc}") from exc
+        self.calls += 1
+        self.max_abs_err, self.share = max(self.max_abs_err, err), max(self.share, share)
+        if k.shape[2] % KEY_TILE:
+            self.control_shares.append(
+                flash_error(tail_dropped_attention(q, k, v, causal, window), want)[1])
+        return want.to(q.dtype)
+
+
+class LogitRecorder:
+    """Keeps a float32 copy of the logits of every ``prefill`` and
+    ``decode_step`` call made while it is installed."""
+
+    def __init__(self, module):
+        self.module = module
+        self.logits = []
+        self._fns = {name: getattr(module, name) for name in ("prefill", "decode_step")}
+        for name, fn in self._fns.items():
+            setattr(module, name, self._wrap(fn))
+
+    def _wrap(self, fn):
+        def wrapped(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            self.logits.append(logits.detach().float().clone())
+            return logits, cache
+        return wrapped
+
+    def restore(self):
+        for name, fn in self._fns.items():
+            setattr(self.module, name, fn)
+
+
+def replay(torch, model, prompts, fed, attention):
+    """The serve run again with attention through ``attention``, fed the
+    tokens ``fed`` (requests, steps) instead of its own: the logits of the
+    prefill and of every step."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    dev = fed.device
+    kernel_attention, L.flash_attention = L.flash_attention, attention
+    try:
+        cache = T.init_cache(model.cfg, fed.shape[0], prompts.shape[1] + fed.shape[1], dev)
+        logits = [T.prefill(model, torch.from_numpy(prompts).to(dev), cache)[0].float()]
+        for s in range(fed.shape[1]):
+            logits.append(T.decode_step(model, fed[:, s:s + 1], cache)[0].float())
+        torch.cuda.synchronize()
+        return logits
+    finally:
+        L.flash_attention = kernel_attention
+
+
+def logit_rel_errs(got, want) -> list:
+    """max |a - b| / max |b| of each call's logits."""
+    return [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, want, strict=True)]
+
+
+def lm_serve(torch, dev):
+    """gemma3-4b at its full width through ``launch/serve.py``'s own
+    functions, then the same run with attention through the plain version
+    (the kernel held to it at every call) and through two faulty versions,
+    fed the kernel route's tokens.  Returns its report and the attention
+    kernel's launch count."""
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    args = serve.build_parser().parse_args([
+        "--arch", LM_ARCH, "--config", "full", "--requests", str(LM_REQUESTS),
+        "--prompt-len", str(LM_PROMPT_LEN), "--decode-steps", str(LM_DECODE_STEPS),
+        "--device", "cuda"])
+    t0 = time.perf_counter()
+    model, prompts = serve.setup(args)
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = LogitRecorder(T)
+    B.reset_launch_counts()
+    try:
+        report = serve.serve(model, prompts, args.decode_steps)
+    finally:
+        rec.restore()
+    torch.cuda.synchronize()
+    launches = B.LAUNCHES["flash_attention_kernel"]
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    expected = cfg.n_layers * (1 + args.decode_steps)
+    if launches != expected:
+        raise AssertionError(f"serve path: {launches} flash_attention_kernel launches, "
+                             f"the design gives {expected} (one per layer per call)")
+    tokens = report["tokens"]
+    if tokens.shape != (args.requests, args.decode_steps) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"serve path: tokens of shape {tokens.shape} outside [0, vocab)")
+    kernel_logits = rec.logits
+    if not all(bool(x.isfinite().all()) for x in kernel_logits):
+        raise AssertionError("serve path: non-finite logits")
+
+    # The plain route and the fault controls, teacher-forced with the
+    # kernel route's tokens.
+    fed = torch.from_numpy(tokens).to(dev)
+    checked = CheckedPlain()
+    plain_logits = replay(torch, model, prompts, fed, checked)
+    rel_errs = logit_rel_errs(kernel_logits, plain_logits)
+    controls = {}
+    for name, attention in (("window ignored on local layers", global_attention),
+                            ("ragged tail tile of keys dropped", tail_dropped_attention)):
+        controls[name] = logit_rel_errs(replay(torch, model, prompts, fed, attention),
+                                        plain_logits)
+    print(f"LM logits against the plain route (max |a - b| / max |b| per call, limit "
+          f"{LOGIT_RTOL}): kernel route {max(rel_errs):.4g}; " + "; ".join(
+              f"{name} {max(errs):.4g}" for name, errs in controls.items()), flush=True)
+    shares = checked.control_shares
+    flagged = sum(x > 1.0 for x in shares)
+    print(f"LM attention calls of the plain route: the kernel on the same inputs within "
+          f"{checked.share:.3g} of FLASH_TOL (max |err| {checked.max_abs_err:.3g}) at "
+          f"{checked.calls} calls; the tail-dropped control beyond it at {flagged} of "
+          f"{len(shares)} ragged decode calls ({min(shares):.3g}-{max(shares):.3g} of it)",
+          flush=True)
+    if checked.calls != expected:
+        raise AssertionError(f"serve path: {checked.calls} checked attention calls, not {expected}")
+    if max(shares[:cfg.n_layers]) <= 1.0:
+        raise AssertionError("serve path: the per-call check cannot tell the tail-dropped control "
+                             "(one key) at the first decode step")
+    if max(rel_errs) > LOGIT_RTOL:
+        raise AssertionError(f"serve path: logits differ from the plain route by "
+                             f"{max(rel_errs):.3g} of their largest value (limit {LOGIT_RTOL})")
+    for name, errs in controls.items():
+        if max(errs) <= LOGIT_RTOL:
+            raise AssertionError(f"serve path: the control '{name}' reads {max(errs):.3g}, "
+                                 f"within the limit {LOGIT_RTOL}: the comparison cannot tell it")
+    near_ties = []
+    for s, b in enumerate(plain_logits[:args.decode_steps]):
+        plain_top = b.argmax(dim=1)
+        kern_tok = fed[:, s].long()
+        for r in (plain_top != kern_tok).nonzero().flatten().tolist():
+            gap = float(b[r, plain_top[r]] - b[r, kern_tok[r]])
+            if gap > LOGIT_RTOL * float(b[r].abs().max()):
+                raise AssertionError(f"serve path: request {r} step {s}: token "
+                                     f"{int(kern_tok[r])} is {gap:.4g} below the plain "
+                                     f"route's top logit, beyond a near-tie")
+            near_ties.append({"request": r, "step": s, "gap": gap})
+    decode_ms = [t * 1e3 for t in report["decode_step_s"]]
+    out = {
+        "arch": LM_ARCH, "n_params": cfg.n_params(), "requests": args.requests,
+        "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
+        "cache_len": int(report["cache_len"]), "init_s": init_s,
+        "prefill_s": report["prefill_s"], "decode_step_ms": decode_ms,
+        "decode_step_ms_median": report["decode_step_s_median"] * 1e3,
+        "wall_s": report["wall_s"], "tokens_per_s": report["tokens_per_s"],
+        "peak_memory_bytes": int(peak_bytes),
+        "flash_attention_launches": int(launches), "launches_expected": expected,
+        "logit_rel_err": rel_errs, "logit_rel_err_max": max(rel_errs),
+        "control_logit_rel_err": controls, "attention_calls_checked": checked.calls,
+        "attention_max_abs_err": checked.max_abs_err, "attention_share_of_limit": checked.share,
+        "tail_control_share_of_limit": shares,
+        "near_ties": near_ties, "first_request": tokens[0].tolist(),
+    }
+    print(f"LM serve path: {LM_ARCH} ({cfg.n_params() / 1e9:.3f} B parameters), "
+          f"{args.requests} x {args.prompt_len} prompt tokens + {args.decode_steps} steps: "
+          f"{out['tokens_per_s']:.1f} tok/s, prefill {out['prefill_s']:.3f} s, median decode "
+          f"step {out['decode_step_ms_median']:.2f} ms, peak memory "
+          f"{peak_bytes / 2**30:.2f} GiB; flash_attention_kernel launches {launches} "
+          f"(design {expected}); {len(near_ties)} near-tie tokens", flush=True)
+    return out, launches
+
+
+def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible, counted exactly."""
+    p = np.arange(lq, dtype=np.int64) + (lk - lq)
+    hi = np.minimum(p, lk - 1) if causal else np.full(lq, lk - 1, np.int64)
+    lo = np.maximum(p - window + 1, 0) if window is not None else np.zeros(lq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_rows(torch, dev, launches, checked_errs):
+    """The kernel at the LM path's shapes in bf16 (the model's strided
+    layout): a local and a global layer's prefill, and a global and a local
+    layer's last decode step.  Decode rotates over enough copies of its
+    inputs to exceed the L2 cache, as each layer's own cache would."""
+    import torch.nn.functional as F
+
+    from _torch_parity import flash_close, flash_inputs
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, h, hkv, d = LM_REQUESTS, 8, 4, 256
+    lk_decode = LM_PROMPT_LEN + LM_DECODE_STEPS
+    shapes = [("prefill, local layer (window 1024)", LM_PROMPT_LEN, LM_PROMPT_LEN, 1024, 1),
+              ("prefill, global layer", LM_PROMPT_LEN, LM_PROMPT_LEN, 2**30, 1),
+              ("decode, global layer", 1, lk_decode, 2**30, 4),
+              ("decode, local layer (window 1024)", 1, lk_decode, 1024, 4)]
+    rows = []
+    for n, (shape, lq, lk, window, copies) in enumerate(shapes):
+        sets = [flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=100 + n + c,
+                             model_layout=True)
+                for c in range(copies)]
+        q, k, v = sets[0]
+        got = flash_attention_cuda(q, k, v, causal=True, window=window)
+        err, share = flash_close(got, attention_ref(q.float(), k.float(), v.float(), True, window))
+        i = torch.arange(lq, device=dev)[:, None] + (lk - lq)
+        j = torch.arange(lk, device=dev)[None, :]
+        mask = (j <= i) & (j > i - window)
+
+        def library(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+        assert_close_tol("scaled_dot_product_attention yardstick", library(),
+                         plain_attention(q, k, v, True, window), LIBRARY_TOL)
+        turn = iter(range(10**9))
+
+        def kernel(sets=sets, window=window):
+            qq, kk, vv = sets[next(turn) % len(sets)]
+            return flash_attention_cuda(qq, kk, vv, causal=True, window=window)
+
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda q=q, k=k, v=v, window=window: plain_attention(q, k, v, True, window),
+                           reps=3)
+        library_ms = time_ms(library, reps=5)
+        pairs = visible_pairs(lq, lk, True, window)
+        ops = 4 * b * h * d * pairs
+        nbytes = 2 * (q.numel() + got.numel() + k.numel() + v.numel())
+        bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        rows.append({
+            "shape": f"{shape}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16",
+            "visible_pairs": pairs, "ops": ops, "bytes": nbytes, "max_abs_err": err,
+            "share_of_limit": share, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        del sets, q, k, v, got, mask
+    entry = kernel_entry("flash_attention_kernel", launches, rows)
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               *(e["max_abs_err"] for e in checked_errs.values()))
+    return entry
+
+
 def kernel_entry(name, launches, rows):
     source, replaces = SOURCES[name]
     main = rows[0]
@@ -654,6 +1047,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))  # _torch_parity: the flash kernel's cases
     from repro_torch.kernels import build as B
     from repro_torch.launch import search
 
@@ -666,6 +1060,8 @@ def main() -> int:
     paths = B.build_libraries()
     print(f"built {sorted(p.name for p in paths.values())} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for stem, lines in B.PTXAS.items():
+        print(f"ptxas {stem}.cu: " + " | ".join(lines), flush=True)
 
     check_intersect_cases(torch, dev)
     check_fold_cases(torch, dev)
@@ -707,9 +1103,16 @@ def main() -> int:
 
     ell, p, tables8, kmeans["round_check"] = round_check(torch, dev, svc.res.view)
 
+    # The LM serving path: only the attention kernel's counter is read.
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    flash_errs = check_flash_cases(torch, dev)
+    lm, launches["flash_attention_kernel"] = lm_serve(torch, dev)
+
     kernels = [fold_rows(torch, svc, logs, launches), *intersect_rows(torch, svc, logs, launches),
                cluster_scores_rows(torch, svc.res.view, ell, p, tables8, launches,
-                                   max(score_case_err, kmeans["round_check"]["max_abs_err"]))]
+                                   max(score_case_err, kmeans["round_check"]["max_abs_err"])),
+               flash_rows(torch, dev, launches, flash_errs)]
     for k in kernels:
         print(f"{k['name']}: launches={k['launches']} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})"
@@ -721,6 +1124,13 @@ def main() -> int:
               f"bytes={row['bytes']} post_docs_bytes_read={row['post_docs_bytes_read']}",
               flush=True)
     for row in kernels[-1]["shapes"]:
+        print(f"flash_attention_kernel {row['shape']}: ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"visible_pairs={row['visible_pairs']} max_abs_err={row['max_abs_err']:.3g} "
+              f"({row['share_of_limit']:.3g} of the limit)",
+              flush=True)
+    for row in kernels[-2]["shapes"]:
         print(f"cluster_scores_kernel {row['shape']}: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) bytes={row['bytes']} "
@@ -729,7 +1139,8 @@ def main() -> int:
     out = ROOT / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
-        "card": card_line(), "report": report, "kmeans": kmeans, "kernels": kernels,
+        "card": card_line(), "report": report, "kmeans": kmeans, "lm": lm,
+        "flash_cases": flash_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))
     print(json.dumps({"kernels": [

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
 Sources live in ``src/repro_torch/csrc/``: ``fold.cu`` (the multi-stage
-fold of the device engine), ``intersect.cu`` (the intersect trio) and
-``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means).
+fold of the device engine), ``intersect.cu`` (the intersect trio),
+``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means) and
+``flash_attention.cu`` (the attention of the LM serving path).
 Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 its own shared library under ``build/repro_torch/`` at the repository
 root, named by a hash of the source and the compiler flags, so an edited
@@ -12,8 +13,9 @@ fails, the build raises: there is no fallback.
 
 Each library exports plain C launchers (bound with ``ctypes``) that
 launch on the stream they are given and return ``cudaGetLastError()``.
-The launchers of :mod:`repro_torch.kernels.intersect.kernel` and
-:mod:`repro_torch.kernels.cluster_score.kernel` call them through
+The launchers of :mod:`repro_torch.kernels.intersect.kernel`,
+:mod:`repro_torch.kernels.cluster_score.kernel` and
+:mod:`repro_torch.kernels.flash_attention.kernel` call them through
 :func:`lib`, raise through :func:`check`, and add one to their entry of
 :data:`LAUNCHES` per launch.
 """
@@ -39,13 +41,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fold", "intersect", "cluster_score")
+SOURCES = ("fold", "intersect", "cluster_score", "flash_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     "fold": {
         "segment_fold_launch": (_P, _L, _P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
@@ -61,6 +64,10 @@ _SIGNATURES = {
     "cluster_score": {
         "cluster_scores_launch": (_P, _L, _L, _P, _P, _L, _L, _P, _P),
     },
+    "flash_attention": {
+        "flash_attention_launch": (
+            _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _I, _P),
+    },
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
@@ -71,9 +78,13 @@ LAUNCHES: Dict[str, int] = {
     "intersect_members_count_kernel": 0,
     "intersect_count_kernel": 0,
     "cluster_scores_kernel": 0,
+    "flash_attention_kernel": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# ptxas's lines for each kernel compiled by this process: its entry
+# function, then its registers, stack and spills.
+PTXAS: Dict[str, list] = {}
 _build_lock = threading.Lock()
 
 
@@ -125,6 +136,9 @@ def build_libraries() -> Dict[str, Path]:
                     errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{out}")
                 else:
                     os.replace(tmp, paths[stem])
+                    PTXAS[stem] = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
+                                   if "entry function" in ln or "registers" in ln
+                                   or "spill" in ln]
             if errors:
                 raise RuntimeError("\n".join(errors))
         for stem in SOURCES:

@@ -1,5 +1,7 @@
 """Helpers shared by the ``test_torch_*`` parity suites: carry a fitted
-state of the JAX package across to the PyTorch port as numpy arrays."""
+state of the JAX package across to the PyTorch port as numpy arrays; and
+the flash-attention kernel's cases, inputs and tolerance, which
+``chip_smoke.py`` uses too.  It imports no JAX."""
 
 import numpy as np
 
@@ -65,3 +67,74 @@ def make_rows(rng, b, ls, ll, universe, holes=False):
     if holes:
         short[rng.random(short.shape) < 0.3] = PAD
     return short, long
+
+
+# (B, H, Hkv, Lq, Lk, D, causal, window) of the flash-attention kernel's
+# checks against its plain version on the card (chip_smoke.py and
+# tests/test_torch_cuda_kernels.py): Lq = 1, Lq = Lk, ragged Lk > Lq, D in
+# {16, 64, 80, 128, 256}, windows None / 1 / 8 / 1024 / 2**30, causal False,
+# H / Hkv in {1, 2, 4}, and the LM path's own shapes (gemma3-4b, 8 requests:
+# a global layer's decode over 2064 keys, a local and a global layer's
+# 2048-token prefill, where the window skips key tiles).
+FLASH_CASES = [
+    (2, 4, 4, 1, 300, 64, True, None), (1, 2, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 37, 100, 128, True, 8), (1, 8, 2, 1, 2064, 256, True, 1024),
+    (1, 8, 4, 64, 2049, 256, True, 2**30), (2, 2, 1, 50, 50, 16, False, None),
+    (1, 4, 4, 33, 70, 16, False, 8), (1, 2, 2, 100, 100, 64, True, 1),
+    (1, 4, 1, 200, 200, 128, True, 1024), (1, 2, 2, 40, 40, 80, True, None),
+    (2, 8, 4, 300, 300, 256, True, 1024), (8, 8, 4, 1, 2064, 256, True, 2**30),
+    (8, 8, 4, 2048, 2048, 256, True, 1024), (8, 8, 4, 2048, 2048, 256, True, 2**30),
+]
+# (rtol, atol) of the kernel's output against the plain version computed
+# in float32 from the same inputs (TF32 off).  float32: the reference's
+# tolerance (tests/test_kernels_flash_attention.py:50-51).  bfloat16: the
+# kernel computes in fp32 and rounds its output to the nearest bf16 once,
+# so it lies within half a bf16 step, 2**-8 of |want|, plus the fp32
+# difference; atol bounds that difference at eight times the largest the
+# float32 cases read on the card (1.19e-6).  The reference's bf16
+# tolerance (3e-2, :88) is about the size of a decode output at head dim
+# 256, too wide to see a key tile dropped.
+FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2**-8, 1e-5)}
+
+
+def flash_inputs(device, dtype, b, h, hkv, lq, lk, d, seed, model_layout=False):
+    """q (B, H, Lq, D) and k, v (B, Hkv, Lk, D), standard normal from a
+    seeded generator on ``device``; with ``model_layout`` they are
+    (B, H, L, D) views of (B, L, H, D) buffers, as the model passes them."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bufs = [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, lq, h, d), (b, lk, hkv, d), (b, lk, hkv, d))]
+    if model_layout:
+        return [t.transpose(1, 2) for t in bufs]
+    return [t.transpose(1, 2).contiguous() for t in bufs]
+
+
+def flash_error(got, want) -> tuple[float, float]:
+    """The largest |got - want| of the kernel's output ``got`` against the
+    plain version ``want`` (float32), and the largest share of its limit
+    ``atol + rtol·|want|`` (``FLASH_TOL`` of got's dtype); raises when the
+    shapes differ or ``got`` is not finite."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0, 0.0
+    rtol, atol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite output")
+    err = (got - want).abs()
+    return float(err.max()), float((err / (atol + rtol * want.abs())).max())
+
+
+def flash_close(got, want) -> tuple[float, float]:
+    """``flash_error``, raising when an element lies outside its limit."""
+    err, share = flash_error(got, want)
+    if share > 1.0:
+        rtol, atol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
+        raise AssertionError(f"disagrees with the plain version beyond rtol={rtol}, atol={atol} "
+                             f"(max |err| {err}, {share:.3g} of the limit)")
+    return err, share

@@ -13,6 +13,11 @@ agree within ``rtol=2e-5, atol=1e-5`` (the tolerance of the reference's
 ``tests/test_kernels_cluster_score.py``).  The tests without the marker
 check, on any machine, that a launcher refuses what its kernel does not
 take and that a missing compiler raises.
+
+``flash_attention`` is held against its plain version computed in
+float32 from the same inputs (TF32 off), at the cases and within the
+tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``) that
+``chip_smoke.py`` uses too.
 """
 
 from pathlib import Path
@@ -21,11 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import make_rows
+from _torch_parity import FLASH_CASES, flash_close, flash_inputs, make_rows
 from repro_torch.kernels import build as B
 from repro_torch.kernels.cluster_score import kernel as CK
 from repro_torch.kernels.cluster_score import ops as cops
 from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.intersect import kernel as K
 from repro_torch.kernels.intersect import ops, ref
 from repro_torch.kernels.intersect.ref import PAD
@@ -81,6 +89,24 @@ def test_cluster_scores_launcher_refuses_cpu_and_wrong_dtype_tensors():
             CK.cluster_scores_cuda(ell.to(dev), p, tables.to(dev))
         with pytest.raises(ValueError, match="contiguous"):
             CK.cluster_scores_cuda(ell.to(dev), p.to(dev), tables.to(dev).T)
+
+
+def test_flash_attention_launcher_refuses_what_its_kernel_does_not_take():
+    q = torch.zeros((1, 2, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FK.flash_attention_cuda(q.half(), q.half(), q.half())
+    if torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+        qd = q.to(dev)
+        with pytest.raises(ValueError, match="see a key"):
+            FK.flash_attention_cuda(qd, qd[:, :, :2], qd[:, :, :2])
+        with pytest.raises(ValueError, match="divide"):
+            FK.flash_attention_cuda(qd, qd[:, :1].expand(1, 3, 4, 16), qd[:, :1].expand(1, 3, 4, 16))
+        wide = torch.zeros((1, 1, 4, 512), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            FK.flash_attention_cuda(wide, wide, wide)
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -214,3 +240,25 @@ def test_cluster_scores_is_deterministic(cuda_device):
     ell, p, tables = (torch.from_numpy(a).to(cuda_device)
                       for a in _score_inputs(rng, 500, 200, 3000, 8))
     assert torch.equal(cops.cluster_scores(ell, p, tables), cops.cluster_scores(ell, p, tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window", FLASH_CASES)
+def test_flash_attention_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, causal, window):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=lq + lk + d,
+                           model_layout=lk % 2 == 0)
+    before = B.LAUNCHES["flash_attention_kernel"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["flash_attention_kernel"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
+    flash_close(got, attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window))
+
+
+@pytest.mark.cuda
+def test_flash_attention_window_of_one_is_the_value_of_the_own_key(cuda_device):
+    q, k, v = flash_inputs(cuda_device, torch.float32, 1, 2, 2, 20, 50, 64, seed=3)
+    got = flash_attention(q, k, v, causal=True, window=1)
+    torch.testing.assert_close(got, v[:, :, 30:], rtol=1e-6, atol=1e-6)

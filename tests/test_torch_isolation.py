@@ -91,6 +91,39 @@ def test_entry_points_without_device_raise_instead_of_using_the_cpu(
     assert SearchService(res, device="cpu").device_index.device.type == "cpu"
 
 
+def test_lm_entry_points_without_device_raise_instead_of_using_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.configs.gemma3_4b import SMOKE
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init(SMOKE, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(SMOKE, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({}, SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "gemma3-4b"])
+    # the explicit CPU device is accepted and runs the plain path
+    report = serve.main(["--arch", "gemma3-4b", "--device", "cpu", "--requests", "2",
+                         "--decode-steps", "2"])
+    assert report["device"] == "cpu" and report["tokens"].shape == (2, 2)
+
+
+def test_lm_launcher_fails_without_a_gpu_when_run_as_a_program():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the launcher would start for real")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma3-4b"],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
 def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(alone, tmp_path):
     if torch.cuda.is_available():
