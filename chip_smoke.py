@@ -25,26 +25,41 @@
 6. runs one K-means round at full size through the kernel and through
    the plain version on the card (equal counts, bit-equal tables, scores
    within the tolerance, assignments equal but for near-ties);
-7. holds ``flash_attention_kernel`` against its plain version computed
-   in float32 from the same inputs, on random and edge-case inputs and at
-   the LM path's shapes (``FLASH_CASES`` and ``FLASH_TOL`` of
+7. holds the attention (``flash_attention_kernel``, the launcher's call)
+   against its plain version computed in float32 from the same inputs, on
+   random and edge-case inputs and at the LM path's shapes
+   (``FLASH_CASES``, ``FLASH_TOL`` and ``p_rounding_term`` of
    ``tests/_torch_parity.py``, which the kernel tests share: float32
-   within ``rtol=atol=2e-4``, bfloat16 within half a bf16 step);
+   within ``rtol=atol=2e-4``, bfloat16 within half a bf16 step, plus
+   2**-8 times the plain attention of |v| on the sm90 variant, which
+   rounds P to bf16), each case through the variant the launcher picks
+   (``kernel.flash_route``: the bf16 tensor-core prefill ``sm90``, the
+   split-K ``decode`` with its combine, or the ``general`` kernel) and
+   read from the counters;
 8. drives the LM serving path through the launcher's own functions
    (``repro_torch.launch.serve``): gemma3-4b at its full width with
    seeded random weights, ``LM_REQUESTS`` prompts of ``LM_PROMPT_LEN``
    tokens, ``LM_DECODE_STEPS`` greedy steps — counters set to 0 just
-   before and the attention kernel's read just after (one launch per
-   layer per call) — then replays the same run with attention through the
-   plain version, fed the kernel route's tokens, and compares every
-   step's logits (within ``LOGIT_RTOL``) and tokens (equal but at
-   near-ties), and at each attention call of that replay holds the kernel
-   on the same inputs to ``FLASH_TOL``; two controls, plain attention with
-   a fault (the window ignored on local layers; the ragged tail tile of
-   keys dropped), must land beyond ``LOGIT_RTOL`` in the logit comparison,
-   and the second beyond ``FLASH_TOL`` at the first decode step;
+   before and the attention counters read just after (one call per layer
+   per model call: the prefill's 34 on the sm90 variant, the 544 of the
+   decode steps on the split-K variant and its combine) — then replays the
+   same run with attention through the plain version, fed the kernel
+   route's tokens, and compares every step's logits (within
+   ``LOGIT_RTOL``) and tokens (equal but at near-ties), and at each
+   attention call of that replay holds the kernel on the same inputs to
+   its limit; two controls, plain attention with a fault (the window
+   ignored on local layers; the ragged tail of keys dropped), must land
+   beyond ``LOGIT_RTOL`` in the logit comparison, and the second beyond
+   ``FLASH_TOL`` at the first decode step; then traces four decode steps
+   with ``torch.profiler`` (device kernel time per step, the attention's
+   part of it, the device's idle share);
 9. times each kernel against its plain version at the main path's
-   shapes, and prints one JSON line listing every kernel;
+   shapes (the attention call at four shapes, beside
+   ``scaled_dot_product_attention`` with a boolean mask and as the fastest
+   single call; the decode variant's split kernel and combine one by
+   one; attention also as device time from a CUDA-graph replay, without
+   the host's launch cost), and prints one JSON line listing every
+   kernel;
 10. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
@@ -87,8 +102,9 @@ BF16_OPS_PER_S = 989e12
 # against the plain version: the reference's bf16 tolerance
 # (tests/test_kernels_flash_attention.py:88).
 LIBRARY_TOL = 3e-2
-# The flash kernel's tile of keys (csrc/flash_attention.cu): a fault
-# control drops the ragged last one.
+# The decode variant's step of keys (kernel.DECODE_CHUNK_STEP: its splits
+# are whole multiples of it, and the general kernel's tile is as long): a
+# fault control drops the ragged last one.
 KEY_TILE = 32
 # The LM path: gemma3-4b at its published widths, 8 requests of 2048
 # tokens (past the 1024 window, so the local layers skip key tiles) and
@@ -119,6 +135,13 @@ SOURCES = {
         "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
     "flash_attention_kernel": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
+    "flash_attention_sm90": (
+        "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention/kernel.py:95"),
+    "flash_attention_decode": (
+        "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
+    "flash_attention_combine": (
+        "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -147,6 +170,35 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call without the host's launch cost: ``reps`` calls
+    captured in one CUDA graph (after a warm-up on a side stream), replayed
+    once between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def max_abs_err(a, b) -> int:
@@ -733,29 +785,40 @@ def assert_close_tol(name: str, got, want, tol: float) -> float:
 
 def check_flash_cases(torch, dev) -> dict:
     """Every case of ``FLASH_CASES`` in float32 and bfloat16, half of them
-    in the model's strided layout; returns the largest error and share of
-    the limit per dtype."""
-    from _torch_parity import FLASH_CASES, flash_close, flash_inputs
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    in the model's strided layout, each through the variant the launcher
+    picks (read from the counters); returns the largest error and share of
+    the limit per dtype, and the cases per variant."""
+    from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, VARIANT_LAUNCHES, flash_close,
+                               flash_inputs, p_rounding_term)
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    errs = {}
+    errs, routes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         err = share = 0.0
         for n, (b, h, hkv, lq, lk, d, causal, window) in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(dev, dtype, b, h, hkv, lq, lk, d, seed=n,
                                    model_layout=n % 2 == 0)
+            route = flash_route(dtype, h, hkv, lq, d)
+            before = {name: B.LAUNCHES[name] for name in FLASH_VARIANTS}
             got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            took = {name: B.LAUNCHES[name] - before[name] for name in FLASH_VARIANTS}
+            if took != {name: VARIANT_LAUNCHES[route].get(name, 0) for name in FLASH_VARIANTS}:
+                raise AssertionError(f"flash_attention_kernel, case {FLASH_CASES[n]} {dtype}: "
+                                     f"launched {took}, the {route} variant expected")
+            routes[route] = routes.get(route, 0) + 1
             if got.stride() != q.stride():
                 raise AssertionError("flash_attention_kernel: the output lost q's layout")
             want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+            extra = p_rounding_term(q, k, v, causal, window) if route == "sm90" else None
             try:
-                e, sh = flash_close(got, want)
+                e, sh = flash_close(got, want, extra)
             except AssertionError as exc:
-                raise AssertionError(f"flash_attention_kernel, case {FLASH_CASES[n]} "
+                raise AssertionError(f"flash_attention_kernel ({route}), case {FLASH_CASES[n]} "
                                      f"{dtype}: {exc}") from exc
             err, share = max(err, e), max(share, sh)
-            del q, k, v, got, want
+            del q, k, v, got, want, extra
         # a window of one key returns that key's value row
         q, k, v = flash_inputs(dev, dtype, 1, 2, 2, 20, 50, 64, seed=99, model_layout=True)
         got = flash_attention_cuda(q, k, v, causal=True, window=1)
@@ -763,36 +826,43 @@ def check_flash_cases(torch, dev) -> dict:
         errs[str(dtype).removeprefix("torch.")] = {"max_abs_err": err, "share_of_limit": share}
     torch.cuda.synchronize()
     print(f"flash_attention_kernel: {len(FLASH_CASES) + 1} random/edge cases in float32 and "
-          f"bfloat16 within FLASH_TOL of the plain version: " + "; ".join(
+          f"bfloat16 within their limits of the plain version (variants {routes}): " + "; ".join(
               f"{t} max |err| {e['max_abs_err']:.3g} ({e['share_of_limit']:.3g} of the limit)"
               for t, e in errs.items()), flush=True)
+    errs["cases_per_variant"] = routes
     return errs
 
 
 class CheckedPlain:
     """Attention for the plain route: the plain version, in float32 from
     the same inputs and cast to q's dtype.  At every call it also runs the
-    kernel on the same inputs and holds it to ``FLASH_TOL``, and, where
-    the keys end in a ragged tile, reads the tail-dropped control's share
-    of the same limit."""
+    kernel on the same inputs and holds it to ``FLASH_TOL`` (plus the
+    P-rounding term on the sm90 variant's calls), and, where the keys end
+    in a ragged tile, reads the tail-dropped control's share of the same
+    limit."""
 
     def __init__(self):
         self.calls, self.max_abs_err, self.share, self.control_shares = 0, 0.0, 0.0, []
+        self.share_by_variant = {}
 
     def __call__(self, q, k, v, causal=True, window=None):
-        from _torch_parity import flash_close, flash_error
-        from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+        from _torch_parity import flash_close, flash_error, p_rounding_term
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
         from repro_torch.kernels.flash_attention.ref import attention_ref
 
         want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+        sm90 = flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], q.shape[3]) == "sm90"
+        extra = p_rounding_term(q, k, v, causal, window) if sm90 else None
         try:
             err, share = flash_close(flash_attention_cuda(q, k, v, causal=causal, window=window),
-                                     want)
+                                     want, extra)
         except AssertionError as exc:
             raise AssertionError(f"serve path, attention call {self.calls} (q {tuple(q.shape)}, "
                                  f"{k.shape[2]} keys, window {window}): {exc}") from exc
         self.calls += 1
         self.max_abs_err, self.share = max(self.max_abs_err, err), max(self.share, share)
+        variant = "sm90" if sm90 else "decode"
+        self.share_by_variant[variant] = max(self.share_by_variant.get(variant, 0.0), share)
         if k.shape[2] % KEY_TILE:
             self.control_shares.append(
                 flash_error(tail_dropped_attention(q, k, v, causal, window), want)[1])
@@ -854,6 +924,7 @@ def lm_serve(torch, dev):
     (the kernel held to it at every call) and through two faulty versions,
     fed the kernel route's tokens.  Returns its report and the attention
     kernel's launch count."""
+    from _torch_parity import FLASH_VARIANTS
     from repro_torch.kernels import build as B
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -874,12 +945,18 @@ def lm_serve(torch, dev):
     finally:
         rec.restore()
     torch.cuda.synchronize()
-    launches = B.LAUNCHES["flash_attention_kernel"]
+    launches = {name: B.LAUNCHES[name] for name in ("flash_attention_kernel", *FLASH_VARIANTS)}
     peak_bytes = torch.cuda.max_memory_allocated(dev)
     expected = cfg.n_layers * (1 + args.decode_steps)
-    if launches != expected:
-        raise AssertionError(f"serve path: {launches} flash_attention_kernel launches, "
-                             f"the design gives {expected} (one per layer per call)")
+    # One call a layer a model call: the prefill's on the sm90 variant, each
+    # decode step's on the split-K variant and its combine.
+    design = {"flash_attention_kernel": expected, "flash_attention_sm90": cfg.n_layers,
+              "flash_attention_decode": cfg.n_layers * args.decode_steps,
+              "flash_attention_combine": cfg.n_layers * args.decode_steps,
+              "flash_attention_general": 0}
+    if launches != design:
+        raise AssertionError(f"serve path: attention launches {launches}, the design gives "
+                             f"{design}")
     tokens = report["tokens"]
     if tokens.shape != (args.requests, args.decode_steps) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
@@ -905,7 +982,8 @@ def lm_serve(torch, dev):
     shares = checked.control_shares
     flagged = sum(x > 1.0 for x in shares)
     print(f"LM attention calls of the plain route: the kernel on the same inputs within "
-          f"{checked.share:.3g} of FLASH_TOL (max |err| {checked.max_abs_err:.3g}) at "
+          f"{checked.share:.3g} of its limit (max |err| {checked.max_abs_err:.3g}; by variant "
+          f"{checked.share_by_variant}) at "
           f"{checked.calls} calls; the tail-dropped control beyond it at {flagged} of "
           f"{len(shares)} ragged decode calls ({min(shares):.3g}-{max(shares):.3g} of it)",
           flush=True)
@@ -933,6 +1011,7 @@ def lm_serve(torch, dev):
                                      f"route's top logit, beyond a near-tie")
             near_ties.append({"request": r, "step": s, "gap": gap})
     decode_ms = [t * 1e3 for t in report["decode_step_s"]]
+    trace = decode_trace(torch, model, prompts, dev)
     out = {
         "arch": LM_ARCH, "n_params": cfg.n_params(), "requests": args.requests,
         "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
@@ -941,20 +1020,63 @@ def lm_serve(torch, dev):
         "decode_step_ms_median": report["decode_step_s_median"] * 1e3,
         "wall_s": report["wall_s"], "tokens_per_s": report["tokens_per_s"],
         "peak_memory_bytes": int(peak_bytes),
-        "flash_attention_launches": int(launches), "launches_expected": expected,
+        "attention_launches": launches, "launches_expected": design,
         "logit_rel_err": rel_errs, "logit_rel_err_max": max(rel_errs),
         "control_logit_rel_err": controls, "attention_calls_checked": checked.calls,
         "attention_max_abs_err": checked.max_abs_err, "attention_share_of_limit": checked.share,
+        "attention_share_of_limit_by_variant": checked.share_by_variant,
         "tail_control_share_of_limit": shares,
-        "near_ties": near_ties, "first_request": tokens[0].tolist(),
+        "near_ties": near_ties, "first_request": tokens[0].tolist(), "decode_trace": trace,
     }
     print(f"LM serve path: {LM_ARCH} ({cfg.n_params() / 1e9:.3f} B parameters), "
           f"{args.requests} x {args.prompt_len} prompt tokens + {args.decode_steps} steps: "
           f"{out['tokens_per_s']:.1f} tok/s, prefill {out['prefill_s']:.3f} s, median decode "
           f"step {out['decode_step_ms_median']:.2f} ms, peak memory "
-          f"{peak_bytes / 2**30:.2f} GiB; flash_attention_kernel launches {launches} "
-          f"(design {expected}); {len(near_ties)} near-tie tokens", flush=True)
+          f"{peak_bytes / 2**30:.2f} GiB; attention launches {launches} (as designed); "
+          f"{len(near_ties)} near-tie tokens", flush=True)
     return out, launches
+
+
+def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
+    """The decode step under ``torch.profiler``: a fresh cache and the
+    prompts prefilled (not traced), one warm step, then ``steps`` greedy
+    steps traced.  Returns ms per step on the host clock, the device's
+    kernel ms per step (one stream, so kernels do not overlap), the
+    attention kernels' part of it, and the device's idle share; None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    cache = T.init_cache(model.cfg, prompts.shape[0], prompts.shape[1] + steps + 1, dev)
+    logits, cache = T.prefill(model, torch.from_numpy(prompts).to(dev), cache)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    logits, cache = T.decode_step(model, nxt, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            logits, cache = T.decode_step(model, nxt, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    del cache
+    device_us = attention_us = 0.0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        device_us += us
+        if "flash_" in e.key:
+            attention_us += us
+    if device_us <= 0.0:
+        print("decode trace: the profiler saw no device time (not measured)", flush=True)
+        return {"step_ms": wall_ms, "device_ms": None, "attention_ms": None, "idle_share": None}
+    out = {"step_ms": wall_ms, "device_ms": device_us / 1e3 / steps,
+           "attention_ms": attention_us / 1e3 / steps,
+           "idle_share": 1.0 - device_us / 1e3 / steps / wall_ms}
+    print(f"decode trace ({steps} steps, torch.profiler): {out['step_ms']:.2f} ms a step on the "
+          f"host clock, device kernels {out['device_ms']:.2f} ms (attention "
+          f"{out['attention_ms']:.2f} ms), device idle {out['idle_share']:.1%}", flush=True)
+    return out
 
 
 def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
@@ -966,65 +1088,161 @@ def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
 
 
 def flash_rows(torch, dev, launches, checked_errs):
-    """The kernel at the LM path's shapes in bf16 (the model's strided
+    """The attention at the LM path's shapes in bf16 (the model's strided
     layout): a local and a global layer's prefill, and a global and a local
     layer's last decode step.  Decode rotates over enough copies of its
-    inputs to exceed the L2 cache, as each layer's own cache would."""
+    inputs to exceed the L2 cache, as each layer's own cache would.
+    Returns four entries: the attention call (``flash_attention_kernel``)
+    at all four shapes, the sm90 variant at the prefill shapes, and the
+    decode variant's split kernel and combine, each alone against its
+    plain version, at the decode shapes."""
     import torch.nn.functional as F
 
-    from _torch_parity import flash_close, flash_inputs
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from _torch_parity import flash_close, flash_inputs, p_rounding_term
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (attention_ref, combine_ref,
+                                                         decode_partials_ref)
 
     b, h, hkv, d = LM_REQUESTS, 8, 4, 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lk_decode = LM_PROMPT_LEN + LM_DECODE_STEPS
     shapes = [("prefill, local layer (window 1024)", LM_PROMPT_LEN, LM_PROMPT_LEN, 1024, 1),
               ("prefill, global layer", LM_PROMPT_LEN, LM_PROMPT_LEN, 2**30, 1),
               ("decode, global layer", 1, lk_decode, 2**30, 4),
               ("decode, local layer (window 1024)", 1, lk_decode, 1024, 4)]
-    rows = []
+    call_rows, sm90_rows, decode_rows, combine_rows = [], [], [], []
     for n, (shape, lq, lk, window, copies) in enumerate(shapes):
         sets = [flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=100 + n + c,
                              model_layout=True)
                 for c in range(copies)]
         q, k, v = sets[0]
-        got = flash_attention_cuda(q, k, v, causal=True, window=window)
-        err, share = flash_close(got, attention_ref(q.float(), k.float(), v.float(), True, window))
+        route = FK.flash_route(q.dtype, h, hkv, lq, d)
+        got = FK.flash_attention_cuda(q, k, v, causal=True, window=window)
+        extra = p_rounding_term(q, k, v, True, window) if route == "sm90" else None
+        err, share = flash_close(got, attention_ref(q.float(), k.float(), v.float(), True, window),
+                                 extra)
         i = torch.arange(lq, device=dev)[:, None] + (lk - lq)
         j = torch.arange(lk, device=dev)[None, :]
         mask = (j <= i) & (j > i - window)
 
-        def library(q=q, k=k, v=v, mask=mask):
+        def library_mask(q=q, k=k, v=v, mask=mask):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
-        assert_close_tol("scaled_dot_product_attention yardstick", library(),
-                         plain_attention(q, k, v, True, window), LIBRARY_TOL)
+        # The fastest single call of the same function: no boolean mask
+        # where none is needed (it keeps the library off its flash backend).
+        if window < lk:
+            library, library_call = library_mask, "attn_mask (the window needs it)"
+        elif lq == lk:
+            library, library_call = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)), "is_causal=True"
+        else:  # one query at the end of the keys sees every key
+            library, library_call = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True)), "no mask"
+        plain = plain_attention(q, k, v, True, window)
+        assert_close_tol("scaled_dot_product_attention yardstick", library_mask(), plain,
+                         LIBRARY_TOL)
+        assert_close_tol(f"scaled_dot_product_attention ({library_call}) yardstick", library(),
+                         plain, LIBRARY_TOL)
         turn = iter(range(10**9))
 
         def kernel(sets=sets, window=window):
             qq, kk, vv = sets[next(turn) % len(sets)]
-            return flash_attention_cuda(qq, kk, vv, causal=True, window=window)
+            return FK.flash_attention_cuda(qq, kk, vv, causal=True, window=window)
 
         ms = time_ms(kernel)
         plain_ms = time_ms(lambda q=q, k=k, v=v, window=window: plain_attention(q, k, v, True, window),
                            reps=3)
-        library_ms = time_ms(library, reps=5)
+        library_mask_ms = time_ms(library_mask, reps=5)
+        library_ms = library_mask_ms if library is library_mask else time_ms(library, reps=5)
+        device = {"ms": graph_ms(kernel), "library_ms": graph_ms(library, reps=5),
+                  "library_mask_ms": graph_ms(library_mask, reps=5)}
         pairs = visible_pairs(lq, lk, True, window)
         ops = 4 * b * h * d * pairs
-        nbytes = 2 * (q.numel() + got.numel() + k.numel() + v.numel())
+        # Each input read once: q, and the K/V rows some query row sees
+        # (a local decode needs the window's 1024 of 2064); o written once.
+        visible_keys = lk - max(0, lk - lq - window + 1)
+        kv_bytes = 2 * 2 * b * hkv * visible_keys * d
+        nbytes = 2 * (q.numel() + got.numel()) + kv_bytes
         bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-        rows.append({
+        row = {
             "shape": f"{shape}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) bf16",
-            "visible_pairs": pairs, "ops": ops, "bytes": nbytes, "max_abs_err": err,
-            "share_of_limit": share, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "variant": route, "visible_pairs": pairs, "visible_keys": visible_keys, "ops": ops,
+            "bytes": nbytes, "max_abs_err": err, "share_of_limit": share, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_call": library_call,
+            "library_mask_ms": library_mask_ms, "device_ms": device,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        })
-        del sets, q, k, v, got, mask
-    entry = kernel_entry("flash_attention_kernel", launches, rows)
-    entry["max_abs_err"] = max(entry["max_abs_err"],
-                               *(e["max_abs_err"] for e in checked_errs.values()))
-    return entry
+        }
+        call_rows.append(row)
+        if route == "sm90":
+            sm90_rows.append(row)  # the call is the variant's one launch
+        else:
+            decode_rows.append(decode_split_row(torch, FK, decode_partials_ref, sets, shape,
+                                                window, FK.decode_plan(lq, lk, window, b * hkv,
+                                                                       sms), q.numel() * 2 + kv_bytes,
+                                                ops))
+            combine_rows.append(decode_combine_row(torch, FK, combine_ref, sets[0], shape, window,
+                                                   decode_rows[-1]["plan"]))
+        del sets, q, k, v, got, mask, plain
+    entries = [kernel_entry("flash_attention_kernel", launches, call_rows),
+               kernel_entry("flash_attention_sm90", launches, sm90_rows),
+               kernel_entry("flash_attention_decode", launches, decode_rows),
+               kernel_entry("flash_attention_combine", launches, combine_rows)]
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                    *(checked_errs[t]["max_abs_err"] for t in ("float32",
+                                                                               "bfloat16")))
+    return entries
+
+
+def decode_split_row(torch, FK, decode_partials_ref, sets, shape, window, plan, in_bytes, ops):
+    """The decode variant's split kernel alone against its plain version:
+    partials within rtol 1e-4 and 1e-4 of the largest |acc| (fp32 sums in
+    another order)."""
+    q, k, v = sets[0]
+    ml, acc = FK.decode_partials_cuda(q, k, v, True, window, plan)
+    want_ml, want_acc = decode_partials_ref(q, k, v, True, window, plan)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-4 * float(want_acc.abs().max()))
+    err = max(float((ml - want_ml).abs().max()), float((acc - want_acc).abs().max()))
+    turn = iter(range(10**9))
+
+    def kernel():
+        qq, kk, vv = sets[next(turn) % len(sets)]
+        return FK.decode_partials_cuda(qq, kk, vv, True, window, plan)
+
+    ms = time_ms(kernel)
+    device_ms = graph_ms(kernel)
+    plain_ms = time_ms(lambda: decode_partials_ref(q, k, v, True, window, plan), reps=3)
+    # q and the visible K/V rows read once, the fp32 partials written once.
+    nbytes = in_bytes + 4 * (ml.numel() + acc.numel())
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"shape": f"{shape}: split-K partials, plan (j_begin, j_end, chunk, splits) {plan}",
+            "plan": plan, "bytes": nbytes, "ops": ops, "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def decode_combine_row(torch, FK, combine_ref, qkv, shape, window, plan):
+    """The decode variant's combine alone, on the plain version's partials,
+    against the plain combine (``FLASH_TOL``: one rounding to bf16)."""
+    from _torch_parity import flash_close
+    from repro_torch.kernels.flash_attention.ref import decode_partials_ref
+
+    q, k, v = qkv
+    b, h, lq, _ = q.shape
+    hkv = k.shape[1]
+    ml, acc = decode_partials_ref(q, k, v, True, window, plan)
+    out = torch.empty_like(q)
+    FK.combine_cuda(ml, acc, out, hkv)
+    err, _share = flash_close(out, combine_ref(ml, acc, b, h, hkv, lq, torch.float32))
+    ms = time_ms(lambda: FK.combine_cuda(ml, acc, out, hkv))
+    device_ms = graph_ms(lambda: FK.combine_cuda(ml, acc, out, hkv))
+    plain_ms = time_ms(lambda: combine_ref(ml, acc, b, h, hkv, lq, q.dtype), reps=5)
+    nbytes = 4 * (ml.numel() + acc.numel()) + 2 * out.numel()
+    return {"shape": f"{shape}: combine of {plan[3]} splits", "bytes": nbytes,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def kernel_entry(name, launches, rows):
@@ -1107,12 +1325,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
     torch.backends.cudnn.allow_tf32 = False
     flash_errs = check_flash_cases(torch, dev)
-    lm, launches["flash_attention_kernel"] = lm_serve(torch, dev)
+    lm, lm_launches = lm_serve(torch, dev)
+    launches.update(lm_launches)
 
     kernels = [fold_rows(torch, svc, logs, launches), *intersect_rows(torch, svc, logs, launches),
                cluster_scores_rows(torch, svc.res.view, ell, p, tables8, launches,
                                    max(score_case_err, kmeans["round_check"]["max_abs_err"])),
-               flash_rows(torch, dev, launches, flash_errs)]
+               *flash_rows(torch, dev, launches, flash_errs)]
     for k in kernels:
         print(f"{k['name']}: launches={k['launches']} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})"
@@ -1123,14 +1342,25 @@ def main() -> int:
               f"kernel_ms={row['ms']:.4f} copyback_ms={row['copyback_ms']:.4f} "
               f"bytes={row['bytes']} post_docs_bytes_read={row['post_docs_bytes_read']}",
               flush=True)
-    for row in kernels[-1]["shapes"]:
-        print(f"flash_attention_kernel {row['shape']}: ms={row['ms']:.4f} "
+    for row in kernels[-4]["shapes"]:
+        print(f"flash_attention_kernel {row['shape']} [{row['variant']}]: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"({row['library_call']}) library_mask_ms={row['library_mask_ms']:.4f} "
+              f"device_ms (CUDA graph: kernel, library, mask) " + "/".join(
+                  f"{row['device_ms'][key]:.4f}" for key in ("ms", "library_ms", "library_mask_ms"))
+              + " "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) "
               f"visible_pairs={row['visible_pairs']} max_abs_err={row['max_abs_err']:.3g} "
               f"({row['share_of_limit']:.3g} of the limit)",
               flush=True)
-    for row in kernels[-2]["shapes"]:
+    for entry in kernels[-2:]:
+        for row in entry["shapes"]:
+            print(f"{entry['name']} {row['shape']}: ms={row['ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+                  f"({row['bound_by']}) bytes={row['bytes']} max_abs_err={row['max_abs_err']:.3g}",
+                  flush=True)
+    for row in kernels[-5]["shapes"]:
         print(f"cluster_scores_kernel {row['shape']}: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) bytes={row['bytes']} "

@@ -1,5 +1,13 @@
 // flash_attention: forward attention with an online softmax, causal and
-// sliding-window masks, GQA.
+// sliding-window masks, GQA.  Two of the port's three attention kernels:
+// the general kernel `flash_attention_kernel` and the decode variant
+// `flash_decode_kernel` with its `flash_combine_kernel` (below); the
+// prefill variant is csrc/flash_attention_sm90.cu.  The launcher in
+// kernels/flash_attention/kernel.py picks one by dtype and shape:
+//   - decode: Lq·(H/Hkv) <= 8 and D·itemsize a multiple of 16 bytes
+//     (fp32 or bf16);
+//   - sm90 prefill: bf16 with D in {64, 128, 256} otherwise;
+//   - general: everything else (fp32 at long Lq, other D).
 //
 // Replaces the Pallas kernel `flash_attention_kernel` (body `_kernel`) of
 // src/repro/kernels/flash_attention/kernel.py.
@@ -20,7 +28,7 @@
 // least one key; the launcher in kernel.py refuses inputs where one
 // cannot.
 //
-// Design.  The TPU grid's sequential third axis over key tiles (carried in
+// Design of the general kernel.  The TPU grid's sequential third axis over key tiles (carried in
 // VMEM scratch) becomes a loop inside one block over the live key tiles
 // only: the block computes the first and last key its rows can see and
 // walks the 32-key tiles between them, so tiles that are fully masked by
@@ -38,17 +46,10 @@
 // with a shuffle.  The tail of the keys (Lk need not be a tile multiple:
 // decode has Lk = 2049..2064) and of the queries is masked in the kernel.
 //
-// What bounds it on an H100.  At prefill (Lq = Lk = 2048, D = 256) the
-// operations: 4·D operations (2·D multiply-adds) per visible (query, key)
-// pair, hundreds per byte moved, far above the card's ~295 bf16 operations
-// per byte.  At decode (Lq = 1) the bytes: every visible K/V row is read
-// once for one query row.  This first version computes on the fp32 CUDA
-// cores, not the tensor cores, so at prefill it stays far from its bf16
-// tensor-core bound (989 TFLOP/s); a later version takes the products to
-// wgmma with TMA-fed pipelined tiles.  At decode 15 of a block's 16 rows idle (3 of its 4
-// warps only help stage the tiles), only B·H blocks run, and each GQA
-// query head reads its K/V rows again (from L2); splitting the keys over
-// blocks (split-K) is the later fix.
+// What bounds the general kernel on an H100: at a long Lq the operations
+// (4·D per visible (query, key) pair), which it does on the fp32 CUDA
+// cores, far from the bf16 tensor-core bound; the model's bf16 prefill
+// goes to the sm90 variant instead, and its decode to the split-K variant.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -310,4 +311,398 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return launch_t<__nv_bfloat16>(q, k, v, o, b, h, hkv, lq, lk, d, st,
                                    causal, has_window, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------
+// The decode (short-Lq) variant: split-K over the keys, one GQA group a
+// block, and its combine.
+//
+// Rows.  The Lq·(H/Hkv) query rows of one (batch, KV head) -- every query
+// head of the group at every query position, row r = g·Lq + i -- form one
+// block's rows (at most FD_MAX_ROWS), so each K/V row is read from device
+// memory once per group.  Grid: (split, batch·KV head).  The split's keys
+// are [j_begin + split·chunk, + chunk) ∩ [j_begin, j_end), where
+// [j_begin, j_end) is the union of the rows' visible keys (the launcher
+// chooses chunk and the number of splits, so that several blocks run on
+// each SM and no split lies wholly outside the window).
+//
+// Loads.  Each key row is read by LPK lanes with 16-byte loads (NU per
+// lane), so a warp reads 32 / LPK keys at once, KT of those at a time,
+// all loads issued before any is used.  The 4 warps take turns over the
+// split's tiles.
+//
+// Arithmetic.  fp32, as the general kernel: scores are fp32 dot products
+// times scale (lane partials summed with xor shuffles), masked scores are
+// NEG_INF, p = exp(s - m) in fp32 with the running max m of each key slot
+// of each warp, and the fp32 (m, l, acc) of those slots are merged in
+// shared memory into the split's partial: M = max m, L = Σ e^{m-M} l,
+// A = Σ e^{m-M} acc.  A second kernel merges the splits of each row in
+// split order (so the result does not depend on the order in which blocks
+// finish) and writes A / max(L, 1e-30) in the output dtype.  A split or
+// slot whose keys are all masked for a row holds m = NEG_INF and gets
+// weight e^{NEG_INF - M} = 0 beside the split that holds the row's
+// visible keys, exactly as masked keys do in the general kernel.
+//
+// What bounds it on an H100: bytes.  Each visible K/V row is read once
+// per group for Lq·(H/Hkv) rows, about one operation per byte.
+// ---------------------------------------------------------------------
+
+#define FD_WARPS 4
+#define FD_THREADS (FD_WARPS * 32)
+#define FD_MAX_ROWS 8
+
+struct FdParams {
+  int h, groups, lq, lk, d, rows;
+  int64_t sq[3], sk[3], sv[3];  // strides in elements: batch, head, position
+  int causal, has_window;
+  int64_t window;
+  float scale;
+  int64_t j_begin, j_end;
+  int chunk, n_splits;
+};
+
+__device__ __forceinline__ void fd_unpack(const uint4& x, float* f, const float*) {
+  f[0] = __uint_as_float(x.x);
+  f[1] = __uint_as_float(x.y);
+  f[2] = __uint_as_float(x.z);
+  f[3] = __uint_as_float(x.w);
+}
+
+__device__ __forceinline__ void fd_unpack(const uint4& x, float* f, const __nv_bfloat16*) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p2[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <typename T, int LPK, int NU, int RR, int KT>
+__global__ void __launch_bounds__(FD_THREADS)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    float* __restrict__ part_ml, float* __restrict__ part_acc, FdParams p) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte load
+  constexpr int KPW = 32 / LPK;        // key slots of a warp
+  constexpr int E = NU * VEC;          // elements of a row a lane holds
+  extern __shared__ __align__(16) float fd_smem[];  // [slot][row][d + 2]
+
+  const int split = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int hkv = p.h / p.groups;
+  const int b = bh / hkv, hk = bh % hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ks = lane / LPK, sl = lane % LPK;
+  const int64_t s0 = p.j_begin + (int64_t)split * p.chunk;
+  const int64_t s1 = min(s0 + p.chunk, p.j_end);
+
+  float qr[RR][E];
+  int64_t pos[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const bool live = r < p.rows;
+    const int g = live ? r / p.lq : 0, i = live ? r % p.lq : 0;
+    pos[r] = (int64_t)i + p.lk - p.lq;
+    const T* qrow = q + b * p.sq[0] + (int64_t)(hk * p.groups + g) * p.sq[1] + i * p.sq[2];
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int col = (sl + LPK * u) * VEC;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (live && col < p.d) x = __ldg(reinterpret_cast<const uint4*>(qrow + col));
+      fd_unpack(x, &qr[r][u * VEC], (const T*)nullptr);
+    }
+  }
+
+  float m[RR], l[RR], acc[RR][E];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    m[r] = FA_NEG_INF;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
+  }
+
+  const T* kb = k + b * p.sk[0] + hk * p.sk[1];
+  const T* vb = v + b * p.sv[0] + hk * p.sv[1];
+  for (int64_t t = s0 + warp * KPW * KT; t < s1; t += FD_WARPS * KPW * KT) {
+    uint4 kx[KT][NU], vx[KT][NU];
+    bool ok[KT];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      const int64_t j = t + kt * KPW + ks;
+      ok[kt] = j < s1;
+      const int64_t jj = ok[kt] ? j : s0;  // a valid row; its values are not used
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int col = (sl + LPK * u) * VEC;
+        const int cc = col < p.d ? col : 0;
+        kx[kt][u] = __ldg(reinterpret_cast<const uint4*>(kb + jj * p.sk[2] + cc));
+        vx[kt][u] = __ldg(reinterpret_cast<const uint4*>(vb + jj * p.sv[2] + cc));
+      }
+    }
+
+    // Scores: lane partials over its columns, summed over the key's LPK lanes.
+    float s[RR][KT];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      float kf[E];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) fd_unpack(kx[kt][u], &kf[u * VEC], (const T*)nullptr);
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+        if ((sl + LPK * u) * VEC >= p.d)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kf[u * VEC + e] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        float x = 0.0f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) x = fmaf(qr[r][e], kf[e], x);
+        s[r][kt] = x;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RR; ++r)
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+        for (int o = LPK / 2; o > 0; o >>= 1)
+          s[r][kt] += __shfl_xor_sync(FA_FULL, s[r][kt], o);
+
+    // Online softmax of each row over this key slot's KT keys.
+    float pr[RR][KT];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      float tmax = FA_NEG_INF;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        const int64_t j = t + kt * KPW + ks;
+        bool vis = ok[kt];
+        if (p.causal) vis = vis && j <= pos[r];
+        if (p.has_window) vis = vis && j > pos[r] - p.window;
+        s[r][kt] = vis ? s[r][kt] * p.scale : FA_NEG_INF;
+        tmax = fmaxf(tmax, s[r][kt]);
+      }
+      const float m_new = fmaxf(m[r], tmax);
+      const float alpha = expf(m[r] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        pr[r][kt] = ok[kt] ? expf(s[r][kt] - m_new) : 0.0f;
+        sum += pr[r][kt];
+      }
+      l[r] = l[r] * alpha + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
+    }
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      float vf[E];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) fd_unpack(vx[kt][u], &vf[u * VEC], (const T*)nullptr);
+#pragma unroll
+      for (int r = 0; r < RR; ++r)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pr[r][kt], vf[e], acc[r][e]);
+    }
+  }
+
+  // Merge the block's key slots into the split's partial.
+  const int width = p.d + 2;
+  float* mine = fd_smem + (size_t)(warp * KPW + ks) * p.rows * width;
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    if (r >= p.rows) continue;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int col = (sl + LPK * u) * VEC;
+      if (col < p.d)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) mine[r * width + col + e] = acc[r][u * VEC + e];
+    }
+    if (sl == 0) {
+      mine[r * width + p.d] = m[r];
+      mine[r * width + p.d + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  const int n_slots = FD_WARPS * KPW;
+  const int64_t part = (int64_t)bh * p.n_splits + split;
+  for (int idx = threadIdx.x; idx < p.rows * p.d; idx += FD_THREADS) {
+    const int r = idx / p.d, c = idx % p.d;
+    float mx = FA_NEG_INF;
+    for (int sidx = 0; sidx < n_slots; ++sidx)
+      mx = fmaxf(mx, fd_smem[((size_t)sidx * p.rows + r) * width + p.d]);
+    float lsum = 0.0f, a = 0.0f;
+    for (int sidx = 0; sidx < n_slots; ++sidx) {
+      const float* slot = fd_smem + ((size_t)sidx * p.rows + r) * width;
+      const float w = expf(slot[p.d] - mx);
+      lsum = fmaf(w, slot[p.d + 1], lsum);
+      a = fmaf(w, slot[c], a);
+    }
+    part_acc[(part * p.rows + r) * p.d + c] = a;
+    if (c == 0) {
+      part_ml[(part * p.rows + r) * 2] = mx;
+      part_ml[(part * p.rows + r) * 2 + 1] = lsum;
+    }
+  }
+}
+
+struct FcParams {
+  int h, groups, lq, d, rows, n_splits;
+  int64_t so[3];  // output strides in elements: batch, head, position
+};
+
+// One block per (batch·KV head, 256 outputs): the rows' split weights
+// e^{m_s - M} / max(L, 1e-30) are computed once into shared memory, then
+// each thread sums its output over the splits in split order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+                     T* __restrict__ o, FcParams p) {
+  extern __shared__ float fc_w[];  // [rows][n_splits]: m, then the weight
+  const int bh = blockIdx.x;
+  const int hkv = p.h / p.groups;
+  const int b = bh / hkv, hk = bh % hkv;
+  const int n = p.n_splits;
+  const float* ml = part_ml + (int64_t)bh * n * p.rows * 2;
+  for (int idx = threadIdx.x; idx < p.rows * n; idx += blockDim.x) {
+    const int r = idx / n, s = idx % n;
+    fc_w[idx] = ml[((int64_t)s * p.rows + r) * 2];
+  }
+  __syncthreads();
+  if (threadIdx.x < p.rows) {
+    const int r = threadIdx.x;
+    float mx = FA_NEG_INF;
+    for (int s = 0; s < n; ++s) mx = fmaxf(mx, fc_w[r * n + s]);
+    float lsum = 0.0f;
+    for (int s = 0; s < n; ++s) {
+      const float w = expf(fc_w[r * n + s] - mx);
+      fc_w[r * n + s] = w;
+      lsum = fmaf(w, ml[((int64_t)s * p.rows + r) * 2 + 1], lsum);
+    }
+    const float inv = 1.0f / fmaxf(lsum, 1e-30f);
+    for (int s = 0; s < n; ++s) fc_w[r * n + s] *= inv;
+  }
+  __syncthreads();
+  const int idx = blockIdx.y * blockDim.x + threadIdx.x;
+  if (idx >= p.rows * p.d) return;
+  const int r = idx / p.d, c = idx % p.d;
+  const int g = r / p.lq, i = r % p.lq;
+  const float* acc = part_acc + ((int64_t)bh * n * p.rows + r) * p.d + c;
+  const int64_t split_stride = (int64_t)p.rows * p.d;
+  float a = 0.0f;
+#pragma unroll 4
+  for (int s = 0; s < n; ++s) a = fmaf(fc_w[r * n + s], acc[s * split_stride], a);
+  fa_store(o + b * p.so[0] + (int64_t)(hk * p.groups + g) * p.so[1] + i * p.so[2] + c, a);
+}
+
+template <typename T, int LPK, int NU>
+static int decode_launch_lpk(const void* q, const void* k, const void* v, float* ml, float* acc,
+                             int64_t b, int64_t hkv, const FdParams& p, cudaStream_t stream) {
+  const dim3 grid((unsigned)p.n_splits, (unsigned)(b * hkv));
+  const size_t smem = sizeof(float) * (size_t)FD_WARPS * (32 / LPK) * p.rows * (p.d + 2);
+  if (p.rows <= 2)
+    flash_decode_kernel<T, LPK, NU, 2, 8><<<grid, FD_THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+  else
+    flash_decode_kernel<T, LPK, NU, FD_MAX_ROWS, 4><<<grid, FD_THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int decode_launch_t(const void* q, const void* k, const void* v, float* ml, float* acc,
+                           int64_t b, int64_t hkv, const FdParams& p, cudaStream_t stream) {
+  const int nvec = p.d * (int)sizeof(T) / 16;  // 16-byte pieces of a row
+  if (nvec <= 4) return decode_launch_lpk<T, 4, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+  if (nvec <= 8) return decode_launch_lpk<T, 8, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+  if (nvec <= 16) return decode_launch_lpk<T, 16, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+  if constexpr (sizeof(T) == 4) {  // fp32 rows above 128 elements: two loads a lane
+    if (nvec > 32) return decode_launch_lpk<T, 32, 2>(q, k, v, ml, acc, b, hkv, p, stream);
+  }
+  return decode_launch_lpk<T, 32, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+}
+
+// Partials of the decode variant.  a: 23 int64, packed once per input
+// geometry by kernel.py (a call converts fewer arguments): b, h, hkv, lq,
+// lk, d, the 9 strides of q, k, v (each batch, head, position), causal,
+// has_window, window, j_begin, j_end, chunk, n_splits, dtype (0 = fp32,
+// 1 = bf16).  ml: (B·Hkv, n_splits, rows, 2) and acc: (B·Hkv, n_splits,
+// rows, D) fp32 scratch.  The launcher in kernel.py has checked
+// rows = Lq·(H/Hkv) <= FD_MAX_ROWS, D·itemsize a multiple of 16 bytes,
+// 16-byte aligned bases and strides, and chosen [j_begin, j_end), chunk
+// and n_splits.
+extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, void* ml,
+                                   void* acc, const int64_t* a, float scale, void* stream) {
+  const int64_t b = a[0], h = a[1], hkv = a[2], lq = a[3], lk = a[4], d = a[5];
+  const int64_t* strides = a + 6;
+  const int causal = (int)a[15], has_window = (int)a[16];
+  const int64_t window = a[17], j_begin = a[18], j_end = a[19], chunk = a[20];
+  const int64_t n_splits = a[21];
+  const int dtype = (int)a[22];
+  const int64_t esize = dtype == 0 ? 4 : 2;
+  if (d < 1 || d > 256 || (d * esize) % 16 != 0 || hkv < 1 || h % hkv != 0 ||
+      lq * (h / hkv) > FD_MAX_ROWS || b * hkv > 65535 || chunk < 1 || n_splits < 1 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (lq <= 0 || b * h <= 0) return 0;
+  FdParams p;
+  p.h = (int)h;
+  p.groups = (int)(h / hkv);
+  p.lq = (int)lq;
+  p.lk = (int)lk;
+  p.d = (int)d;
+  p.rows = (int)(lq * p.groups);
+  for (int i = 0; i < 3; ++i) {
+    p.sq[i] = strides[i];
+    p.sk[i] = strides[3 + i];
+    p.sv[i] = strides[6 + i];
+  }
+  p.causal = causal;
+  p.has_window = has_window;
+  p.window = window;
+  p.scale = scale;
+  p.j_begin = j_begin;
+  p.j_end = j_end;
+  p.chunk = (int)chunk;
+  p.n_splits = (int)n_splits;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return decode_launch_t<float>(q, k, v, (float*)ml, (float*)acc, b, hkv, p, s);
+  return decode_launch_t<__nv_bfloat16>(q, k, v, (float*)ml, (float*)acc, b, hkv, p, s);
+}
+
+// The merge of the decode variant's partials into o.  a: 10 int64, b, h,
+// hkv, lq, d, n_splits, the 3 strides of o (batch, head, position), dtype
+// (0 = fp32, 1 = bf16).
+extern "C" int flash_combine_launch(const void* ml, const void* acc, void* o, const int64_t* a,
+                                    void* stream) {
+  const int64_t b = a[0], h = a[1], hkv = a[2], lq = a[3], d = a[4], n_splits = a[5];
+  const int64_t* strides = a + 6;
+  const int dtype = (int)a[9];
+  if (d < 1 || hkv < 1 || h % hkv != 0 || b * hkv > 2147483647 || n_splits < 1 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (lq <= 0 || b * h <= 0) return 0;
+  FcParams p;
+  p.h = (int)h;
+  p.groups = (int)(h / hkv);
+  p.lq = (int)lq;
+  p.d = (int)d;
+  p.rows = (int)(lq * p.groups);
+  p.n_splits = (int)n_splits;
+  for (int i = 0; i < 3; ++i) p.so[i] = strides[i];
+  const dim3 grid((unsigned)(b * hkv), (unsigned)((p.rows * p.d + 255) / 256));
+  const size_t smem = sizeof(float) * (size_t)p.rows * p.n_splits;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // the decode plan stays far below
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    flash_combine_kernel<float><<<grid, 256, smem, s>>>((const float*)ml, (const float*)acc,
+                                                        (float*)o, p);
+  else
+    flash_combine_kernel<__nv_bfloat16><<<grid, 256, smem, s>>>(
+        (const float*)ml, (const float*)acc, (__nv_bfloat16*)o, p);
+  return (int)cudaGetLastError();
 }

@@ -2,8 +2,10 @@
 
 Sources live in ``src/repro_torch/csrc/``: ``fold.cu`` (the multi-stage
 fold of the device engine), ``intersect.cu`` (the intersect trio),
-``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means) and
-``flash_attention.cu`` (the attention of the LM serving path).
+``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means),
+``flash_attention.cu`` (the general and the split-K decode attention
+kernels of the LM serving path, with the decode's combine) and
+``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel).
 Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 its own shared library under ``build/repro_torch/`` at the repository
 root, named by a hash of the source and the compiler flags, so an edited
@@ -43,7 +45,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fold", "intersect", "cluster_score", "flash_attention")
+SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,11 +69,21 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (
             _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _I, _P),
+        "flash_decode_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_combine_launch": (_P, _P, _P, ctypes.POINTER(_L), _P),
+    },
+    "flash_attention_sm90": {
+        "flash_attention_sm90_launch": (
+            _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _P),
     },
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
-# kernel is launched (never on the plain CPU path).
+# kernel is launched (never on the plain CPU path).  The attention
+# launcher counts each call as ``flash_attention_kernel`` and each launch
+# of the variant it took: ``flash_attention_sm90`` (bf16 tensor-core
+# prefill), ``flash_attention_decode`` and ``flash_attention_combine``
+# (split-K decode, two launches a call) or ``flash_attention_general``.
 LAUNCHES: Dict[str, int] = {
     "segment_fold": 0,
     "intersect_members_kernel": 0,
@@ -79,11 +91,16 @@ LAUNCHES: Dict[str, int] = {
     "intersect_count_kernel": 0,
     "cluster_scores_kernel": 0,
     "flash_attention_kernel": 0,
+    "flash_attention_sm90": 0,
+    "flash_attention_decode": 0,
+    "flash_attention_combine": 0,
+    "flash_attention_general": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas's lines for each kernel compiled by this process: its entry
-# function, then its registers, stack and spills.
+# function, then its registers, stack and spills, and any warning that
+# wgmma instructions were serialized ("Potential Performance Loss").
 PTXAS: Dict[str, list] = {}
 _build_lock = threading.Lock()
 
@@ -137,8 +154,8 @@ def build_libraries() -> Dict[str, Path]:
                 else:
                     os.replace(tmp, paths[stem])
                     PTXAS[stem] = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
-                                   if "entry function" in ln or "registers" in ln
-                                   or "spill" in ln]
+                                   if "entry function" in ln or "Used" in ln or "spill" in ln
+                                   or "Performance Loss" in ln]
             if errors:
                 raise RuntimeError("\n".join(errors))
         for stem in SOURCES:

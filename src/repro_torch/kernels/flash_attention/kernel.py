@@ -1,42 +1,84 @@
-"""Launcher of the attention kernel (``csrc/flash_attention.cu``).
+"""Launcher of the attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_sm90.cu``).
 
-The library is built, loaded and counted by
-:mod:`repro_torch.kernels.build`.  The launcher checks device, dtype,
-shapes and strides, allocates the output with ``torch.empty_like(q)``
-(so it keeps q's layout: a (B, H, L, D) view of a (B, L, H, D) buffer
-gets a (B, L, H, D) buffer back), launches on
-``torch.cuda.current_stream()``, raises when the launch reports a CUDA
-error, and adds one to ``LAUNCHES["flash_attention_kernel"]`` per launch.
+The libraries are built, loaded and counted by
+:mod:`repro_torch.kernels.build`.  :func:`flash_attention_cuda` checks
+device, dtype, shapes and strides, allocates the output with
+``torch.empty_like(q)`` (so it keeps q's layout: a (B, H, L, D) view of a
+(B, L, H, D) buffer gets a (B, L, H, D) buffer back) and picks one variant
+by dtype and shape (:func:`flash_route`), with no fallback:
+
+- ``"decode"``: Lq·(H/Hkv) <= :data:`DECODE_MAX_ROWS` and D·itemsize a
+  multiple of 16 bytes, fp32 or bf16.  The split-K kernel
+  (:func:`decode_partials_cuda`, one block per batch, KV head and key
+  split, fp32 arithmetic) then the combine (:func:`combine_cuda`).
+- ``"sm90"``: bf16 with D in :data:`SM90_HEAD_DIMS` otherwise.  The
+  tensor-core prefill kernel (wgmma, TMA); P is rounded to bf16 for P·V.
+- ``"general"``: everything else (fp32 at longer Lq, other head dims):
+  the fp32-arithmetic kernel of the first port.
+
+The decode and sm90 variants read with 16-byte loads or TMA, so they
+raise ``ValueError`` when a base pointer or a stride (of a dimension
+longer than 1) is not a multiple of 16 bytes.  Every launch runs on
+``torch.cuda.current_stream()`` and raises when it reports a CUDA error.
+Each call adds one to ``LAUNCHES["flash_attention_kernel"]`` and one to
+the counter of each kernel it launched.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
-__all__ = ["MAX_HEAD_DIM", "flash_attention_cuda"]
+__all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "SM90_HEAD_DIMS", "combine_cuda",
+           "decode_partials_cuda", "decode_plan", "flash_attention_cuda", "flash_route"]
 
 MAX_HEAD_DIM = 256
+# Query rows (Lq·(H/Hkv)) of one (batch, KV head) that the decode variant
+# holds in one block.
+DECODE_MAX_ROWS = 8
+SM90_HEAD_DIMS = (64, 128, 256)
+# Blocks the decode variant aims at per SM; keys per split are a multiple
+# of DECODE_CHUNK_STEP and at least that.
+DECODE_BLOCKS_PER_SM = 4
+DECODE_CHUNK_STEP = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _INT32_MAX = 2**31 - 1
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    causal: bool = True,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """(B, H, Lq, D) attention in q's dtype; the contract of
-    :func:`repro_torch.kernels.flash_attention.ref.attention_ref` for
-    inputs in which every query row sees at least one key (Lk >= Lq when
-    causal, window >= 1)."""
-    name = "flash_attention_kernel"
+def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, d: int) -> str:
+    """The variant that :func:`flash_attention_cuda` launches for these
+    inputs: ``"decode"``, ``"sm90"`` or ``"general"``."""
+    if lq * (h // hkv) <= DECODE_MAX_ROWS and (d * _ITEMSIZE[dtype]) % 16 == 0:
+        return "decode"
+    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
+        return "sm90"
+    return "general"
+
+
+def decode_plan(lq: int, lk: int, window: Optional[int], bhkv: int,
+                sms: int) -> Tuple[int, int, int, int]:
+    """(j_begin, j_end, chunk, n_splits) of the decode variant: the keys
+    [j_begin, j_end) that some query row sees (the rows sit at positions
+    Lk - Lq .. Lk - 1, so causality keeps every key before Lk), cut into
+    ``n_splits`` splits of ``chunk`` keys, enough for
+    ``DECODE_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs over the
+    ``bhkv`` (batch, KV head) pairs.  No split lies outside the window."""
+    j_begin = max(0, lk - lq - window + 1) if window is not None else 0
+    span = lk - j_begin
+    want = max(1, -(-DECODE_BLOCKS_PER_SM * sms // max(bhkv, 1)))
+    chunk = max(DECODE_CHUNK_STEP, -(-span // want))
+    chunk = -(-chunk // DECODE_CHUNK_STEP) * DECODE_CHUNK_STEP
+    return j_begin, lk, chunk, -(-span // chunk)
+
+
+def _check_inputs(q, k, v, causal, window, name) -> None:
     device = q.device
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: expected float32 or bfloat16, got {q.dtype}")
@@ -63,15 +105,181 @@ def flash_attention_cuda(
         raise ValueError(f"{name}: window {window} outside [1, 2**31)")
     if lk < 1 or (causal and lk < lq):
         raise ValueError(f"{name}: every query row must see a key (Lk={lk}, Lq={lq})")
-    out = torch.empty_like(q)
-    if lq == 0 or b * h == 0:
-        return out
-    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, out) for i in range(3)))
-    status = lib("flash_attention").flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
-        strides, int(causal), int(window is not None), int(window or 0),
-        1.0 / d**0.5, _DTYPE_CODES[q.dtype], stream_of(device),
-    )
+
+
+def _misaligned(route: str, shape, stride, itemsize: int, ptr: int) -> Optional[str]:
+    """16-byte loads and TMA need every base and every stride of a
+    dimension longer than 1 to be a multiple of 16 bytes."""
+    if ptr % 16 or any(stride[i] * itemsize % 16 for i in range(3) if shape[i] > 1):
+        return (f"the {route} variant needs 16-byte aligned bases and strides; got base "
+                f"{ptr % 16} bytes past 16 and strides {tuple(stride)} of {itemsize}-byte "
+                f"elements")
+    return None
+
+
+def _int64s(values) -> ctypes.Array:
+    values = list(values)
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+class _Launch:
+    """What one input geometry (shapes, strides, dtype, device, masks)
+    needs at every call, checked and computed once: the variant, the
+    strides handed to the kernels (q, k, v and the output), the mask
+    arguments and the decode plan."""
+
+    def __init__(self, q, k, v, causal, window, name):
+        _check_inputs(q, k, v, causal, window, name)
+        b, h, lq, d = q.shape
+        hkv, lk = k.shape[1], k.shape[2]
+        self.dims = (b, h, hkv, lq, lk, d)
+        self.empty = lq == 0 or b * h == 0
+        self.route = flash_route(q.dtype, h, hkv, lq, d)
+        out_stride = torch.empty_like(q, device="meta").stride()
+        self.mask = (int(causal), int(window is not None), int(window or 0))
+        self.scale = 1.0 / d**0.5
+        self.dtype_code = _DTYPE_CODES[q.dtype]
+        self.itemsize = _ITEMSIZE[q.dtype]
+        self.strides = _int64s(st[i] for st in (q.stride(), k.stride(), v.stride(), out_stride)
+                               for i in range(3))
+        if self.route == "decode":
+            self.plan = decode_plan(lq, lk, window, b * hkv,
+                                    _sm_count(q.device.index) if not self.empty else 1)
+            rows = lq * (h // hkv)
+            self.ml_numel = b * hkv * self.plan[3] * rows * 2
+            self.scratch_numel = self.ml_numel + b * hkv * self.plan[3] * rows * d
+            self.decode_args = _decode_args(self.dims, self.strides[:9], self.mask, self.plan,
+                                            self.dtype_code)
+            self.combine_args = _int64s((b, h, hkv, lq, d, self.plan[3], *out_stride[:3],
+                                         self.dtype_code))
+        if self.route != "general":
+            for shape, stride in ((q.shape, q.stride()), (k.shape, k.stride()),
+                                  (v.shape, v.stride()), (q.shape, out_stride)):
+                why = _misaligned(self.route, shape, stride, self.itemsize, 0)
+                if why:
+                    raise ValueError(f"{name}: {why}")
+
+    def check_bases(self, name, *tensors) -> None:
+        for t in tensors:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: " + _misaligned(self.route, t.shape, t.stride(),
+                                                           self.itemsize, t.data_ptr()))
+
+
+_LAUNCHES_BY_GEOMETRY: Dict[tuple, _Launch] = {}
+_MAX_GEOMETRIES = 4096
+
+
+def _launch_of(q, k, v, causal, window, name) -> _Launch:
+    key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(), q.dtype, k.dtype,
+           v.dtype, q.device, k.device, v.device, bool(causal), window)
+    found = _LAUNCHES_BY_GEOMETRY.get(key)
+    if found is None:
+        if len(_LAUNCHES_BY_GEOMETRY) >= _MAX_GEOMETRIES:  # a growing cache makes new ones
+            _LAUNCHES_BY_GEOMETRY.clear()
+        found = _LAUNCHES_BY_GEOMETRY[key] = _Launch(q, k, v, causal, window, name)
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_partials_cuda(q, k, v, causal: bool, window: Optional[int],
+                         plan: Tuple[int, int, int, int]):
+    """The decode variant's first kernel: for each (batch, KV head,
+    split) the fp32 (max, sum) ``ml`` (B·Hkv, n_splits, rows, 2) and
+    unnormalised accumulator ``acc`` (B·Hkv, n_splits, rows, D) of the
+    rows r = g·Lq + i over the split's keys of ``plan``
+    (:func:`decode_plan`)."""
+    name = "flash_attention_decode"
+    launch = _launch_of(q, k, v, causal, window, name)
+    if launch.route != "decode":
+        raise ValueError(f"{name}: these inputs take the {launch.route} variant")
+    launch.check_bases(name, q, k, v)
+    b, h, hkv, lq, lk, d = launch.dims
+    rows = lq * (h // hkv)
+    ml = torch.empty((b * hkv, plan[3], rows, 2), dtype=torch.float32, device=q.device)
+    acc = torch.empty((b * hkv, plan[3], rows, d), dtype=torch.float32, device=q.device)
+    _decode(ml.data_ptr(), acc.data_ptr(), q, k, v,
+            _decode_args(launch.dims, launch.strides[:9], launch.mask, plan, launch.dtype_code),
+            launch.scale, stream_of(q.device))
+    return ml, acc
+
+
+def combine_cuda(ml: torch.Tensor, acc: torch.Tensor, out: torch.Tensor, hkv: int) -> None:
+    """The decode variant's second kernel: merges the splits of
+    :func:`decode_partials_cuda` in split order into ``out`` (B, H, Lq, D)
+    in place."""
+    b, h, lq, d = out.shape
+    _combine(ml.data_ptr(), acc.data_ptr(), out,
+             _int64s((b, h, hkv, lq, d, ml.shape[1], *out.stride()[:3], _DTYPE_CODES[out.dtype])),
+             stream_of(out.device))
+
+
+def _decode_args(dims, strides, mask, plan, dtype_code) -> ctypes.Array:
+    """The decode launcher's scalar arguments, packed (see
+    ``flash_decode_launch``): a call then converts 8 arguments, not 23."""
+    return _int64s((*dims, *strides, *mask, *plan, dtype_code))
+
+
+def _decode(ml_ptr: int, acc_ptr: int, q, k, v, args, scale: float, stream: int) -> None:
+    name = "flash_attention_decode"
+    status = lib("flash_attention").flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ml_ptr, acc_ptr, args, scale, stream)
     check(status, name)
+    LAUNCHES[name] += 1
+
+
+def _combine(ml_ptr: int, acc_ptr: int, out, args, stream: int) -> None:
+    name = "flash_attention_combine"
+    status = lib("flash_attention").flash_combine_launch(ml_ptr, acc_ptr, out.data_ptr(), args,
+                                                         stream)
+    check(status, name)
+    LAUNCHES[name] += 1
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """(B, H, Lq, D) attention in q's dtype; the contract of
+    :func:`repro_torch.kernels.flash_attention.ref.attention_ref` for
+    inputs in which every query row sees at least one key (Lk >= Lq when
+    causal, window >= 1), through the variant :func:`flash_route` names.
+    What depends only on the inputs' geometry is checked and computed at
+    its first call and kept (``_Launch``)."""
+    name = "flash_attention_kernel"
+    launch = _launch_of(q, k, v, causal, window, name)
+    out = torch.empty_like(q)
+    if launch.empty:
+        return out
+    b, h, hkv, lq, lk, d = launch.dims
+    stream = stream_of(q.device)
+    if launch.route == "decode":
+        # One fp32 scratch for the partials: (max, sum) first, then acc.
+        launch.check_bases("flash_attention_decode", q, k, v)
+        scratch = torch.empty(launch.scratch_numel, dtype=torch.float32, device=q.device)
+        ml_ptr = scratch.data_ptr()
+        acc_ptr = ml_ptr + 4 * launch.ml_numel
+        _decode(ml_ptr, acc_ptr, q, k, v, launch.decode_args, launch.scale, stream)
+        _combine(ml_ptr, acc_ptr, out, launch.combine_args, stream)
+    elif launch.route == "sm90":
+        launch.check_bases("flash_attention_sm90", q, k, v, out)
+        status = lib("flash_attention_sm90").flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
+            launch.strides, *launch.mask, launch.scale, stream)
+        check(status, "flash_attention_sm90")
+        LAUNCHES["flash_attention_sm90"] += 1
+    else:
+        status = lib("flash_attention").flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
+            launch.strides, *launch.mask, launch.scale, launch.dtype_code, stream)
+        check(status, "flash_attention_general")
+        LAUNCHES["flash_attention_general"] += 1
     LAUNCHES[name] += 1
     return out

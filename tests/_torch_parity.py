@@ -73,9 +73,14 @@ def make_rows(rng, b, ls, ll, universe, holes=False):
 # checks against its plain version on the card (chip_smoke.py and
 # tests/test_torch_cuda_kernels.py): Lq = 1, Lq = Lk, ragged Lk > Lq, D in
 # {16, 64, 80, 128, 256}, windows None / 1 / 8 / 1024 / 2**30, causal False,
-# H / Hkv in {1, 2, 4}, and the LM path's own shapes (gemma3-4b, 8 requests:
-# a global layer's decode over 2064 keys, a local and a global layer's
-# 2048-token prefill, where the window skips key tiles).
+# H / Hkv in {1, 2, 3, 4, 8, 16}, and the LM path's own shapes (gemma3-4b,
+# 8 requests: a global layer's decode over 2064 keys, a local and a global
+# layer's 2048-token prefill, where the window skips key tiles).  The
+# variants' edges (kernel.flash_route): decode with Lk below one split,
+# Lk = 1, a window of one key, a ragged key tail (2049), two query
+# positions and the largest group (8 rows); sm90 prefill with one partial
+# key tile, 9 rows (just past the decode limit, H/Hkv odd) and a single
+# key at H/Hkv = 16.
 FLASH_CASES = [
     (2, 4, 4, 1, 300, 64, True, None), (1, 2, 2, 128, 128, 64, True, None),
     (2, 4, 2, 37, 100, 128, True, 8), (1, 8, 2, 1, 2064, 256, True, 1024),
@@ -84,7 +89,22 @@ FLASH_CASES = [
     (1, 4, 1, 200, 200, 128, True, 1024), (1, 2, 2, 40, 40, 80, True, None),
     (2, 8, 4, 300, 300, 256, True, 1024), (8, 8, 4, 1, 2064, 256, True, 2**30),
     (8, 8, 4, 2048, 2048, 256, True, 1024), (8, 8, 4, 2048, 2048, 256, True, 2**30),
+    (2, 4, 2, 1, 20, 128, True, None), (1, 4, 4, 1, 1, 64, True, None),
+    (2, 8, 4, 1, 2064, 256, True, 1), (2, 8, 4, 1, 2049, 256, True, 2**30),
+    (1, 4, 2, 2, 77, 128, True, 16), (1, 8, 1, 1, 500, 64, True, None),
+    (1, 2, 1, 10, 10, 128, True, None), (1, 3, 1, 3, 90, 64, True, None),
+    (1, 16, 1, 1, 1, 64, True, None), (1, 4, 2, 70, 130, 64, False, 32),
 ]
+# The counter of each attention variant's kernels (kernel.flash_route picks
+# one a call; decode launches its split kernel and its combine), and what a
+# call of each variant adds to them.
+FLASH_VARIANTS = ("flash_attention_sm90", "flash_attention_decode", "flash_attention_combine",
+                  "flash_attention_general")
+VARIANT_LAUNCHES = {
+    "decode": {"flash_attention_decode": 1, "flash_attention_combine": 1},
+    "sm90": {"flash_attention_sm90": 1},
+    "general": {"flash_attention_general": 1},
+}
 # (rtol, atol) of the kernel's output against the plain version computed
 # in float32 from the same inputs (TF32 off).  float32: the reference's
 # tolerance (tests/test_kernels_flash_attention.py:50-51).  bfloat16: the
@@ -95,6 +115,22 @@ FLASH_CASES = [
 # tolerance (3e-2, :88) is about the size of a decode output at head dim
 # 256, too wide to see a key tile dropped.
 FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2**-8, 1e-5)}
+# The sm90 prefill variant also rounds each probability p_j to bf16 for
+# the P·V product (the row sum l stays the sum of the fp32 p).  A rounding
+# moves p_j by at most the bf16 unit roundoff, 2**-8 · p_j, so an output
+# element moves by at most 2**-8 · Σ_j p_j |v_jd| / l: P_ROUNDING times the
+# plain attention of |v| (``p_rounding_term``).  That variant's limit adds
+# this term to FLASH_TOL; the fp32 and decode variants keep FLASH_TOL.
+P_ROUNDING = 2**-8
+
+
+def p_rounding_term(q, k, v, causal, window):
+    """``P_ROUNDING`` times the plain attention of |v| (float32): the sm90
+    variant's extra limit per output element."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return P_ROUNDING * attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                                      window=window)
 
 
 def flash_inputs(device, dtype, b, h, hkv, lq, lk, d, seed, model_layout=False):
@@ -111,10 +147,11 @@ def flash_inputs(device, dtype, b, h, hkv, lq, lk, d, seed, model_layout=False):
     return [t.transpose(1, 2).contiguous() for t in bufs]
 
 
-def flash_error(got, want) -> tuple[float, float]:
+def flash_error(got, want, extra=None) -> tuple[float, float]:
     """The largest |got - want| of the kernel's output ``got`` against the
     plain version ``want`` (float32), and the largest share of its limit
-    ``atol + rtol·|want|`` (``FLASH_TOL`` of got's dtype); raises when the
+    ``atol + rtol·|want|`` (``FLASH_TOL`` of got's dtype), plus ``extra``
+    where given (``p_rounding_term`` for the sm90 variant); raises when the
     shapes differ or ``got`` is not finite."""
     import torch
 
@@ -127,14 +164,18 @@ def flash_error(got, want) -> tuple[float, float]:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("non-finite output")
     err = (got - want).abs()
-    return float(err.max()), float((err / (atol + rtol * want.abs())).max())
+    limit = atol + rtol * want.abs()
+    if extra is not None:
+        limit = limit + extra
+    return float(err.max()), float((err / limit).max())
 
 
-def flash_close(got, want) -> tuple[float, float]:
+def flash_close(got, want, extra=None) -> tuple[float, float]:
     """``flash_error``, raising when an element lies outside its limit."""
-    err, share = flash_error(got, want)
+    err, share = flash_error(got, want, extra)
     if share > 1.0:
         rtol, atol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
-        raise AssertionError(f"disagrees with the plain version beyond rtol={rtol}, atol={atol} "
-                             f"(max |err| {err}, {share:.3g} of the limit)")
+        plus = "" if extra is None else " + P_ROUNDING·attention(|v|)"
+        raise AssertionError(f"disagrees with the plain version beyond rtol={rtol}, atol={atol}"
+                             f"{plus} (max |err| {err}, {share:.3g} of the limit)")
     return err, share

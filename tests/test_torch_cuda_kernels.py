@@ -16,8 +16,13 @@ take and that a missing compiler raises.
 
 ``flash_attention`` is held against its plain version computed in
 float32 from the same inputs (TF32 off), at the cases and within the
-tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``) that
-``chip_smoke.py`` uses too.
+tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``, plus
+``p_rounding_term`` for the sm90 variant, which rounds P to bf16) that
+``chip_smoke.py`` uses too; each case asserts from the launch counters
+which variant it took (``kernel.flash_route``).  The decode variant's two
+kernels are also held one by one against their plain versions, and the
+launcher must refuse a misaligned base or stride for the variants that
+read with 16-byte loads or TMA.
 """
 
 from pathlib import Path
@@ -26,14 +31,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import FLASH_CASES, flash_close, flash_inputs, make_rows
+from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, VARIANT_LAUNCHES, flash_close,
+                           flash_inputs, make_rows, p_rounding_term)
 from repro_torch.kernels import build as B
 from repro_torch.kernels.cluster_score import kernel as CK
 from repro_torch.kernels.cluster_score import ops as cops
 from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, combine_ref, decode_partials_ref
 from repro_torch.kernels.intersect import kernel as K
 from repro_torch.kernels.intersect import ops, ref
 from repro_torch.kernels.intersect.ref import PAD
@@ -249,12 +255,72 @@ def test_flash_attention_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, 
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=lq + lk + d,
                            model_layout=lk % 2 == 0)
-    before = B.LAUNCHES["flash_attention_kernel"]
+    route = FK.flash_route(dtype, h, hkv, lq, d)
+    before = dict(B.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert B.LAUNCHES["flash_attention_kernel"] == before + 1
+    assert B.LAUNCHES["flash_attention_kernel"] == before["flash_attention_kernel"] + 1
+    launched = {n: B.LAUNCHES[n] - before[n] for n in FLASH_VARIANTS}
+    assert launched == {n: VARIANT_LAUNCHES[route].get(n, 0) for n in FLASH_VARIANTS}
     assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
-    flash_close(got, attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window))
+    extra = p_rounding_term(q, k, v, causal, window) if route == "sm90" else None
+    flash_close(got, attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window),
+                extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window",
+                         [c for c in FLASH_CASES if FK.flash_route(torch.bfloat16, c[1], c[2], c[3],
+                                                                   c[5]) == "decode"])
+def test_flash_decode_kernels_equal_their_plain_versions(cuda_device, dtype, b, h, hkv, lq, lk, d,
+                                                         causal, window):
+    """The split kernel's partials against ``decode_partials_ref`` (fp32
+    sums in another order: rtol 1e-4, atol 1e-4 of the largest |acc|), and
+    the combine kernel on the plain partials against ``combine_ref``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=lk + d, model_layout=True)
+    plan = FK.decode_plan(lq, lk, window, b * hkv,
+                          torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    ml, acc = FK.decode_partials_cuda(q, k, v, causal, window, plan)
+    want_ml, want_acc = decode_partials_ref(q, k, v, causal, window, plan)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-4 * float(want_acc.abs().max()))
+    out = torch.empty_like(q)
+    FK.combine_cuda(want_ml, want_acc, out, hkv)
+    want = combine_ref(want_ml, want_acc, b, h, hkv, lq, torch.float32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    else:  # one rounding to bf16 of nearly the same fp32 value
+        torch.testing.assert_close(out.float(), want, rtol=2**-8, atol=1e-5)
+
+
+def _offset_view(shape, dtype, device, offset):
+    """A dense (B, H, L, D) view starting ``offset`` elements into a buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype, device=device)[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,h,hkv,d,dtype", [(1, 8, 4, 256, torch.bfloat16),
+                                              (1, 4, 4, 64, torch.float32),
+                                              (128, 8, 4, 256, torch.bfloat16)],
+                         ids=["decode_bf16", "decode_f32", "sm90"])
+def test_flash_attention_refuses_misaligned_bases_and_strides(cuda_device, lq, h, hkv, d, dtype):
+    route = FK.flash_route(dtype, h, hkv, lq, d)
+    lk = 200
+    q = torch.zeros((1, h, lq, d), dtype=dtype, device=cuda_device)
+    k = torch.zeros((1, hkv, lk, d), dtype=dtype, device=cuda_device)
+    before = dict(B.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{route} variant needs 16-byte aligned"):
+        flash_attention(_offset_view(q.shape, dtype, cuda_device, 1), k, k)
+    with pytest.raises(ValueError, match=f"{route} variant needs 16-byte aligned"):
+        flash_attention(q, _offset_view(k.shape, dtype, cuda_device, 1), k)
+    # a position stride of D + 1 elements
+    wide = torch.zeros((1, hkv, lk, d + 1), dtype=dtype, device=cuda_device)[..., :d]
+    with pytest.raises(ValueError, match=f"{route} variant needs 16-byte aligned"):
+        flash_attention(q, k, wide)
+    assert B.LAUNCHES == before  # refused before any launch, no fallback
 
 
 @pytest.mark.cuda

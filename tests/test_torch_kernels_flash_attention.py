@@ -7,6 +7,14 @@ float32 and ``3e-2`` for bfloat16: the tolerances of
 ``tests/test_kernels_flash_attention.py``.  GQA inputs (Hkv < H) are held
 against the reference fed K/V repeated over each head group.  Every case
 stays at 256 keys or fewer: the Pallas kernel runs interpreted.
+
+The CUDA launcher's variants are checked here where the CPU can: which
+variant each input takes (``flash_route``), the decode variant's split
+plan and its plain split and merge (``decode_partials_ref``,
+``combine_ref``) against ``attention_ref``, and the sm90 variant's bf16
+limit (``FLASH_TOL`` plus ``P_ROUNDING`` times the plain attention of
+|v|, ``tests/_torch_parity.py``) against an emulation of its arithmetic
+over ``FLASH_CASES`` (the 2048-token cases on their last 64 query rows).
 """
 
 import numpy as np
@@ -15,8 +23,11 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from _torch_parity import FLASH_CASES, flash_close, flash_error, flash_inputs, p_rounding_term
 from repro_torch.kernels import build as B
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention.ref import NEG_INF, combine_ref, decode_partials_ref
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
@@ -102,3 +113,106 @@ def test_gqa_reads_the_head_group_of_each_query_head():
     # query head 5 reads KV head 5 // 4 = 1 only
     alone = attention_ref(q[:, 5:6], k[:, 1:2], v[:, 1:2], causal=True, window=8)
     assert torch.equal(got[:, 5:6], alone)
+
+
+# ---- the variants of the CUDA launcher, on the CPU: their dispatch, the
+# decode variant's split plan and plain split/merge, and the sm90 variant's
+# bf16 limit ----
+
+SMS = 132  # an H100's SMs: the decode plan the card would choose
+
+
+def _cpu_case(b, h, hkv, lq, lk, d, dtype, seed, rows_kept=None):
+    """``flash_inputs`` on the CPU; with ``rows_kept`` only the last query
+    rows (the same rows of the full case: queries are aligned to the end of
+    the keys), to bound the CPU's memory at the 2048-token cases."""
+    q, k, v = flash_inputs(torch.device("cpu"), dtype, b, h, hkv, lq, lk, d, seed=seed)
+    if rows_kept is not None and lq > rows_kept:
+        q = q[:, :, lq - rows_kept:]
+    return q, k, v
+
+
+def _route(case, dtype):
+    b, h, hkv, lq, lk, d, causal, window = case
+    return FK.flash_route(dtype, h, hkv, lq, d)
+
+
+def test_flash_route_picks_each_variant_by_dtype_and_shape():
+    lm = [(8, 8, 4, 2048, 2048, 256), (8, 8, 4, 1, 2064, 256)]
+    assert [FK.flash_route(torch.bfloat16, h, hkv, lq, d) for _, h, hkv, lq, _, d in lm] == [
+        "sm90", "decode"]
+    assert FK.flash_route(torch.float32, 8, 4, 2048, 256) == "general"
+    assert FK.flash_route(torch.float32, 8, 4, 1, 256) == "decode"
+    assert FK.flash_route(torch.bfloat16, 2, 2, 40, 80) == "general"  # D outside SM90_HEAD_DIMS
+    assert FK.flash_route(torch.bfloat16, 8, 1, 1, 64) == "decode"  # 8 rows: the limit
+    assert FK.flash_route(torch.bfloat16, 3, 1, 3, 64) == "sm90"  # 9 rows
+    assert FK.flash_route(torch.float32, 3, 1, 3, 64) == "general"
+    assert FK.flash_route(torch.bfloat16, 2, 2, 1, 4) == "general"  # 8 bytes a row: no 16-byte loads
+    routes = {_route(c, t) for c in FLASH_CASES for t in (torch.float32, torch.bfloat16)}
+    assert routes == {"decode", "sm90", "general"}
+
+
+@pytest.mark.parametrize("lq,lk,window,bhkv", [
+    (1, 2064, None, 32), (1, 2064, 1024, 32), (1, 1, None, 4), (1, 20, None, 4),
+    (2, 77, 16, 2), (1, 2064, 1, 16), (1, 2049, 2**30, 16), (8, 5000, None, 1)])
+def test_decode_plan_covers_the_visible_keys_in_whole_splits(lq, lk, window, bhkv):
+    j_begin, j_end, chunk, n = FK.decode_plan(lq, lk, window, bhkv, SMS)
+    first_lo = lk - lq - window + 1 if window is not None else 0
+    assert (j_begin, j_end) == (max(0, first_lo), lk)
+    assert chunk % FK.DECODE_CHUNK_STEP == 0 and chunk >= FK.DECODE_CHUNK_STEP
+    assert j_begin + (n - 1) * chunk < j_end <= j_begin + n * chunk  # no empty split
+    if lk - j_begin >= FK.DECODE_BLOCKS_PER_SM * SMS * FK.DECODE_CHUNK_STEP // bhkv:
+        assert n * bhkv >= FK.DECODE_BLOCKS_PER_SM * SMS * 0.9  # several blocks an SM
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if _route(c, torch.float32) == "decode"],
+                         ids=str)
+def test_decode_split_and_combine_plain_equal_attention_ref(case):
+    b, h, hkv, lq, lk, d, causal, window = case
+    q, k, v = _cpu_case(b, h, hkv, lq, lk, d, torch.float32, seed=lk + d)
+    plan = FK.decode_plan(lq, lk, window, b * hkv, SMS)
+    ml, acc = decode_partials_ref(q, k, v, causal, window, plan)
+    assert ml.shape == (b * hkv, plan[3], lq * h // hkv, 2) and acc.shape[-1] == d
+    got = combine_ref(ml, acc, b, h, hkv, lq, torch.float32)
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal, window=window), **TOL)
+
+
+def _emulate_sm90(q, k, v, causal, window, drop_last_key=False):
+    """The sm90 variant's arithmetic on the CPU: fp32 scores and softmax,
+    P rounded to bf16 for P·V, l the sum of the fp32 p, the output rounded
+    to bf16.  ``drop_last_key`` masks the newest key (a fault)."""
+    h, lq, d = q.shape[1], q.shape[2], q.shape[3]
+    lk, g = k.shape[2], h // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / d**0.5)
+    i = torch.arange(lq)[:, None] + (lk - lq)
+    j = torch.arange(lk)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    if drop_last_key:
+        mask &= j < lk - 1
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=3, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vf) / p.sum(dim=3, keepdim=True)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_sm90_bf16_limit_holds_the_emulation_and_catches_faults(case):
+    """The sm90 variant's limit (FLASH_TOL plus P_ROUNDING times the plain
+    attention of |v|) holds its CPU emulation at every case, and a dropped
+    key or an ignored (binding) window lands beyond it."""
+    b, h, hkv, lq, lk, d, causal, window = case
+    q, k, v = _cpu_case(b, h, hkv, lq, lk, d, torch.bfloat16, seed=lq + lk + d, rows_kept=64)
+    args = (q.float(), k.float(), v.float())
+    want = attention_ref(*args, causal=causal, window=window)
+    extra = p_rounding_term(q, k, v, causal, window)
+    flash_close(_emulate_sm90(q, k, v, causal, window), want, extra)
+    if lk > 1:  # a lone key, masked, is still averaged in (NEG_INF, not -inf)
+        assert flash_error(_emulate_sm90(q, k, v, causal, window, drop_last_key=True), want,
+                           extra)[1] > 1.0
+    if window is not None and window < lk:
+        assert flash_error(_emulate_sm90(q, k, v, causal, None), want, extra)[1] > 1.0
