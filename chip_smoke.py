@@ -8,18 +8,26 @@
    registers and spills of each kernel;
 3. holds each kernel against its plain PyTorch version on the card, on
    random and edge-case inputs: the search kernels exactly (their outputs
-   are integers), ``cluster_scores`` within ``rtol=2e-5, atol=1e-5``;
+   are integers; the fold also on the hand-built layouts of
+   ``tests/_torch_parity.FOLD_CASES`` and against the CPU emulation of its
+   algorithm, twice), ``cluster_scores`` within ``rtol=2e-5, atol=1e-5``
+   through the variant ``kernel.score_route`` picks (read from the
+   counters), twice with the same bits, the staged variant bit-equal to
+   the emulation of its summation order;
 4. drives the search path through the launcher's own functions
    (``repro_torch.launch.search``): a host fit of the ``wiki`` corpus at
    ``N_DOCS`` documents and two logs of ``N_QUERIES`` queries, the
    index uploaded to the card, both query logs served through the fold
    kernel and the block path, every batch checked against the host
-   engine bit for bit — with every launch counter set to 0 just before
-   and the search kernels' counters read just after;
+   engine bit for bit, one fold launch a batch — with every launch
+   counter set to 0 just before and the search kernels' counters read
+   just after (the fold's arguments of each batch are recorded, for its
+   timing in step 9);
 5. drives the clustering path: TopDown over the same frequent-term view
    with the device K-means (``distributed_kmeans_fn([cuda:0])``) as its
    ``kmeans_fn``, counters set to 0 just before and the
-   ``cluster_scores`` counter read just after; checks the labels and
+   ``cluster_scores`` counters read just after (every launch on the
+   staged variant; each launch's shape recorded); checks the labels and
    that ψ beats a random assignment, and compares ψ and wall time with
    the host fit's;
 6. runs one K-means round at full size through the kernel and through
@@ -57,9 +65,13 @@
    shapes (the attention call at four shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
    single call; the decode variant's split kernel and combine one by
-   one; attention also as device time from a CUDA-graph replay, without
-   the host's launch cost), and prints one JSON line listing every
-   kernel;
+   one; the fold, ``cluster_scores`` and attention also as device time
+   from a CUDA-graph replay, without the host's launch cost;
+   ``cluster_scores`` beside its first design, the ``general`` variant,
+   re-timed on the same inputs), sums launches x (time - bound) over the
+   search run's fold batches and over the TopDown's scoring calls (timed
+   once per shape bucket), and prints one JSON line listing every kernel
+   with its variant;
 10. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
@@ -132,6 +144,8 @@ SOURCES = {
     "intersect_count_kernel": (
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
     "cluster_scores_kernel": (
+        "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
+    "cluster_scores_staged": (
         "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
     "flash_attention_kernel": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
@@ -331,9 +345,30 @@ def check_fold_cases(torch, dev) -> None:
                 if w is not None:
                     assert_equal("segment_fold", g, w)
             n_checked += 1
+    # Hand-built layouts (tests/_torch_parity.FOLD_CASES): groups across
+    # warp and block edges, long segments, empty segments, PAD holes, chains
+    # that thin out, shallow depths, queries beyond a block's count table;
+    # the kernel equal to the plain version and to the CPU emulation of its
+    # algorithm, twice.
+    from _torch_parity import FOLD_CASES, fold_emulation, synthetic_fold_case
+
+    atomics = {}
+    for name, spec in FOLD_CASES.items():
+        case = synthetic_fold_case(**spec)
+        host = [torch.from_numpy(case[key]) for key in ("post_docs", "cells", "stage_seg")]
+        rest = (case["group_width"], case["stage_iters"], case["n_queries_pad"], True)
+        args = tuple(t.to(dev) for t in host) + rest
+        got, again, want = K.segment_fold_cuda(*args), K.segment_fold_cuda(*args), segment_fold_ref(*args)
+        *emulated, stats = fold_emulation(*host, *rest)
+        for g, a, w, e in zip(got, again, want, emulated, strict=True):
+            assert_equal("segment_fold", g, w)
+            assert_equal("segment_fold (second launch)", a, g)
+            assert_equal("segment_fold (emulation)", g.cpu(), e)
+        atomics[name] = stats["count_atomics"]
+        n_checked += 1
     torch.cuda.synchronize()
-    print(f"segment_fold: {n_checked} plans over an L=3 index (arities 1-5) "
-          "equal to the plain version")
+    print(f"segment_fold: {n_checked} plans (fitted L=3 index, arities 1-5; hand-built layouts) "
+          f"equal to the plain version, twice; global count atomics (emulated) {atomics}")
 
 
 def score_inputs(rng, n, l, tc, k):
@@ -361,34 +396,75 @@ def score_inputs(rng, n, l, tc, k):
 
 def check_cluster_score_cases(torch, dev) -> float:
     """The reference test's shapes, N = 0, L = 0, K = 1, K above 256,
-    all-pad rows, pads at 2**31 - 1, duplicate ranks, and TC = 3000 at
-    K = 8 and K = 256."""
-    from repro_torch.kernels.cluster_score.kernel import cluster_scores_cuda
+    all-pad rows, pads at 2**31 - 1 and negative, duplicate ranks, TC =
+    3000 at K = 8 and K = 256, and the staged variant's edges (K padded to
+    a power of two, L in {1, 3, 742}, N = 1, a table just within and just
+    beyond its shared-memory budget), each also from an ELL whose base
+    sits inside a 16-byte block.  Each case goes through the variant
+    ``kernel.score_route`` picks, read from the counters; a second launch
+    gives the same bits; the staged variant equals the emulation of its
+    summation order (``_torch_parity.staged_scores_emulation``) bit for
+    bit."""
+    from _torch_parity import staged_scores_emulation
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.cluster_score.kernel import cluster_scores_cuda, score_route
     from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
 
     rng = np.random.default_rng(0)
     shapes = [(4, 8, 32, 4), (16, 128, 128, 8), (10, 50, 300, 33), (32, 64, 1024, 128),
               (0, 8, 32, 4), (6, 0, 32, 4), (9, 40, 64, 1), (20, 100, 500, 300),
-              (1000, 742, 3000, 8), (2000, 742, 3000, 256)]
-    err = 0.0
+              (1000, 742, 3000, 8), (2000, 742, 3000, 256), (3000, 1, 3000, 1),
+              (3000, 3, 3000, 2), (500, 742, 3000, 7), (500, 742, 3000, 9), (1, 742, 3000, 8),
+              (200, 742, 6144, 8), (200, 742, 6145, 8), (200, 50, 3072, 16), (200, 50, 3073, 16)]
+    err, routes = 0.0, {"staged": 0, "general": 0}
     for n, l, tc, k in shapes:
-        ell, p, tables = (torch.from_numpy(a).to(dev) for a in score_inputs(rng, n, l, tc, k))
-        got, want = cluster_scores_cuda(ell, p, tables), cluster_scores_ref(ell, p, tables)
-        err = max(err, assert_close("cluster_scores_kernel", got, want))
-        if n and l >= 3 and bool(got[0].any()):
-            raise AssertionError("cluster_scores_kernel: an all-pad row is not zero")
+        for offset in (0, 1):
+            ell, p, tables = score_inputs(rng, n + offset, l, tc, k)
+            if n and l:
+                ell[-1, -1] = -3
+            ell, p, tables = torch.from_numpy(ell).to(dev)[offset:], *(
+                torch.from_numpy(a).to(dev) for a in (p, tables))
+            route = score_route(tc, k)
+            before = dict(B.LAUNCHES)
+            got = cluster_scores_cuda(ell, p, tables)
+            launched = {v: B.LAUNCHES[f"cluster_scores_{v}"] - before[f"cluster_scores_{v}"]
+                        for v in routes}
+            if launched != {v: int(bool(n) and v == route) for v in routes}:
+                raise AssertionError(f"cluster_scores {n, l, tc, k}: launched {launched}, "
+                                     f"route {route}")
+            routes[route] += int(bool(n))
+            err = max(err, assert_close("cluster_scores_kernel", got,
+                                        cluster_scores_ref(ell, p, tables)))
+            assert_equal_float("cluster_scores_kernel (second launch)",
+                               cluster_scores_cuda(ell, p, tables), got)
+            if route == "staged":
+                assert_equal_float("cluster_scores_staged (emulated order)", got.cpu(),
+                                   staged_scores_emulation(ell.cpu(), p.cpu(), tables.cpu(),
+                                                           (ell.data_ptr() // 4) % 4))
+            if n and l >= 3 and offset == 0 and bool(got[0].any()):
+                raise AssertionError("cluster_scores_kernel: an all-pad row is not zero")
     tc, k = 16, 4
     ell = torch.tensor([[3, 3, 3, tc, PAD_MAX]], dtype=torch.int32, device=dev)
     p = torch.arange(1, tc + 1, dtype=torch.float32, device=dev)
     tables = torch.eye(tc, k, dtype=torch.float32, device=dev)
     want = torch.zeros((1, k), dtype=torch.float32, device=dev)
     want[0, 3] = 3 * p[3]
-    err = max(err, assert_close("cluster_scores_kernel", cluster_scores_cuda(ell, p, tables), want))
+    for variant in routes:
+        err = max(err, assert_close("cluster_scores_kernel",
+                                    cluster_scores_cuda(ell, p, tables, variant=variant), want))
     torch.cuda.synchronize()
-    print(f"cluster_scores_kernel: {len(shapes) + 1} random/edge cases within "
-          f"rtol={SCORE_RTOL}, atol={SCORE_ATOL} of the plain version (max |err| {err:.3g})",
-          flush=True)
+    print(f"cluster_scores_kernel: {2 * len(shapes) + 2} random/edge cases within "
+          f"rtol={SCORE_RTOL}, atol={SCORE_ATOL} of the plain version (max |err| {err:.3g}), "
+          f"launches by variant {routes}, each twice with the same bits, the staged ones "
+          "equal to their emulated order", flush=True)
     return err
+
+
+def assert_equal_float(name: str, got, want) -> None:
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal")
 
 
 # ----------------------------------------------------------------------
@@ -441,6 +517,19 @@ class Spans:
         module.make_round_fn = timed_make
         self._undo.append((module, "make_round_fn", make))
 
+    def record_calls(self, owner, attr, describe) -> list:
+        """Wrap ``owner.attr`` so each call appends ``describe(*args,
+        **kwargs)`` to the returned list (undone by ``restore``)."""
+        fn, calls = getattr(owner, attr), []
+
+        def recorded(*args, **kwargs):
+            calls.append(describe(*args, **kwargs))
+            return fn(*args, **kwargs)
+
+        setattr(owner, attr, recorded)
+        self._undo.append((owner, attr, fn))
+        return calls
+
     def restore(self):
         for owner, attr, fn in reversed(self._undo):
             setattr(owner, attr, fn)
@@ -455,6 +544,7 @@ def device_kmeans(torch, dev, res):
     from repro_torch.core.topdown import topdown_cluster
     from repro_torch.dist import cluster_dist
     from repro_torch.kernels import build as B
+    from repro_torch.kernels.cluster_score import ops as score_ops
 
     view = res.view
     fn = cluster_dist.distributed_kmeans_fn([dev], doc_grained_below=DOC_GRAINED_BELOW)
@@ -478,6 +568,9 @@ def device_kmeans(torch, dev, res):
     for name in ("cluster_counts", "delta_add_tables", "assignment_scores"):
         spans.wrap(multilevel, name, "multilevel_projection")
     spans.wrap_rounds(cluster_dist, "device_rounds")
+    score_shapes = spans.record_calls(score_ops, "cluster_scores_cuda", lambda ell, p, tables, **_: (
+        int(ell.shape[0]), int(ell.shape[1]), int(tables.shape[0]), int(tables.shape[1]),
+        ((ell >= 0) & (ell < tables.shape[0])).sum()))
     B.reset_launch_counts()
     try:
         t0 = time.perf_counter()
@@ -490,6 +583,11 @@ def device_kmeans(torch, dev, res):
     launches = dict(B.LAUNCHES)
     if launches["cluster_scores_kernel"] <= 0:
         raise AssertionError("the device TopDown never launched cluster_scores_kernel")
+    # every round scores K <= chi = 8 clusters over TC = 3000: the staged variant
+    if not (launches["cluster_scores_staged"] == launches["cluster_scores_kernel"]
+            == len(score_shapes)) or launches["cluster_scores_general"]:
+        raise AssertionError(f"device TopDown: {len(score_shapes)} scoring calls, launches "
+                             f"{ {k: v for k, v in launches.items() if 'scores' in k} }")
     labels = td.assign
     if labels.shape != (view.n_docs,) or labels.min() < 0 or labels.max() >= td.k_actual:
         raise AssertionError(f"device TopDown labels outside [0, {td.k_actual})")
@@ -508,6 +606,7 @@ def device_kmeans(torch, dev, res):
         "device_rounds": int(launches["cluster_scores_kernel"]),
         "cluster_scores_launches": int(launches["cluster_scores_kernel"]), **calls,
         "spans_s": spans.seconds,
+        "score_shapes": [(n, l, tc, k, int(valid)) for n, l, tc, k, valid in score_shapes],
     }
     return report, launches
 
@@ -596,19 +695,24 @@ def fold_sectors_read(torch, post_docs, cells, seg, group_width, stage_iters) ->
     return int(torch.unique(torch.cat(touched)).numel())
 
 
-def fold_rows(torch, svc, logs, launches):
+def fold_rows(torch, svc, logs, launches, batches):
+    """The fold at each log's first batch (eager, and as device time from a
+    CUDA-graph replay, which the launcher allows since it copies nothing
+    from the host), and the excess over the bound summed over every batch
+    the search path folded (``batches``: the launcher's arguments, recorded
+    while the path ran)."""
     from repro_torch.core.batched_query import plan_segment_pairs
     from repro_torch.core.device_engine import lower_plan
     from repro_torch.core.queries import as_queries
     from repro_torch.kernels.intersect import kernel as K
     from repro_torch.kernels.intersect.ref import segment_fold_ref
-    from repro_torch.launch.search import SERVE_BATCH
+    from repro_torch.launch import search
 
     di = svc.device_index
     dev = di.device
     rows = []
     for name, lg in logs.items():
-        cq = as_queries(lg.queries)[:SERVE_BATCH]
+        cq = as_queries(lg.queries)[:search.SERVE_BATCH]
         low = lower_plan(plan_segment_pairs(di.host, cq, track_work=False))
         cells = torch.from_numpy(low.cells).to(dev)
         seg = torch.from_numpy(low.stage_seg).to(dev)
@@ -617,28 +721,43 @@ def fold_rows(torch, svc, logs, launches):
         got, want = K.segment_fold_cuda(*args), segment_fold_ref(*args)
         err = max(assert_equal("segment_fold", g, w) for g, w in zip(got, want, strict=True))
         ms = time_ms(lambda: K.segment_fold_cuda(*args))
+        device_ms = graph_ms(lambda: K.segment_fold_cuda(*args))
         plain_ms = time_ms(lambda: segment_fold_ref(*args), reps=5)
         # The rest of device_counts' t_fold_s: the plan's upload and the
         # copy of the results back, timed apart from the kernel.
         upload_ms = time_ms(lambda: (torch.from_numpy(low.cells).to(dev),
                                      torch.from_numpy(low.stage_seg).to(dev)), reps=5)
         copyback_ms = time_ms(lambda: [t.cpu() for t in got], reps=5)
-        # Bytes the fold must move for this plan's data: the cell, segment
-        # and depth arrays read once, the distinct sectors of post_docs the
-        # data needs, the counts, stage totals and members written once.
-        entering = want[1].cpu().numpy()
-        sectors = fold_sectors_read(torch, *args[:5])
-        nbytes = (low.cells.nbytes + low.stage_seg.nbytes + 8 * len(low.stage_iters)
-                  + SECTOR_BYTES * sectors + 4 * low.n_queries_pad + 4 * low.n_cells)
+        nbytes = fold_bytes(torch, args)
         rows.append({
             "shape": name, "cells": int(low.n_cells), "stages": len(low.stage_iters),
-            "stage_iters": list(low.stage_iters), "entering": entering.tolist(),
-            "post_docs_bytes_read": SECTOR_BYTES * sectors, "bytes": nbytes,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+            "stage_iters": list(low.stage_iters), "entering": want[1].cpu().tolist(),
+            "bytes": nbytes, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
             "upload_ms": upload_ms, "copyback_ms": copyback_ms,
         })
-    return kernel_entry("segment_fold", launches, rows)
+    # Every batch of the search run: device time against its own bound.
+    per_batch = []
+    for args in batches:
+        bound_ms = fold_bytes(torch, args) / MEM_BYTES_PER_S * 1e3
+        per_batch.append({"cells": int(args[1].shape[1]), "stages": len(args[4]),
+                          "device_ms": graph_ms(lambda args=args: K.segment_fold_cuda(*args), reps=10),
+                          "bound_ms": bound_ms})
+    entry = kernel_entry("segment_fold", launches, rows, variant="block-merged counts")
+    entry["device_ms"] = rows[0]["device_ms"]
+    entry["batches"] = per_batch
+    entry["excess_ms"] = sum(b["device_ms"] - b["bound_ms"] for b in per_batch)
+    return entry
+
+
+def fold_bytes(torch, args) -> int:
+    """Bytes the fold must move for a plan's data: the cell, segment and
+    depth arrays read once, the distinct sectors of post_docs the data
+    needs, the counts, stage totals and members written once."""
+    _, cells, seg, _, stage_iters, n_queries_pad, _ = args
+    sectors = fold_sectors_read(torch, *args[:5])
+    return (4 * (cells.numel() + seg.numel()) + 8 * len(stage_iters) + SECTOR_BYTES * sectors
+            + 4 * n_queries_pad + 4 * cells.shape[1])
 
 
 def intersect_rows(torch, svc, logs, launches):
@@ -674,22 +793,34 @@ def intersect_rows(torch, svc, logs, launches):
         ms = time_ms(lambda kern=kern, s=s, l=l: kern(s, l))
         plain_ms = time_ms(lambda plain=plain, s=s, l=l: plain(s, l))
         nbytes = (s.numel() + l.numel() + want.numel()) * 4
-        entries.append(kernel_entry(name, launches, [{
+        entries.append(kernel_entry(name, launches, variant="binary probe", rows=[{
             "shape": f"{tuple(s.shape)} x {tuple(l.shape)}", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
         }]))
     return entries
 
 
+def score_bound(ell_numel, tc, k, n, n_valid):
+    """Each input read once, the output written once; one multiply-add per
+    valid slot and output column.  Returns the bound in ms, what bounds it
+    and the bytes."""
+    nbytes = 4 * (ell_numel + tc + tc * k + n * k)
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, 2 * n_valid * k / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes
+
+
 def cluster_scores_rows(torch, view, ell, p, tables8, launches, checked_err):
     """The top TopDown split's shape (K = 8, the round's own tables) and
-    the flat algorithm's (K = 256, tables of a seeded random
-    assignment), over the full ELL.  The entry's ``max_abs_err`` also
-    covers the earlier checks (``checked_err``)."""
+    the flat algorithm's (K = 256, tables of a seeded random assignment),
+    over the full ELL, each through the variant its route picks (eager
+    and as device time from a CUDA-graph replay), with the general
+    variant, the first design, re-timed at the same inputs (``old_ms``).
+    The entry's ``max_abs_err`` also covers the earlier checks
+    (``checked_err``)."""
     import torch.nn.functional as F
 
     from repro_torch.core import torch_ops as T
-    from repro_torch.kernels.cluster_score.kernel import cluster_scores_cuda
+    from repro_torch.kernels.cluster_score.kernel import cluster_scores_cuda, score_route
     from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
 
     tc = view.tc
@@ -706,6 +837,7 @@ def cluster_scores_rows(torch, view, ell, p, tables8, launches, checked_err):
     for shape, tables in (("top TopDown split, K=8", tables8), ("flat, K=256", tables256)):
         t = tables.T.contiguous()
         k = t.shape[1]
+        route = score_route(tc, k)
         got, want = cluster_scores_cuda(ell, p, t), cluster_scores_ref(ell, p, t)
         err = assert_close("cluster_scores_kernel", got, want)
         t_pad = torch.cat([t, t.new_zeros((1, k))])
@@ -715,23 +847,65 @@ def cluster_scores_rows(torch, view, ell, p, tables8, launches, checked_err):
 
         assert_close("embedding_bag yardstick", library(), want)
         ms = time_ms(lambda t=t: cluster_scores_cuda(ell, p, t))
+        device_ms = graph_ms(lambda t=t: cluster_scores_cuda(ell, p, t), reps=10)
+        old_ms = time_ms(lambda t=t: cluster_scores_cuda(ell, p, t, variant="general"))
         plain_ms = time_ms(lambda t=t: cluster_scores_ref(ell, p, t), reps=3)
         library_ms = time_ms(library)
-        # Each input read once, the output written once; one multiply-add
-        # per valid slot and output column.
-        nbytes = ell.numel() * 4 + p.numel() * 4 + t.numel() * 4 + got.numel() * 4
-        ops = 2 * n_valid * k
-        bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by, nbytes = score_bound(ell.numel(), tc, k, ell.shape[0], n_valid)
         rows.append({
             "shape": f"{shape}: ({ell.shape[0]}, {ell.shape[1]}) x ({tc}, {k})",
-            "valid_slots": n_valid, "bytes": nbytes, "ops": ops,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "variant": route, "valid_slots": n_valid, "bytes": nbytes, "ops": 2 * n_valid * k,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms, "old_ms": old_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
         })
-    entry = kernel_entry("cluster_scores_kernel", launches, rows)
+    entry = kernel_entry("cluster_scores_kernel", launches, rows, variant=rows[0]["variant"])
     entry["max_abs_err"] = max(entry["max_abs_err"], checked_err)
+    entry["device_ms"], entry["old_ms"] = rows[0]["device_ms"], rows[0]["old_ms"]
     return entry
+
+
+def topdown_score_buckets(torch, dev, score_shapes, launches):
+    """The device TopDown's scoring calls (N, L, TC, K, valid slots, as
+    recorded while it ran) grouped by N and L rounded up to powers of two
+    and by K; each bucket timed once at its median-N call's shape, on ranks
+    drawn at that call's share of valid slots (pads elsewhere), through the
+    staged variant and the general one (the first design), eager and as
+    device time from a CUDA-graph replay, against that shape's bound.
+    Returns the buckets and each variant's launches x (time - bound)
+    summed over the TopDown, eager and device."""
+    from repro_torch.kernels.cluster_score.kernel import cluster_scores_cuda, score_route
+
+    groups = {}
+    for n, l, tc, k, n_valid in score_shapes:
+        key = (1 << max(n - 1, 0).bit_length(), 1 << max(l - 1, 0).bit_length(), k, tc)
+        groups.setdefault(key, []).append((n, l, tc, k, n_valid))
+    rng = np.random.default_rng(7)
+    buckets = []
+    excess = {"staged": 0.0, "general": 0.0, "staged_device": 0.0, "general_device": 0.0}
+    for key, calls in sorted(groups.items(), reverse=True):
+        n, l, tc, k, n_valid = sorted(calls)[len(calls) // 2]
+        share = n_valid / max(n * l, 1)
+        ell_np = np.where(rng.random((n, l)) < share, rng.integers(0, tc, (n, l)), tc)
+        ell = torch.from_numpy(ell_np.astype(np.int32)).to(dev)
+        p = torch.from_numpy(rng.random(tc).astype(np.float32)).to(dev)
+        t = torch.from_numpy(rng.random((tc, k)).astype(np.float32)).to(dev)
+        bound_ms, bound_by, _nbytes = score_bound(ell.numel(), tc, k, n, int(((ell < tc)).sum()))
+        row = {"bucket": list(key[:3]), "launches": len(calls), "shape": [n, l, tc, k],
+               "valid_share": share, "route": score_route(tc, k), "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        for variant in ("staged", "general"):
+            def call(v=variant):
+                return cluster_scores_cuda(ell, p, t, variant=v)
+
+            row[f"{variant}_ms"] = time_ms(call)
+            row[f"{variant}_device_ms"] = graph_ms(call, reps=10)
+            excess[variant] += len(calls) * (row[f"{variant}_ms"] - bound_ms)
+            excess[f"{variant}_device"] += len(calls) * (row[f"{variant}_device_ms"] - bound_ms)
+        buckets.append(row)
+    if sum(r["launches"] for r in buckets) != launches["cluster_scores_kernel"]:
+        raise AssertionError("TopDown scoring buckets do not cover every launch")
+    return buckets, excess
 
 
 # ----------------------------------------------------------------------
@@ -886,6 +1060,19 @@ class LogitRecorder:
             self.logits.append(logits.detach().float().clone())
             return logits, cache
         return wrapped
+
+    def record_calls(self, owner, attr, describe) -> list:
+        """Wrap ``owner.attr`` so each call appends ``describe(*args,
+        **kwargs)`` to the returned list (undone by ``restore``)."""
+        fn, calls = getattr(owner, attr), []
+
+        def recorded(*args, **kwargs):
+            calls.append(describe(*args, **kwargs))
+            return fn(*args, **kwargs)
+
+        setattr(owner, attr, recorded)
+        self._undo.append((owner, attr, fn))
+        return calls
 
     def restore(self):
         for name, fn in self._fns.items():
@@ -1184,10 +1371,11 @@ def flash_rows(torch, dev, launches, checked_errs):
             combine_rows.append(decode_combine_row(torch, FK, combine_ref, sets[0], shape, window,
                                                    decode_rows[-1]["plan"]))
         del sets, q, k, v, got, mask, plain
-    entries = [kernel_entry("flash_attention_kernel", launches, call_rows),
-               kernel_entry("flash_attention_sm90", launches, sm90_rows),
-               kernel_entry("flash_attention_decode", launches, decode_rows),
-               kernel_entry("flash_attention_combine", launches, combine_rows)]
+    entries = [kernel_entry("flash_attention_kernel", launches, call_rows,
+                            variant=call_rows[0]["variant"]),
+               kernel_entry("flash_attention_sm90", launches, sm90_rows, variant="sm90"),
+               kernel_entry("flash_attention_decode", launches, decode_rows, variant="decode"),
+               kernel_entry("flash_attention_combine", launches, combine_rows, variant="decode")]
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
                                     *(checked_errs[t]["max_abs_err"] for t in ("float32",
                                                                                "bfloat16")))
@@ -1245,12 +1433,12 @@ def decode_combine_row(torch, FK, combine_ref, qkv, shape, window, plan):
             "library_ms": None, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def kernel_entry(name, launches, rows):
+def kernel_entry(name, launches, rows, variant):
     source, replaces = SOURCES[name]
     main = rows[0]
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": int(launches[name]),
+        "name": name, "route": "cuda", "variant": variant, "source": source,
+        "replaces": replaces, "launches": int(launches[name]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main.get("bound_by", "bytes"), "library_ms": main.get("library_ms"),
@@ -1290,15 +1478,26 @@ def main() -> int:
         "--corpus", "wiki", "--docs", str(N_DOCS), "--k", str(K_CLUSTERS), "--tc", "3000",
         "--queries", str(N_QUERIES), "--device", "cuda",
     ])
+    from repro_torch.kernels.intersect import kernel as search_kernels
+
     B.reset_launch_counts()
     svc, logs, report = search.setup(args)
-    search.serve(svc, logs, report)
-    torch.cuda.synchronize()
+    recorder = Spans(torch)  # the fold's arguments per batch, for its timing below
+    fold_batches = recorder.record_calls(search_kernels, "segment_fold_cuda",
+                                         lambda *fold_args, **_: fold_args)
+    try:
+        search.serve(svc, logs, report)
+        torch.cuda.synchronize()
+    finally:
+        recorder.restore()
     launches = {name: B.LAUNCHES[name] for name in SEARCH_KERNELS}
     print(f"launches on the search path: {launches}", flush=True)
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels the search path never launched: {missing}")
+    n_batches = sum(report[f"engine_{name}"]["n_batches"] for name in logs)
+    if not launches["segment_fold"] == len(fold_batches) == n_batches:
+        raise AssertionError(f"{launches['segment_fold']} fold launches for {n_batches} batches")
     print("search path: n_docs={n_docs} n_postings={n_postings} index_nbytes={index_nbytes} "
           "fit_s={fit_s:.1f}".format(**report))
     for name in logs:
@@ -1308,7 +1507,8 @@ def main() -> int:
 
     # The clustering path: only the cluster_scores counter is read.
     kmeans, kmeans_launches = device_kmeans(torch, dev, svc.res)
-    launches["cluster_scores_kernel"] = kmeans_launches["cluster_scores_kernel"]
+    for name in ("cluster_scores_kernel", "cluster_scores_staged"):
+        launches[name] = kmeans_launches[name]
     print("clustering path: device TopDown k_actual={k_actual} (host fit {host_k}) in "
           "{wall_s:.1f}s vs host fit {host_fit_cluster_time_s:.1f}s (ratio "
           "{wall_ratio_to_host:.3f}); psi {psi:.6g} / host {psi_host_fit:.6g} = "
@@ -1328,20 +1528,43 @@ def main() -> int:
     lm, lm_launches = lm_serve(torch, dev)
     launches.update(lm_launches)
 
-    kernels = [fold_rows(torch, svc, logs, launches), *intersect_rows(torch, svc, logs, launches),
-               cluster_scores_rows(torch, svc.res.view, ell, p, tables8, launches,
-                                   max(score_case_err, kmeans["round_check"]["max_abs_err"])),
+    fold = fold_rows(torch, svc, logs, launches, fold_batches)
+    del fold_batches
+    scores = cluster_scores_rows(torch, svc.res.view, ell, p, tables8, launches,
+                                 max(score_case_err, kmeans["round_check"]["max_abs_err"]))
+    del ell, p, tables8
+    buckets, score_excess = topdown_score_buckets(torch, dev, kmeans["score_shapes"], launches)
+    staged = kernel_entry("cluster_scores_staged", launches, scores["shapes"][:1], variant="staged")
+    staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
+    kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
     for k in kernels:
-        print(f"{k['name']}: launches={k['launches']} ms={k['ms']:.4f} "
+        print(f"{k['name']} [{k['variant']}]: launches={k['launches']} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})"
-              + (f" library_ms={k['library_ms']:.4f}" if k["library_ms"] is not None else ""),
-              flush=True)
-    for row in kernels[0]["shapes"]:
+              + (f" library_ms={k['library_ms']:.4f}" if k["library_ms"] is not None else "")
+              + (f" device_ms={k['device_ms']:.4f}" if "device_ms" in k else "")
+              + (f" old_ms={k['old_ms']:.4f}" if "old_ms" in k else ""), flush=True)
+    for row in fold["shapes"]:
         print(f"segment_fold {row['shape']}: upload_ms={row['upload_ms']:.4f} "
-              f"kernel_ms={row['ms']:.4f} copyback_ms={row['copyback_ms']:.4f} "
-              f"bytes={row['bytes']} post_docs_bytes_read={row['post_docs_bytes_read']}",
+              f"kernel_ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+              f"copyback_ms={row['copyback_ms']:.4f} bytes={row['bytes']} "
+              f"bound_ms={row['bound_ms']:.5f}", flush=True)
+    print(f"segment_fold over the search run's {len(fold['batches'])} batches: "
+          f"sum of launches x (device ms - bound ms) = {fold['excess_ms']:.4f} ms "
+          f"(device ms per batch {[round(b['device_ms'], 4) for b in fold['batches']]})",
+          flush=True)
+    for row in buckets:
+        print(f"cluster_scores TopDown bucket N<={row['bucket'][0]} L<={row['bucket'][1]} "
+              f"K={row['bucket'][2]}: {row['launches']} launches, at {tuple(row['shape'])} "
+              f"(valid share {row['valid_share']:.3f}) staged {row['staged_ms']:.4f} ms "
+              f"(device {row['staged_device_ms']:.4f}), general {row['general_ms']:.4f} ms "
+              f"(device {row['general_device_ms']:.4f}), bound {row['bound_ms']:.5f} ms",
               flush=True)
+    print("cluster_scores over the device TopDown: sum of launches x (ms - bound ms) = "
+          f"{score_excess['staged']:.3f} ms staged, device {score_excess['staged_device']:.3f} "
+          f"ms (general, the first design: {score_excess['general']:.3f} ms, device "
+          f"{score_excess['general_device']:.3f} ms)", flush=True)
+    kmeans["score_buckets"], kmeans["score_excess_ms"] = buckets, score_excess
     for row in kernels[-4]["shapes"]:
         print(f"flash_attention_kernel {row['shape']} [{row['variant']}]: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
@@ -1360,8 +1583,9 @@ def main() -> int:
                   f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
                   f"({row['bound_by']}) bytes={row['bytes']} max_abs_err={row['max_abs_err']:.3g}",
                   flush=True)
-    for row in kernels[-5]["shapes"]:
-        print(f"cluster_scores_kernel {row['shape']}: ms={row['ms']:.4f} "
+    for row in scores["shapes"]:
+        print(f"cluster_scores_kernel {row['shape']} [{row['variant']}]: ms={row['ms']:.4f} "
+              f"device_ms={row['device_ms']:.4f} old_ms (general)={row['old_ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) bytes={row['bytes']} "
               f"valid_slots={row['valid_slots']}", flush=True)

@@ -53,7 +53,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "fold": {
-        "segment_fold_launch": (_P, _L, _P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
+        "segment_fold_launch": (
+            _P, _L, _P, _L, _P, _L, _I, ctypes.POINTER(_I), _I, _I, _P, _P, _P, _P),
     },
     "intersect": {
         name: (_P, _P, _L, _L, _L, _P, _P)
@@ -64,7 +65,8 @@ _SIGNATURES = {
         )
     },
     "cluster_score": {
-        "cluster_scores_launch": (_P, _L, _L, _P, _P, _L, _L, _P, _P),
+        name: (_P, _L, _L, _P, _P, _L, _L, _P, _P)
+        for name in ("cluster_scores_general_launch", "cluster_scores_staged_launch")
     },
     "flash_attention": {
         "flash_attention_launch": (
@@ -79,7 +81,10 @@ _SIGNATURES = {
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
-# kernel is launched (never on the plain CPU path).  The attention
+# kernel is launched (never on the plain CPU path).  The scoring launcher
+# counts each call as ``cluster_scores_kernel`` and each launch of the
+# variant it took (``cluster_scores_staged``: the weighted table in shared
+# memory; ``cluster_scores_general``).  The attention
 # launcher counts each call as ``flash_attention_kernel`` and each launch
 # of the variant it took: ``flash_attention_sm90`` (bf16 tensor-core
 # prefill), ``flash_attention_decode`` and ``flash_attention_combine``
@@ -90,6 +95,8 @@ LAUNCHES: Dict[str, int] = {
     "intersect_members_count_kernel": 0,
     "intersect_count_kernel": 0,
     "cluster_scores_kernel": 0,
+    "cluster_scores_staged": 0,
+    "cluster_scores_general": 0,
     "flash_attention_kernel": 0,
     "flash_attention_sm90": 0,
     "flash_attention_decode": 0,

@@ -12,6 +12,7 @@ error, and adds one to its entry of
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,6 +39,11 @@ def _check_int32_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return device
 
 
+# Stages the fold kernel takes in one launch: their search depths travel
+# by value in the kernel's arguments (FOLD_MAX_STAGES of csrc/fold.cu).
+FOLD_MAX_STAGES = 64
+
+
 def segment_fold_cuda(
     post_docs: torch.Tensor,
     cells: torch.Tensor,
@@ -48,7 +54,12 @@ def segment_fold_cuda(
     return_members: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The fold kernel (``csrc/fold.cu``): same contract as
-    :func:`repro_torch.kernels.intersect.ref.segment_fold_ref`."""
+    :func:`repro_torch.kernels.intersect.ref.segment_fold_ref`.
+
+    The search depths go to the kernel by value, so a call copies nothing
+    from the host and synchronises nothing: it can be captured in a CUDA
+    graph.  ``counts`` and ``entering`` are two views of one zeroed
+    buffer."""
     device = _check_int32_cuda("segment_fold", post_docs, cells, stage_seg)
     n_stages = len(stage_iters)
     if post_docs.dim() != 1 or cells.dim() != 2 or cells.shape[0] != 4:
@@ -57,15 +68,16 @@ def segment_fold_cuda(
         raise ValueError("segment_fold: stage_seg (2, n_stages * group_width) expected")
     if stage_seg.shape[1] != n_stages * group_width:
         raise ValueError("segment_fold: stage_seg width != n_stages * group_width")
+    if n_stages > FOLD_MAX_STAGES:
+        raise ValueError(f"segment_fold: at most {FOLD_MAX_STAGES} stages, got {n_stages}")
     n_cells = cells.shape[1]
-    counts = torch.zeros(n_queries_pad, dtype=torch.int32, device=device)
-    entering = torch.zeros(n_stages, dtype=torch.int32, device=device)
+    zeroed = torch.zeros(n_queries_pad + n_stages, dtype=torch.int32, device=device)
+    counts, entering = zeroed[:n_queries_pad], zeroed[n_queries_pad:]
     members = (
         torch.empty(n_cells, dtype=torch.int32, device=device)
         if return_members
         else None
     )
-    iters = torch.tensor(list(stage_iters), dtype=torch.int32).to(device)
     status = lib("fold").segment_fold_launch(
         post_docs.data_ptr(),
         post_docs.shape[0],
@@ -74,7 +86,7 @@ def segment_fold_cuda(
         stage_seg.data_ptr(),
         stage_seg.shape[1],
         group_width,
-        iters.data_ptr(),
+        (ctypes.c_int * max(n_stages, 1))(*stage_iters),
         n_stages,
         n_queries_pad,
         counts.data_ptr(),

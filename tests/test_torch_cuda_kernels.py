@@ -7,10 +7,16 @@ that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 The search kernels' outputs are integers: kernel and plain version must
-be equal.  The δ⁺ scores of ``cluster_scores`` are fp32 sums over at most
-L terms, taken in another order than the plain version's, so they must
-agree within ``rtol=2e-5, atol=1e-5`` (the tolerance of the reference's
-``tests/test_kernels_cluster_score.py``).  The tests without the marker
+be equal (the fold also on the hand-built layouts of
+``_torch_parity.FOLD_CASES``, equal to the CPU emulation of its
+algorithm, twice, and inside a CUDA graph).  The δ⁺ scores of
+``cluster_scores`` are fp32 sums over at most L terms, taken in another
+order than the plain version's, so they must agree within
+``rtol=2e-5, atol=1e-5`` (the tolerance of the reference's
+``tests/test_kernels_cluster_score.py``); each case asserts the variant
+``kernel.score_route`` picked, a second launch gives the same bits, and
+the staged variant equals the emulation of its summation order
+(``_torch_parity.staged_scores_emulation``) bit for bit.  The tests without the marker
 check, on any machine, that a launcher refuses what its kernel does not
 take and that a missing compiler raises.
 
@@ -31,8 +37,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, VARIANT_LAUNCHES, flash_close,
-                           flash_inputs, make_rows, p_rounding_term)
+from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, FOLD_CASES, VARIANT_LAUNCHES,
+                           flash_close, flash_inputs, fold_emulation, make_rows, p_rounding_term,
+                           staged_scores_emulation, synthetic_fold_case)
 from repro_torch.kernels import build as B
 from repro_torch.kernels.cluster_score import kernel as CK
 from repro_torch.kernels.cluster_score import ops as cops
@@ -51,7 +58,15 @@ SHAPES = [(1, 16, 64), (8, 128, 128), (5, 100, 300), (16, 128, 512), (3, 257, 10
 # TopDown split's K = 8 and the flat algorithm's K = 256.
 SCORE_SHAPES = [(4, 8, 32, 4), (16, 128, 128, 8), (10, 50, 300, 33), (32, 64, 1024, 128),
                 (0, 8, 32, 4), (6, 0, 32, 4), (9, 40, 64, 1), (20, 100, 500, 300),
-                (300, 742, 3000, 8), (300, 742, 3000, 256)]
+                (300, 742, 3000, 8), (300, 742, 3000, 256),
+                # the staged variant's edges: K in {1, 2, 7, 9} (padded to a power of
+                # two), N in {0, 1, 3000}, L in {1, 3, 742} (rows 4-byte apart), and a
+                # table just within and just beyond the shared-memory budget
+                (3000, 742, 3000, 8), (1, 742, 3000, 8), (0, 742, 3000, 8), (3000, 1, 3000, 1),
+                (3000, 3, 3000, 2), (500, 742, 3000, 7), (500, 742, 3000, 9),
+                (200, 742, 6144, 8), (200, 742, 6145, 8), (200, 50, 3072, 16),
+                (200, 50, 3073, 16), (50, 742, 3000, 33)]
+SCORE_VARIANTS = ("cluster_scores_staged", "cluster_scores_general")
 SCORE_TOL = dict(rtol=2e-5, atol=1e-5)
 PAD_MAX = 2**31 - 1
 
@@ -187,6 +202,55 @@ def test_segment_fold_equals_plain(cuda_device, fitted, return_members, arity_on
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("return_members", [False, True])
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_segment_fold_hand_built_layouts_equal_plain(cuda_device, name, return_members):
+    """Bit-identical counts, entering and members on the hand-built layouts
+    of ``_torch_parity.FOLD_CASES``, equal to the CPU emulation of the
+    kernel's algorithm too, and the same bits from a second launch."""
+    case = synthetic_fold_case(**FOLD_CASES[name])
+    host = (torch.from_numpy(case["post_docs"]), torch.from_numpy(case["cells"]),
+            torch.from_numpy(case["stage_seg"]))
+    rest = (case["group_width"], case["stage_iters"], case["n_queries_pad"], return_members)
+    args = tuple(t.to(cuda_device) for t in host) + rest
+    before = B.LAUNCHES["segment_fold"]
+    got = ops.segment_fold(*args)
+    again = ops.segment_fold(*args)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["segment_fold"] == before + 2
+    want = ref.segment_fold_ref(*args)
+    *emulated, _stats = fold_emulation(*host, *rest)
+    for g, a, w, e in zip(got, again, want, emulated, strict=True):
+        assert (g is None and w is None and e is None) or (
+            torch.equal(g, w) and torch.equal(a, g) and torch.equal(g.cpu(), e))
+
+
+@pytest.mark.cuda
+def test_segment_fold_launch_copies_nothing_from_the_host(cuda_device):
+    """The search depths travel by value: the call can be captured in a
+    CUDA graph (a host-to-device copy or a stream sync inside the capture
+    would fail it), and a replay gives the eager result."""
+    case = synthetic_fold_case(**FOLD_CASES["edges"])
+    args = (torch.from_numpy(case["post_docs"]).to(cuda_device),
+            torch.from_numpy(case["cells"]).to(cuda_device),
+            torch.from_numpy(case["stage_seg"]).to(cuda_device), case["group_width"],
+            case["stage_iters"], case["n_queries_pad"], True)
+    want = ops.segment_fold(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.segment_fold(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.segment_fold(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out, want, strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_search_service_on_the_card_equals_host(cuda_device, fitted):
     from repro_torch.serve.search_service import SearchService
 
@@ -224,20 +288,55 @@ def _score_inputs(rng, n, l, tc, k):
     return ell, p, tables
 
 
+def _score_case(cuda_device, n, l, tc, k, offset_rows=0):
+    """Inputs on the card; with ``offset_rows`` the ELL is a row slice of a
+    larger one, so its base sits inside a 16-byte block when L is odd."""
+    rng = np.random.default_rng(n + l + tc + k)
+    ell, p, tables = _score_inputs(rng, n + offset_rows, l, tc, k)
+    if n and l >= 3:
+        ell[offset_rows, :] = PAD_MAX  # the slice's first row: all pads
+    if n and l:
+        ell[-1, -1] = -3  # a negative rank is a pad too
+    ell_d = torch.from_numpy(ell).to(cuda_device)[offset_rows:]
+    return ell_d, torch.from_numpy(p).to(cuda_device), torch.from_numpy(tables).to(cuda_device)
+
+
+def _launched(before):
+    return {name: B.LAUNCHES[name] - before[name] for name in SCORE_VARIANTS}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,l,tc,k", SCORE_SHAPES)
 def test_cluster_scores_equals_plain(cuda_device, n, l, tc, k):
-    rng = np.random.default_rng(n + l + tc + k)
-    ell, p, tables = (torch.from_numpy(a).to(cuda_device) for a in _score_inputs(rng, n, l, tc, k))
-    before = B.LAUNCHES["cluster_scores_kernel"]
+    ell, p, tables = _score_case(cuda_device, n, l, tc, k, offset_rows=1 if l % 2 else 0)
+    route = CK.score_route(tc, k)
+    before = dict(B.LAUNCHES)
     got = cops.cluster_scores(ell, p, tables)
     torch.cuda.synchronize()
-    assert B.LAUNCHES["cluster_scores_kernel"] == before + (1 if n else 0)
+    assert B.LAUNCHES["cluster_scores_kernel"] == before["cluster_scores_kernel"] + (1 if n else 0)
+    assert _launched(before) == {f"cluster_scores_{v}": int(bool(n) and v == route)
+                                 for v in ("staged", "general")}
     assert got.is_cuda and got.shape == (n, k) and got.dtype == torch.float32
     want = cluster_scores_ref(ell, p, tables)
     torch.testing.assert_close(got, want, **SCORE_TOL)
+    assert torch.equal(cops.cluster_scores(ell, p, tables), got)  # the same bits again
     if n and l >= 3:
         assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset_rows", [0, 1, 2, 3])
+@pytest.mark.parametrize("n,l,tc,k", [c for c in SCORE_SHAPES
+                                      if c[0] and CK.score_route(c[2], c[3]) == "staged"])
+def test_staged_scores_are_the_emulated_sums_bit_for_bit(cuda_device, n, l, tc, k, offset_rows):
+    """The staged variant adds the same fp32 values in the same order as
+    ``_torch_parity.staged_scores_emulation`` (16-byte blocks to lanes,
+    slot order in a lane, xor tree), whatever the ELL's base alignment."""
+    ell, p, tables = _score_case(cuda_device, n, l, tc, k, offset_rows=offset_rows)
+    got = CK.cluster_scores_cuda(ell, p, tables, variant="staged")
+    mis = (ell.data_ptr() // 4) % 4
+    want = staged_scores_emulation(ell.cpu(), p.cpu(), tables.cpu(), base_misalignment=mis)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -245,7 +344,9 @@ def test_cluster_scores_is_deterministic(cuda_device):
     rng = np.random.default_rng(9)
     ell, p, tables = (torch.from_numpy(a).to(cuda_device)
                       for a in _score_inputs(rng, 500, 200, 3000, 8))
-    assert torch.equal(cops.cluster_scores(ell, p, tables), cops.cluster_scores(ell, p, tables))
+    for variant in ("staged", "general"):
+        assert torch.equal(CK.cluster_scores_cuda(ell, p, tables, variant=variant),
+                           CK.cluster_scores_cuda(ell, p, tables, variant=variant))
 
 
 @pytest.mark.cuda

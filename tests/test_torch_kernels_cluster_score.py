@@ -127,3 +127,55 @@ def test_embedding_bag_matches_reference():
     np.testing.assert_allclose(embedding_bag(ids, table, weights=w).numpy(),
                                np.asarray(jax_embedding_bag(ids, table, weights=w)),
                                rtol=1e-5, atol=1e-5)
+
+
+# The staged variant of csrc/cluster_score.cu: its summation order
+# emulated in fp32 on the CPU (``_torch_parity.staged_scores_emulation``),
+# and the route the launcher takes from the shapes alone.
+
+
+@pytest.mark.parametrize("mis", [0, 1, 3], ids=["aligned", "mis1", "mis3"])
+@pytest.mark.parametrize("n,l,tc,k", [(6, 1, 40, 1), (7, 3, 40, 2), (9, 50, 300, 7),
+                                      (12, 742, 3000, 8), (5, 130, 500, 9), (4, 97, 200, 16)])
+def test_staged_summation_order_matches_reference(n, l, tc, k, mis):
+    """Within the reference test's tolerance of the reference's plain
+    version and of a float64 brute force; tables non-negative above
+    L = 128, as δ⁺ tables are (mixed-sign sums over hundreds of slots in
+    another order cancel beyond a fixed tolerance)."""
+    from _torch_parity import staged_scores_emulation
+
+    rng = np.random.default_rng(n * 31 + l + k + mis)
+    ell, p, tables = _inputs(rng, n, l, tc, k)
+    if l > 128:
+        tables = np.abs(tables)
+    ell[rng.random(ell.shape) < 0.2] = PAD_MAX
+    ell[rng.random(ell.shape) < 0.1] = -7
+    got = staged_scores_emulation(torch.from_numpy(ell), torch.from_numpy(p),
+                                  torch.from_numpy(tables), base_misalignment=mis)
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _brute(ell, p, tables), **TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               cluster_scores_ref(torch.from_numpy(ell), torch.from_numpy(p),
+                                                  torch.from_numpy(tables)).numpy(), **TOL)
+    valid = np.where((ell >= 0) & (ell < tc), ell, tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_cluster_scores_ref(valid, p, tables)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("tc,k,route", [
+    (3000, 8, "staged"), (3000, 1, "staged"), (3000, 16, "staged"), (3000, 17, "general"),
+    (3000, 256, "general"), (6144, 8, "staged"), (6145, 8, "general"), (3072, 9, "staged"),
+    (3073, 9, "general"), (49152, 1, "staged"), (49153, 1, "general"), (1, 300, "general"),
+])
+def test_score_route_from_shapes_alone(tc, k, route):
+    from repro_torch.kernels.cluster_score.kernel import (STAGED_TABLE_BYTES, padded_k,
+                                                          score_route)
+
+    assert score_route(tc, k) == route
+    assert (tc * padded_k(k) * 4 <= STAGED_TABLE_BYTES and k <= 16) == (route == "staged")
+
+
+def test_padded_k_is_the_next_power_of_two():
+    from repro_torch.kernels.cluster_score.kernel import padded_k
+
+    assert [padded_k(k) for k in (1, 2, 3, 4, 5, 8, 9, 16)] == [1, 2, 4, 4, 8, 8, 16, 16]

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import make_rows, ragged_queries
+from _torch_parity import FOLD_CASES, FOLD_QUERY_TABLE, fold_emulation, make_rows, ragged_queries
 from repro.core.batched_query import plan_segment_pairs as jax_plan
 from repro.core.device_engine import device_fold as jax_device_fold
 from repro.core.device_engine import device_index as jax_device_index
@@ -107,3 +107,92 @@ def test_segment_fold_matches_jax_fused_fold(seed, return_members):
         np.testing.assert_array_equal(members_t.numpy(), np.asarray(members_j))
     else:
         assert members_t is None
+
+
+# The redesigned fold (csrc/fold.cu) emulated on the CPU
+# (``_torch_parity.fold_emulation``): the reference's search per live cell,
+# stage totals per block, counts merged per warp by query and then per
+# block in a table from the block's smallest query.  Tables of 2 and 64
+# entries force queries beyond a block's table (added per warp) on the
+# session fixture's plans; FOLD_QUERY_TABLE is the kernel's own.
+
+
+def _fixture_fold_inputs(small_seclud, small_corpus, small_log, arities):
+    from _torch_parity import port_result
+
+    from repro.data.query_log import synth_query_log
+    from repro_torch.core.device_engine import device_index, lower_plan
+
+    log = small_log if arities == (2,) else synth_query_log(
+        small_corpus, n_queries=300, seed=12, arity=list(arities))
+    lists = [list(map(int, t)) for t in log.as_conjunctive()]
+    tres = port_result(small_seclud)
+    tdi = device_index(tres.hier_index, "cpu")
+    tlow = lower_plan(torch_plan(tres.hier_index, TorchQueries.from_lists(lists),
+                                 track_work=False))
+    jdi = jax_device_index(small_seclud.hier_index)
+    jlow = jax_lower_plan(jax_plan(small_seclud.hier_index, ConjunctiveQueries.from_lists(lists),
+                                   track_work=False))
+    np.testing.assert_array_equal(tlow.cells, jlow.cells)
+    args = (tdi.post_docs, torch.from_numpy(tlow.cells), torch.from_numpy(tlow.stage_seg),
+            tlow.group_width, tlow.stage_iters, tlow.n_queries_pad)
+    return args, jdi, jlow
+
+
+@pytest.mark.parametrize("query_table", [2, 64, FOLD_QUERY_TABLE])
+@pytest.mark.parametrize("arities", [(2,), (1, 2, 3, 4, 5)], ids=["arity2", "arity1to5"])
+def test_fold_emulation_matches_plain_and_jax(small_seclud, small_corpus, small_log, arities,
+                                              query_table):
+    from repro_torch.kernels.intersect.ref import segment_fold_ref
+
+    args, jdi, jlow = _fixture_fold_inputs(small_seclud, small_corpus, small_log, arities)
+    counts, entering, members, stats = fold_emulation(*args, True, query_table=query_table)
+    want = segment_fold_ref(*args, True)
+    for got, ref in zip((counts, entering, members), want, strict=True):
+        assert torch.equal(got, ref)
+    counts_j, entering_j, members_j = jax_device_fold(jdi, jlow, return_members=True)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j))
+    np.testing.assert_array_equal(entering.numpy(), np.asarray(entering_j))
+    np.testing.assert_array_equal(members.numpy(), np.asarray(members_j))
+    # merged per warp and block: far fewer global atomics than survivors
+    assert 0 < stats["count_atomics"] < int(counts.sum()) // 8
+    if query_table == 2:
+        assert stats["direct_atomics"] > 0  # queries beyond the table ran too
+
+
+def test_fold_emulation_keeps_the_reference_misses_of_shallow_depths(small_seclud, small_corpus,
+                                                                      small_log):
+    """stage_iters too shallow for a segment: the plain version's answer
+    (a miss where the doc may be present) is what the kernel must give."""
+    from repro_torch.kernels.intersect.ref import segment_fold_ref
+
+    args, _jdi, _jlow = _fixture_fold_inputs(small_seclud, small_corpus, small_log, (2,))
+    deep = segment_fold_ref(*args, True)
+    shallow = args[:4] + (tuple(max(it - 4, 1) for it in args[4]),) + args[5:]
+    counts, entering, members, _stats = fold_emulation(*shallow, True)
+    want = segment_fold_ref(*shallow, True)
+    for got, ref in zip((counts, entering, members), want, strict=True):
+        assert torch.equal(got, ref)
+    assert int(counts.sum()) < int(deep[0].sum())  # the shallow search does miss
+
+
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_fold_emulation_on_hand_built_layouts(name):
+    """The hand-built layouts the card tests fold with the kernel: the
+    emulation equals the plain version on each."""
+    from _torch_parity import synthetic_fold_case
+
+    from repro_torch.kernels.intersect.ref import segment_fold_ref
+
+    case = synthetic_fold_case(**FOLD_CASES[name])
+    args = (torch.from_numpy(case["post_docs"]), torch.from_numpy(case["cells"]),
+            torch.from_numpy(case["stage_seg"]), case["group_width"], case["stage_iters"],
+            case["n_queries_pad"])
+    counts, entering, members, stats = fold_emulation(*args, True)
+    want = segment_fold_ref(*args, True)
+    for got, ref in zip((counts, entering, members), want, strict=True):
+        assert torch.equal(got, ref)
+    if name == "arity5_thins_out":
+        assert int(counts.sum()) == 0 < int(entering[-1])  # the last stage drops all
+    if name == "far_queries":  # beyond the block's table: one atomic per warp and query
+        assert stats["direct_atomics"] > 0
