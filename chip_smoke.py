@@ -13,7 +13,9 @@
    algorithm, twice), ``cluster_scores`` within ``rtol=2e-5, atol=1e-5``
    through the variant ``kernel.score_route`` picks (read from the
    counters), twice with the same bits, the staged variant bit-equal to
-   the emulation of its summation order;
+   the emulation of its summation order; the fold also on queries of 70
+   and 131 terms (past the 64 stages one launch takes: chained launches),
+   equal to the host engine too;
 4. drives the search path through the launcher's own functions
    (``repro_torch.launch.search``): a host fit of the ``wiki`` corpus at
    ``N_DOCS`` documents and two logs of ``N_QUERIES`` queries, the
@@ -22,18 +24,32 @@
    engine bit for bit, one fold launch a batch — with every launch
    counter set to 0 just before and the search kernels' counters read
    just after (the fold's arguments of each batch are recorded, for its
-   timing in step 9);
-5. drives the clustering path: TopDown over the same frequent-term view
+   timing in step 10);
+5. drives the serving tier over the same fit through the launcher's
+   functions (``serve_sharded``, ``replay_sealed``, ``replay_async``,
+   ``replay_chaos``), on ``TIER_SHARDS`` shard slots of the card: both
+   logs through the sharded engine (four fold launches a batch, every
+   batch equal to the host engine, counts and docs) and the block path
+   split over the slots; sealed replays at ``TIER_QPS`` after
+   ``prewarm`` (no compile, counts equal to the host, every batch at the
+   ``"device"`` rung of the resilience ladder, one fold launch per shard
+   and non-empty batch); an async replay; the two chaos replays of
+   ``CHAOS_QUERIES`` queries (shard 0 lost at batch 2 and served at the
+   ``"remesh"`` rung; a queue flood past the shed depth, shedding exactly
+   its batches and any whose real backlog passes the depth), every
+   answered request exact — counters set to 0 before each part and read
+   after;
+6. drives the clustering path: TopDown over the same frequent-term view
    with the device K-means (``distributed_kmeans_fn([cuda:0])``) as its
    ``kmeans_fn``, counters set to 0 just before and the
    ``cluster_scores`` counters read just after (every launch on the
    staged variant; each launch's shape recorded); checks the labels and
    that ψ beats a random assignment, and compares ψ and wall time with
    the host fit's;
-6. runs one K-means round at full size through the kernel and through
+7. runs one K-means round at full size through the kernel and through
    the plain version on the card (equal counts, bit-equal tables, scores
    within the tolerance, assignments equal but for near-ties);
-7. holds the attention (``flash_attention_kernel``, the launcher's call)
+8. holds the attention (``flash_attention_kernel``, the launcher's call)
    against its plain version computed in float32 from the same inputs, on
    random and edge-case inputs and at the LM path's shapes
    (``FLASH_CASES``, ``FLASH_TOL`` and ``p_rounding_term`` of
@@ -44,7 +60,7 @@
    (``kernel.flash_route``: the bf16 tensor-core prefill ``sm90``, the
    split-K ``decode`` with its combine, or the ``general`` kernel) and
    read from the counters;
-8. drives the LM serving path through the launcher's own functions
+9. drives the LM serving path through the launcher's own functions
    (``repro_torch.launch.serve``): gemma3-4b at its full width with
    seeded random weights, ``LM_REQUESTS`` prompts of ``LM_PROMPT_LEN``
    tokens, ``LM_DECODE_STEPS`` greedy steps — counters set to 0 just
@@ -61,7 +77,7 @@
    ``FLASH_TOL`` at the first decode step; then traces four decode steps
    with ``torch.profiler`` (device kernel time per step, the attention's
    part of it, the device's idle share);
-9. times each kernel against its plain version at the main path's
+10. times each kernel against its plain version at the main path's
    shapes (the attention call at four shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
    single call; the decode variant's split kernel and combine one by
@@ -72,7 +88,7 @@
    search run's fold batches and over the TopDown's scoring calls (timed
    once per shape bucket), and prints one JSON line listing every kernel
    with its variant;
-10. prints ``{"ok": true, "device": {...}}`` as its last line.
+11. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
 GPU, or without the rest of the repository beside it, it exits non-zero
@@ -159,6 +175,13 @@ SOURCES = {
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
+# Terms of the queries that take the fold past one launch's 64 stages.
+DEEP_QUERY_TERMS = (70, 131)
+# The serving tier: shard slots on the one card, and the replays' arrival
+# rates (benchmarks/bench_serving.py's settings: 2,000 queries a log, the
+# deadline batcher at max_batch 64 and 2 ms).
+TIER_SHARDS = 4
+TIER_QPS = (2000.0, 8000.0)
 
 
 def card_line() -> str:
@@ -305,13 +328,16 @@ def check_intersect_cases(torch, dev) -> None:
 
 def check_fold_cases(torch, dev) -> None:
     """A fold plan over an L = 3 hierarchy with arities 1-5 (duplicate and
-    absent terms included), with and without members."""
+    absent terms included), with and without members; the hand-built
+    layouts; and queries past the 64 stages of one launch."""
     from repro_torch.core.batched_query import plan_segment_pairs
-    from repro_torch.core.device_engine import device_index, lower_plan
+    from repro_torch.core.device_engine import (device_index, lower_plan, plan_shape_key,
+                                                warm_fold)
     from repro_torch.core.queries import ConjunctiveQueries
     from repro_torch.core.seclud import SecludPipeline
     from repro_torch.data.corpus import CorpusSpec, synth_corpus
     from repro_torch.data.query_log import synth_query_log
+    from repro_torch.kernels import build as B
     from repro_torch.kernels.intersect import kernel as K
     from repro_torch.kernels.intersect.ref import segment_fold_ref
 
@@ -332,9 +358,11 @@ def check_fold_cases(torch, dev) -> None:
     batches = [ConjunctiveQueries.from_lists(lists),
                ConjunctiveQueries.from_lists([x[:1] for x in lists])]
     n_checked = 0
+    keys = []
     for cq in batches:
         plan = plan_segment_pairs(di.host, cq, track_work=False)
         low = lower_plan(plan)
+        keys.append(plan_shape_key(low))
         cells = torch.from_numpy(low.cells).to(dev)
         seg = torch.from_numpy(low.stage_seg).to(dev)
         for members in (False, True):
@@ -366,9 +394,128 @@ def check_fold_cases(torch, dev) -> None:
             assert_equal("segment_fold (emulation)", g.cpu(), e)
         atomics[name] = stats["count_atomics"]
         n_checked += 1
+    # Queries deeper than the 64 stages one launch takes: 70 and 131 terms
+    # of the longest documents (each matches at least its document), folded
+    # by chained launches, equal to the plain version and the emulation,
+    # and through the device engine equal to the host engine.
+    from repro_torch.core.batched_query import batched_query
+    from repro_torch.core.device_engine import device_counts
+
+    lens = corpus.doc_lengths()
+    deep = []
+    for n, d in zip(DEEP_QUERY_TERMS, np.argsort(-lens, kind="stable"), strict=False):
+        terms = corpus.doc_terms[corpus.doc_ptr[d] : corpus.doc_ptr[d + 1]]
+        if len(terms) < n:
+            raise AssertionError(f"no document of {n} terms for the deep fold check")
+        deep.append([int(t) for t in terms[:n]])
+    cq = ConjunctiveQueries.from_lists(deep)
+    low = lower_plan(plan_segment_pairs(di.host, cq, track_work=False))
+    host = (di.post_docs.cpu(), torch.from_numpy(low.cells), torch.from_numpy(low.stage_seg))
+    rest = (low.group_width, low.stage_iters, low.n_queries_pad, True)
+    before = B.LAUNCHES["segment_fold"]
+    got = K.segment_fold_cuda(di.post_docs, *(t.to(dev) for t in host[1:]), *rest)
+    chained = B.LAUNCHES["segment_fold"] - before
+    if chained != K.fold_launches(low.n_stages) or chained < 2:
+        raise AssertionError(f"{low.n_stages} stages took {chained} fold launches")
+    *emulated, _stats = fold_emulation(*host, *rest)
+    for g, w, e in zip(got, segment_fold_ref(*host, *rest), emulated, strict=True):
+        assert_equal("segment_fold (past 64 stages)", g.cpu(), w)
+        assert_equal("segment_fold (past 64 stages, emulation)", g.cpu(), e)
+    counts, docs, _info = device_counts(di.host, cq, return_docs=True, device=dev)
+    ptr, host_docs, _work = batched_query(di.host, cq)
+    if not (np.array_equal(counts, np.diff(ptr)) and np.array_equal(docs, host_docs)):
+        raise AssertionError("device engine disagrees with host past 64 stages")
+    # Each of these plans' shape keys on dead content (all-PAD cells):
+    # warm_fold raises if the kernel counts anything.
+    for key in keys + [plan_shape_key(low)]:
+        warm_fold(di, key, return_members=True)
     torch.cuda.synchronize()
-    print(f"segment_fold: {n_checked} plans (fitted L=3 index, arities 1-5; hand-built layouts) "
-          f"equal to the plain version, twice; global count atomics (emulated) {atomics}")
+    print(f"segment_fold: {n_checked} plans (fitted L=3 index, arities 1-5; hand-built layouts, "
+          f"3 of them past 64 stages) equal to the plain version, twice; global count atomics "
+          f"(emulated) {atomics}; queries of {DEEP_QUERY_TERMS} terms ({low.n_stages} stages, "
+          f"{chained} chained launches) equal to the plain version, the emulation and the host "
+          f"engine (counts {counts.tolist()}); dead cells of {len(keys) + 1} shape keys "
+          f"count nothing")
+
+
+def serving_tier(torch, svc, logs, corpus, n_queries):
+    """The serving tier over the search path's fit, through the launcher's
+    functions, on ``TIER_SHARDS`` slots of the card; each part with the
+    counters set to 0 just before it and read just after.  Raises on any
+    wrong answer, on a fold launch count other than one per shard and
+    non-empty batch, and on a clean batch served off the device rung."""
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import search
+
+    S = TIER_SHARDS
+    out = {"n_shards": S}
+    t_start = time.perf_counter()
+    tier = search.sharded_service(svc, S)
+    B.reset_launch_counts()
+    served = search.serve_sharded(tier, logs, {})
+    torch.cuda.synchronize()
+    launches = {name: B.LAUNCHES[name] for name in SEARCH_KERNELS}
+    n_batches = sum(served[f"sharded_{name}"]["n_batches"] for name in logs)
+    if launches["segment_fold"] != S * n_batches:
+        raise AssertionError(f"{launches['segment_fold']} fold launches for {n_batches} "
+                             f"batches on {S} shards")
+    counting = launches["intersect_count_kernel"] + launches["intersect_members_count_kernel"]
+    if counting != S * len(logs):
+        raise AssertionError(f"block path over {S} devices: {counting} count launches")
+    print(f"sharded serving: {S} slots of one card, {n_batches} batches, launches {launches}",
+          flush=True)
+    out["sharded"], out["sharded_launches"] = served, launches
+
+    def counted(infos):
+        def engine(queries):
+            t0 = time.perf_counter()
+            res = tier.serve_counts_device(queries)
+            infos.append({**res[-1], "service_s": time.perf_counter() - t0})
+            return res
+        return engine
+
+    spans = {"sharded_serving_s": time.perf_counter() - t_start}
+    for rate in TIER_QPS:
+        t0 = time.perf_counter()
+        log = search.traffic_log(corpus, n_queries, rate)
+        infos = []
+        B.reset_launch_counts()
+        rep = search.replay_sealed(tier, log, engine=counted(infos))
+        torch.cuda.synchronize()
+        folds = B.LAUNCHES["segment_fold"]
+        calls = [info["n_kernel_calls"] for info in infos]
+        nonempty = sum(1 for c in calls if c)
+        if set(calls) - {0.0, float(S)} or folds != S * nonempty or len(calls) != rep["n_batches"]:
+            raise AssertionError(f"replay at {rate:g} qps: {folds} fold launches for {nonempty} "
+                                 f"non-empty of {rep['n_batches']} batches")
+        rep["fold_launches"], rep["nonempty_batches"] = folds, nonempty
+        # A batch's service time on the host clock and its parts (engine info).
+        rep["batch_medians_s"] = {key: float(np.median([info[key] for info in infos]))
+                                  for key in ("service_s", "t_plan_s", "t_lower_s", "t_fold_s")}
+        rep["wall_s"] = time.perf_counter() - t0
+        out[f"sealed_r{rate:g}"] = rep
+        print(f"  {rate:g} qps: {folds} fold launches = {S} x {nonempty} non-empty batches "
+              f"(of {rep['n_batches']}), every batch at the device rung; batch medians (ms) "
+              + " ".join(f"{k}={v * 1e3:.3f}" for k, v in rep["batch_medians_s"].items())
+              + f"; {rep['wall_s']:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    log = search.traffic_log(corpus, n_queries, TIER_QPS[0])
+    B.reset_launch_counts()
+    out[f"async_r{TIER_QPS[0]:g}"] = search.replay_async(tier, log)
+    torch.cuda.synchronize()
+    out[f"async_r{TIER_QPS[0]:g}"]["fold_launches"] = B.LAUNCHES["segment_fold"]
+    spans["async_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log = search.traffic_log(corpus, search.CHAOS_QUERIES, TIER_QPS[0])
+    B.reset_launch_counts()
+    out.update(search.replay_chaos(svc, log, S))
+    torch.cuda.synchronize()
+    out["chaos_fold_launches"] = B.LAUNCHES["segment_fold"]
+    spans["chaos_s"] = time.perf_counter() - t0
+    out["spans_s"] = spans
+    print("serving tier spans (s): " + " ".join(f"{k}={v:.1f}" for k, v in spans.items()),
+          flush=True)
+    return out
 
 
 def score_inputs(rng, n, l, tc, k):
@@ -1481,7 +1628,7 @@ def main() -> int:
     from repro_torch.kernels.intersect import kernel as search_kernels
 
     B.reset_launch_counts()
-    svc, logs, report = search.setup(args)
+    svc, logs, report, corpus = search.setup(args)
     recorder = Spans(torch)  # the fold's arguments per batch, for its timing below
     fold_batches = recorder.record_calls(search_kernels, "segment_fold_cuda",
                                          lambda *fold_args, **_: fold_args)
@@ -1504,6 +1651,12 @@ def main() -> int:
         e = report[f"engine_{name}"]
         print(f"  {name}: median t_plan_s={e['t_plan_s_median']:.6f} "
               f"t_lower_s={e['t_lower_s_median']:.6f} t_fold_s={e['t_fold_s_median']:.6f}")
+
+    # The serving tier over the same fit: sharded engine, replays, chaos.
+    t0 = time.perf_counter()
+    tier = serving_tier(torch, svc, logs, corpus, N_QUERIES)
+    tier["wall_s"] = time.perf_counter() - t0
+    print(f"serving tier: {tier['wall_s']:.1f}s", flush=True)
 
     # The clustering path: only the cluster_scores counter is read.
     kmeans, kmeans_launches = device_kmeans(torch, dev, svc.res)
@@ -1538,6 +1691,9 @@ def main() -> int:
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
     kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
+    for k in kernels:  # the search kernels' launches on the sharded path too
+        if k["name"] in tier["sharded_launches"]:
+            k["sharded_launches"] = tier["sharded_launches"][k["name"]]
     for k in kernels:
         print(f"{k['name']} [{k['variant']}]: launches={k['launches']} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.5f} ({k['bound_by']})"
@@ -1593,7 +1749,7 @@ def main() -> int:
     out = ROOT / "chiprun_out" / "chip_smoke.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
-        "card": card_line(), "report": report, "kmeans": kmeans, "lm": lm,
+        "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
         "flash_cases": flash_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))

@@ -50,6 +50,12 @@
 //  * The depths travel by value in the kernel's arguments: the launcher
 //    copies nothing from the host and never synchronizes, so a call can
 //    be captured in a CUDA graph.
+//  * A plan deeper than FOLD_MAX_STAGES stages (a query of arity 66 or
+//    more) runs as a chain of launches of at most FOLD_MAX_STAGES stages
+//    each, on the same stream: every launch but the first starts from the
+//    cells the one before left in `members` (each thread reads and writes
+//    only its own cell, so in place), and only the last counts.  The
+//    common case stays one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,8 +95,8 @@ __global__ void __launch_bounds__(FOLD_THREADS) segment_fold_kernel(
     const int32_t* __restrict__ post_docs, int64_t n_post,
     const int32_t* __restrict__ cells, int64_t n_cells,
     const int32_t* __restrict__ stage_seg, int64_t seg_cols, int group_width,
-    FoldStages stages, int n_queries_pad, int32_t* __restrict__ counts,
-    int32_t* __restrict__ entering, int32_t* __restrict__ members) {
+    FoldStages stages, int stage0, const int32_t* cur_in, int n_queries_pad,
+    int32_t* counts, int32_t* __restrict__ entering, int32_t* members) {
   __shared__ int32_t s_entering[FOLD_MAX_STAGES];
   __shared__ int32_t s_counts[FOLD_QUERY_TABLE];
   __shared__ int32_t s_query0;
@@ -109,7 +115,9 @@ __global__ void __launch_bounds__(FOLD_THREADS) segment_fold_kernel(
     group = cells[n_cells + i];
     query = cells[2 * n_cells + i];
     arity = cells[3 * n_cells + i];
-    if (post != PAD_VALUE && n_post > 0) {
+    if (cur_in != nullptr) {
+      cur = cur_in[i];  // a chained launch: the cell as the last one left it
+    } else if (post != PAD_VALUE && n_post > 0) {
       int64_t p = post < 0 ? 0 : (int64_t)post;
       if (p > n_post - 1) p = n_post - 1;
       cur = post_docs[p];
@@ -120,11 +128,11 @@ __global__ void __launch_bounds__(FOLD_THREADS) segment_fold_kernel(
   // Every lane of a warp runs the stage loop (its bound is uniform), so the
   // ballot below and the match after it always see all 32 lanes.
   for (int s = 0; s < stages.n; ++s) {
-    const bool live = in_range && arity > s + 1 && cur != PAD_VALUE;
+    const bool live = in_range && arity > stage0 + s + 1 && cur != PAD_VALUE;
     const unsigned live_mask = __ballot_sync(FULL_MASK, live);
     if (lane == 0 && live_mask) atomicAdd(&s_entering[s], __popc(live_mask));
     if (live) {
-      const int64_t col = (int64_t)s * group_width + group;
+      const int64_t col = (int64_t)(stage0 + s) * group_width + group;
       if (!probe_in_place(post_docs, n_post, stage_seg[col], stage_seg[seg_cols + col],
                           stages.iters[s], cur)) {
         cur = PAD_VALUE;
@@ -133,6 +141,15 @@ __global__ void __launch_bounds__(FOLD_THREADS) segment_fold_kernel(
   }
 
   if (in_range && members != nullptr) members[i] = cur;
+  // A launch of a chain but the last stops here (the flag is uniform, so
+  // no thread of the block waits at a barrier the others skip).
+  if (counts == nullptr) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < stages.n; t += blockDim.x) {
+      if (s_entering[t]) atomicAdd(&entering[t], s_entering[t]);
+    }
+    return;
+  }
 
   // Counts: merged per warp by query, then per block in shared memory.
   const bool counted = in_range && cur != PAD_VALUE && query >= 0 && query < n_queries_pad;
@@ -158,21 +175,34 @@ __global__ void __launch_bounds__(FOLD_THREADS) segment_fold_kernel(
   }
 }
 
+// `members` may be null only when n_stages <= FOLD_MAX_STAGES: a longer
+// chain carries its cells from launch to launch there.
 extern "C" int segment_fold_launch(
     const void* post_docs, int64_t n_post, const void* cells, int64_t n_cells,
     const void* stage_seg, int64_t seg_cols, int group_width,
     const int* stage_iters, int n_stages, int n_queries_pad, void* counts,
     void* entering, void* members, void* stream) {
-  if (n_stages < 0 || n_stages > FOLD_MAX_STAGES) return (int)cudaErrorInvalidValue;
-  FoldStages stages;
-  stages.n = n_stages;
-  for (int s = 0; s < FOLD_MAX_STAGES; ++s) stages.iters[s] = s < n_stages ? stage_iters[s] : 0;
-  if (n_cells > 0) {
-    const int64_t blocks = (n_cells + FOLD_THREADS - 1) / FOLD_THREADS;
+  if (n_stages < 0) return (int)cudaErrorInvalidValue;
+  if (n_stages > FOLD_MAX_STAGES && members == nullptr) return (int)cudaErrorInvalidValue;
+  if (n_cells <= 0) return (int)cudaGetLastError();
+  const int n_launches = n_stages <= FOLD_MAX_STAGES
+                             ? 1
+                             : (n_stages + FOLD_MAX_STAGES - 1) / FOLD_MAX_STAGES;
+  const int64_t blocks = (n_cells + FOLD_THREADS - 1) / FOLD_THREADS;
+  for (int c = 0; c < n_launches; ++c) {
+    const int stage0 = c * FOLD_MAX_STAGES;
+    const int n = n_stages - stage0 < FOLD_MAX_STAGES ? n_stages - stage0 : FOLD_MAX_STAGES;
+    const bool last = c == n_launches - 1;
+    FoldStages stages;
+    stages.n = n;
+    for (int s = 0; s < FOLD_MAX_STAGES; ++s) stages.iters[s] = s < n ? stage_iters[stage0 + s] : 0;
     segment_fold_kernel<<<(unsigned)blocks, FOLD_THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)post_docs, n_post, (const int32_t*)cells, n_cells,
-        (const int32_t*)stage_seg, seg_cols, group_width, stages, n_queries_pad,
-        (int32_t*)counts, (int32_t*)entering, (int32_t*)members);
+        (const int32_t*)stage_seg, seg_cols, group_width, stages, stage0,
+        c == 0 ? nullptr : (const int32_t*)members, n_queries_pad,
+        last ? (int32_t*)counts : nullptr, (int32_t*)entering + stage0, (int32_t*)members);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

@@ -40,8 +40,14 @@ def _check_int32_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
 
 
 # Stages the fold kernel takes in one launch: their search depths travel
-# by value in the kernel's arguments (FOLD_MAX_STAGES of csrc/fold.cu).
+# by value in the kernel's arguments (FOLD_MAX_STAGES of csrc/fold.cu).  A
+# deeper plan runs as a chain of launches of at most this many stages.
 FOLD_MAX_STAGES = 64
+
+
+def fold_launches(n_stages: int) -> int:
+    """Kernel launches the fold of ``n_stages`` stages takes."""
+    return max(1, -(-n_stages // FOLD_MAX_STAGES))
 
 
 def segment_fold_cuda(
@@ -59,7 +65,9 @@ def segment_fold_cuda(
     The search depths go to the kernel by value, so a call copies nothing
     from the host and synchronises nothing: it can be captured in a CUDA
     graph.  ``counts`` and ``entering`` are two views of one zeroed
-    buffer."""
+    buffer.  A plan of more than :data:`FOLD_MAX_STAGES` stages runs as
+    :func:`fold_launches` chained launches that carry the cells in the
+    members buffer (allocated then even without ``return_members``)."""
     device = _check_int32_cuda("segment_fold", post_docs, cells, stage_seg)
     n_stages = len(stage_iters)
     if post_docs.dim() != 1 or cells.dim() != 2 or cells.shape[0] != 4:
@@ -68,14 +76,13 @@ def segment_fold_cuda(
         raise ValueError("segment_fold: stage_seg (2, n_stages * group_width) expected")
     if stage_seg.shape[1] != n_stages * group_width:
         raise ValueError("segment_fold: stage_seg width != n_stages * group_width")
-    if n_stages > FOLD_MAX_STAGES:
-        raise ValueError(f"segment_fold: at most {FOLD_MAX_STAGES} stages, got {n_stages}")
     n_cells = cells.shape[1]
+    n_launches = fold_launches(n_stages)
     zeroed = torch.zeros(n_queries_pad + n_stages, dtype=torch.int32, device=device)
     counts, entering = zeroed[:n_queries_pad], zeroed[n_queries_pad:]
     members = (
         torch.empty(n_cells, dtype=torch.int32, device=device)
-        if return_members
+        if return_members or n_launches > 1
         else None
     )
     status = lib("fold").segment_fold_launch(
@@ -95,8 +102,8 @@ def segment_fold_cuda(
         stream_of(device),
     )
     check(status, "segment_fold")
-    LAUNCHES["segment_fold"] += 1
-    return counts, entering, members
+    LAUNCHES["segment_fold"] += n_launches
+    return counts, entering, members if return_members else None
 
 
 def _rows_call(fn_name: str, counter: str, short, long, out):

@@ -361,8 +361,9 @@ def synthetic_fold_case(seed, group_sizes, seg_lens, arities, query_of=None, pad
 # warp (32) and block (256) edges, groups of one cell, long dense segments
 # (deep searches), empty segments, PAD holes inside groups, arity-5 chains
 # that thin to nothing, depths too shallow to resolve a segment (the
-# reference's misses kept), and queries too far apart for a block's count
-# table (added per warp).
+# reference's misses kept), queries too far apart for a block's count
+# table (added per warp), and plans deeper than the 64 stages one launch
+# takes (65, 70 and 130 stages: the kernel chains its launches).
 FOLD_CASES = {
     "edges": dict(seed=1, group_sizes=[31, 33, 1, 1, 64, 257, 3, 300, 5, 255, 2],
                   seg_lens=[50, 700, 1, 9, 0, 779, 33, 400, 1024, 64, 3],
@@ -381,4 +382,10 @@ FOLD_CASES = {
                           arities=[3, 2, 2], iters_shift=4),
     "far_queries": dict(seed=8, group_sizes=[40] * 12, seg_lens=[60] * 12, arities=[2] * 12,
                         query_of=[600 * g for g in range(12)]),
+    "stages65": dict(seed=9, group_sizes=[300, 1, 40, 64], seg_lens=[320, 3, 60, 64],
+                     arities=[66, 66, 2, 40], hit_rate=1.0),
+    "stages70": dict(seed=10, group_sizes=[257, 33, 100], seg_lens=[400, 50, 2000],
+                     arities=[71, 71, 3], hit_rate=0.99, dense_from=1024),
+    "stages130": dict(seed=11, group_sizes=[500, 20, 256], seg_lens=[600, 20, 300],
+                      arities=[131, 131, 66], hit_rate=0.995, query_of=[0, 1, 1]),
 }

@@ -217,7 +217,8 @@ def test_segment_fold_hand_built_layouts_equal_plain(cuda_device, name, return_m
     got = ops.segment_fold(*args)
     again = ops.segment_fold(*args)
     torch.cuda.synchronize()
-    assert B.LAUNCHES["segment_fold"] == before + 2
+    # a plan past 64 stages runs as a chain of launches
+    assert B.LAUNCHES["segment_fold"] == before + 2 * K.fold_launches(len(case["stage_iters"]))
     want = ref.segment_fold_ref(*args)
     *emulated, _stats = fold_emulation(*host, *rest)
     for g, a, w, e in zip(got, again, want, emulated, strict=True):
@@ -248,6 +249,171 @@ def test_segment_fold_launch_copies_nothing_from_the_host(cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(out, want, strict=True):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_segment_fold_chain_past_64_stages_captures_in_a_cuda_graph(cuda_device):
+    """The chained launches of a 130-stage plan copy nothing from the host
+    either: captured in a CUDA graph, a replay gives the eager result."""
+    case = synthetic_fold_case(**FOLD_CASES["stages130"])
+    args = (torch.from_numpy(case["post_docs"]).to(cuda_device),
+            torch.from_numpy(case["cells"]).to(cuda_device),
+            torch.from_numpy(case["stage_seg"]).to(cuda_device), case["group_width"],
+            case["stage_iters"], case["n_queries_pad"], True)
+    want = ops.segment_fold(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.segment_fold(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.segment_fold(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out, want, strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def long_docs():
+    """A fit over documents long enough for queries of 70 and more terms."""
+    from repro_torch.core.seclud import SecludPipeline
+    from repro_torch.data.corpus import CorpusSpec, synth_corpus
+    from repro_torch.data.query_log import synth_query_log
+
+    corpus = synth_corpus(CorpusSpec(n_docs=600, n_terms=3000, mean_doc_len=120,
+                                     n_topics=6, seed=5))
+    log = synth_query_log(corpus, n_queries=60, seed=6)
+    res = SecludPipeline(tc=600, doc_grained_below=128, seed=0).fit(
+        corpus, k=6, log=log, levels=2, device="cpu")
+    return corpus, res
+
+
+def long_queries(corpus, lengths):
+    """One query per entry of ``lengths``: that many terms of the longest
+    documents (so each matches at least its document)."""
+    lens = corpus.doc_lengths()
+    lists = []
+    for n, d in zip(lengths, np.argsort(-lens, kind="stable"), strict=False):
+        terms = corpus.doc_terms[corpus.doc_ptr[d] : corpus.doc_ptr[d + 1]]
+        assert len(terms) >= n, "the corpus has no document that long"
+        lists.append([int(t) for t in terms[:n]])
+    return lists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(66,), (71, 70, 3), (131, 2)], ids=["65", "70", "130"])
+def test_fold_past_64_stages_equals_plain_emulation_and_host(cuda_device, long_docs, lengths):
+    """Queries of 66, 71 and 131 terms: the fold chains its launches and
+    equals the plain version, the CPU emulation of its algorithm, and the
+    host engine (counts and docs)."""
+    from repro_torch.core.batched_query import batched_query, plan_segment_pairs
+    from repro_torch.core.device_engine import device_counts, device_index, lower_plan
+    from repro_torch.core.queries import ConjunctiveQueries
+
+    corpus, res = long_docs
+    cq = ConjunctiveQueries.from_lists(long_queries(corpus, lengths))
+    di = device_index(res.hier_index, cuda_device)
+    low = lower_plan(plan_segment_pairs(di.host, cq, track_work=False))
+    assert low.n_stages == max(lengths) - 1 > 64
+    host = (di.post_docs.cpu(), torch.from_numpy(low.cells), torch.from_numpy(low.stage_seg))
+    rest = (low.group_width, low.stage_iters, low.n_queries_pad, True)
+    before = B.LAUNCHES["segment_fold"]
+    got = ops.segment_fold(di.post_docs, *(t.to(cuda_device) for t in host[1:]), *rest)
+    assert B.LAUNCHES["segment_fold"] == before + K.fold_launches(low.n_stages) > before + 1
+    want = ref.segment_fold_ref(*host, *rest)
+    *emulated, _stats = fold_emulation(*host, *rest)
+    for g, w, e in zip(got, want, emulated, strict=True):
+        assert torch.equal(g.cpu(), w) and torch.equal(g.cpu(), e)
+    counts, docs, _info = device_counts(res.hier_index, cq, return_docs=True, device=cuda_device)
+    ptr, host_docs, _ = batched_query(res.hier_index, cq)
+    np.testing.assert_array_equal(counts, np.diff(ptr))
+    np.testing.assert_array_equal(docs, host_docs)
+    assert counts[0] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_fold_on_slots_of_one_card_equals_single_device(cuda_device, fitted, n_shards):
+    """Shards as slots of one card: one fold launch per shard and batch,
+    counts and docs equal to the single-device fold and the host."""
+    from repro_torch.serve.search_service import SearchService
+
+    _corpus, log, res = fitted
+    single = SearchService(res, device=cuda_device)
+    sharded = SearchService(res, device=cuda_device)
+    sidx = sharded.enable_sharded(devices=[cuda_device] * n_shards)
+    assert sidx.n_shards == n_shards and all(t.is_cuda for t in sidx.post_docs)
+    queries = log.queries
+    want, want_docs, _ = single.serve_counts_device(queries, return_docs=True)
+    before = B.LAUNCHES["segment_fold"]
+    counts, docs, info = sharded.serve_counts_device(queries, return_docs=True)
+    assert B.LAUNCHES["segment_fold"] == before + n_shards
+    np.testing.assert_array_equal(counts, want)
+    np.testing.assert_array_equal(docs, want_docs)
+    np.testing.assert_array_equal(counts, single.serve_counts(queries)[0])
+    assert info["n_shards"] == float(n_shards) and info["n_kernel_calls"] == float(n_shards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+@pytest.mark.parametrize("arity", ["pairs", "mixed"])
+def test_block_path_split_over_slots_of_one_card(cuda_device, fitted, n_shards, arity):
+    from repro_torch.serve.search_service import SearchService
+
+    _corpus, log, res = fitted
+    svc = SearchService(res, device=cuda_device)
+    lists = [list(map(int, t)) for t in log.as_conjunctive()]
+    if arity == "pairs":
+        lists = [t[:2] for t in lists if len(t) >= 2 and t[0] != t[1]]
+    queries = np.asarray(lists) if arity == "pairs" else log.queries
+    packed = svc.pack(queries)
+    before = dict(B.LAUNCHES)
+    got = svc.device_counts(packed, devices=[cuda_device] * n_shards)
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), svc.serve_counts(queries)[0])
+    name = "intersect_count_kernel" if arity == "pairs" else "intersect_members_count_kernel"
+    assert B.LAUNCHES[name] == before[name] + n_shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [0, 2], ids=["single", "sharded"])
+def test_a_failed_fold_launch_raises_through_the_resilience_ladder(cuda_device, fitted, n_shards,
+                                                                  monkeypatch):
+    """On the card the ladder takes only the typed faults: a fold launch
+    that reports a CUDA error propagates out of ``dispatch``, and the host
+    rung never answers the batch."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.serve.resilience import ResilientDispatcher
+    from repro_torch.serve.search_service import SearchService
+
+    _corpus, log, res = fitted
+    svc = SearchService(res, device=cuda_device)
+    if n_shards:
+        svc.enable_sharded(devices=[cuda_device] * n_shards)
+    host_calls = []
+    d = ResilientDispatcher(svc, host_engine=lambda q: host_calls.append(q) or svc.serve_counts(q))
+    assert d.dispatch(log.queries)[2].level == "device"
+    monkeypatch.setattr(K, "lib", lambda stem: SimpleNamespace(segment_fold_launch=lambda *a: 700))
+    with pytest.raises(RuntimeError, match="segment_fold: CUDA launch failed with error 700"):
+        d.dispatch(log.queries)
+    assert host_calls == []
+
+
+@pytest.mark.cuda
+def test_warm_fold_counts_nothing_on_dead_cells(cuda_device, fitted):
+    from repro_torch.core.device_engine import device_index, prewarm, warm_fold
+
+    _corpus, log, res = fitted
+    di = device_index(res.hier_index, cuda_device)
+    keys = prewarm(res.hier_index, log.queries, batch_sizes=[1, 8, len(log.queries)])["keys"]
+    before = B.LAUNCHES["segment_fold"]
+    for key in keys:
+        warm_fold(di, key, return_members=True)
+    assert B.LAUNCHES["segment_fold"] == before + len(keys) and keys
 
 
 @pytest.mark.cuda

@@ -87,6 +87,13 @@ def test_entry_points_without_device_raise_instead_of_using_the_cpu(
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SecludPipeline(tc=200, seed=0).fit(corpus, k=2)
+    # the serving tier: shards default to the visible CUDA devices
+    from repro_torch.core.device_engine import sharded_device_index
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchService(res, device="cpu").enable_sharded()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_device_index(res.hier_index)
     # the explicit CPU device is accepted and runs the plain path
     assert SearchService(res, device="cpu").device_index.device.type == "cpu"
 

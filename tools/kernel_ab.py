@@ -178,7 +178,7 @@ def main(argv) -> int:
     args = search.build_parser().parse_args([
         "--corpus", "wiki", "--docs", str(S.N_DOCS), "--k", str(S.K_CLUSTERS), "--tc", "3000",
         "--queries", str(S.N_QUERIES), "--device", "cuda"])
-    svc, logs, _report = search.setup(args, log_fn=lambda *a: None)
+    svc, logs, _report, _corpus = search.setup(args, log_fn=lambda *a: None)
     di, dev = svc.device_index, svc.device_index.device
     report["fold"] = {}
     for log_name, lg in logs.items():
