@@ -61,24 +61,33 @@
    split-K ``decode`` with its combine, or the ``general`` kernel) and
    read from the counters;
 9. drives the LM serving path through the launcher's own functions
-   (``repro_torch.launch.serve``): gemma3-4b at its full width with
-   seeded random weights, ``LM_REQUESTS`` prompts of ``LM_PROMPT_LEN``
-   tokens, ``LM_DECODE_STEPS`` greedy steps — counters set to 0 just
-   before and the attention counters read just after (one call per layer
-   per model call: the prefill's 34 on the sm90 variant, the 544 of the
-   decode steps on the split-K variant and its combine) — then replays the
-   same run with attention through the plain version, fed the kernel
-   route's tokens, and compares every step's logits (within
-   ``LOGIT_RTOL``) and tokens (equal but at near-ties), and at each
-   attention call of that replay holds the kernel on the same inputs to
-   its limit; two controls, plain attention with a fault (the window
-   ignored on local layers; the ragged tail of keys dropped), must land
-   beyond ``LOGIT_RTOL`` in the logit comparison, and the second beyond
-   ``FLASH_TOL`` at the first decode step; then traces four decode steps
-   with ``torch.profiler`` (device kernel time per step, the attention's
-   part of it, the device's idle share);
+   (``repro_torch.launch.serve``), in the phases of ``LM_PHASES`` (run
+   right after step 8, before step 4, while the card holds nothing else):
+   gemma3-4b at its full width with the bf16 cache (8 prompts of 2048
+   tokens, 16 greedy steps),
+   then the serving cell ``decode_32k`` (the int8 KV cache) for
+   qwen3-moe-30b-a3b at full width and depth, gemma3-4b at the cell's
+   cache length of 32,768 and arctic-480b at full width cut to 2 layers,
+   each with seeded random weights — counters set to 0 just before each
+   phase's ``serve`` and the attention counters read just after (one call
+   per layer per model call: the prefill's on the sm90 variant, the
+   decode steps' on the split-K variant and its combine) — then replays
+   the same run with attention through the plain version (over query
+   chunks where the whole score tensor would not fit), fed the kernel
+   route's tokens and, with MoE, its experts (the plain route's own
+   routing flips must be near-ties by ``ROUTER_TIE_SHARE``), and compares
+   every call's logits (within ``LOGIT_RTOL``) and tokens (equal but at
+   near-ties), and at each attention call of that replay holds the kernel
+   on the same inputs to its limit; the phase's faulty controls (the
+   window ignored on local layers; the ragged tail of keys dropped; the
+   MoE gates not renormalised) must land beyond ``LOGIT_RTOL`` in the
+   logit comparison, and the tail-dropped attention beyond ``FLASH_TOL``
+   at the first decode step; then traces four decode steps with
+   ``torch.profiler`` (device kernel time per step split into attention,
+   dequantize, MoE dispatch, expert products and the rest; the device's
+   idle share) and, with the int8 cache, times the dequantize alone;
 10. times each kernel against its plain version at the main path's
-   shapes (the attention call at four shapes, beside
+   shapes (the attention call at each phase's shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
    single call; the decode variant's split kernel and combine one by
    one; the fold, ``cluster_scores`` and attention also as device time
@@ -102,6 +111,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -134,23 +144,62 @@ LIBRARY_TOL = 3e-2
 # are whole multiples of it, and the general kernel's tile is as long): a
 # fault control drops the ragged last one.
 KEY_TILE = 32
-# The LM path: gemma3-4b at its published widths, 8 requests of 2048
-# tokens (past the 1024 window, so the local layers skip key tiles) and
-# 16 greedy steps, a cache of 2064 positions.
-LM_ARCH = "gemma3-4b"
-LM_REQUESTS = 8
-LM_PROMPT_LEN = 2048
-LM_DECODE_STEPS = 16
 # Logits of the kernel route against the plain route, per step:
 # max |a - b| <= LOGIT_RTOL * max |b|.  Both routes round every attention
 # output and every activation to bf16 (a step is 2**-7 to 2**-8 of the
 # value); the fp32 differences inside attention (sum order, exp) flip a few
-# of those roundings by one step, and 34 layers carry the flips on.  Sound
-# runs read 0.0085-0.0108 on the card (PERF.md); every run also reads two
-# faulty attentions through the same comparison and fails unless both land
-# beyond the limit.  Greedy tokens must be equal except where the plain
+# of those roundings by one step, and 34-48 layers carry the flips on.
+# Sound runs read 0.0072-0.0170 over the LM phases on the card (PERF.md);
+# every run also reads each phase's faulty controls through the same
+# comparison and fails unless they land beyond the limit.  Greedy tokens must be equal except where the plain
 # route's two logits lie within the same bound.
 LOGIT_RTOL = 2e-2
+# A routing flip of an MoE replay (its own top-k set differs from the
+# kernel route's) is a near-tie when the token's router-logit gap between
+# its k-th and (k+1)-th expert lies within ROUTER_TIE_SHARE of the spread
+# of its router logits.  Derivation: the router is a linear map of the
+# normed hidden state in bf16, as the output head is, at an earlier
+# depth; the kernel route may move the head's logits by LOGIT_RTOL of
+# their size, so it may move each router logit by LOGIT_RTOL of their
+# spread; a flip needs the two logits to cross, which both shifts together
+# can do over a gap of at most twice that.  In probabilities: the plain
+# route's margin p_k - p_k+1 = p_k (1 - exp(-gap)) lies within
+# p_k (1 - exp(-ROUTER_TIE_SHARE · log(p_max / p_min))).
+ROUTER_TIE_SHARE = 2 * LOGIT_RTOL
+
+
+class LMPhase(NamedTuple):
+    """One LM serving run: the arch, the serving cell whose overrides it
+    takes (None: the config as it is), requests x prompt tokens + greedy
+    steps, a depth cut (None: full depth) and its fault controls
+    (``CONTROLS``)."""
+
+    name: str
+    arch: str
+    cell: Optional[str]
+    requests: int
+    prompt_len: int
+    steps: int
+    layers: Optional[int]
+    controls: Tuple[str, ...]
+
+
+# The LM path: gemma3-4b at full width and depth with the bf16 cache, 8
+# requests of 2048 tokens (past the 1024 window, so the local layers skip
+# key tiles) and 16 greedy steps, then the zoo's own serving cell
+# ``decode_32k`` (its overrides: the int8 KV cache) for qwen3-moe-30b-a3b at
+# full width and depth, for gemma3-4b at the cell's cache length (4 x
+# 32,752 prompt tokens + 16 steps fill 32,768 positions) and for
+# arctic-480b at full width with its depth cut to 2 layers (its 35 take
+# 888 GiB).  Cuts: the cell's batch of 128 to 8 or 4, the MoE phases'
+# cache of 32,768 positions to 2,064, weights random.
+LM_PHASES = (
+    LMPhase("gemma3-4b", "gemma3-4b", None, 8, 2048, 16, None, ("window", "tail")),
+    LMPhase("qwen3-moe-30b-a3b decode_32k", "qwen3-moe-30b-a3b", "decode_32k", 8, 2048, 16, None,
+            ("gates",)),
+    LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32752, 16, None, ("window",)),
+    LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 16, 2, ("gates",)),
+)
 SOURCES = {
     "segment_fold": ("src/repro_torch/csrc/fold.cu", "src/repro/core/device_engine.py:396"),
     "intersect_members_kernel": (
@@ -192,11 +241,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean ms per call on the card (CUDA events, after a warm-up)."""
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call on the card (CUDA events, after ``warmup`` calls)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1062,10 +1111,11 @@ def topdown_score_buckets(torch, dev, score_shapes, launches):
 
 def plain_attention(q, k, v, causal=True, window=None):
     """The plain version in float32 from the same inputs, cast back to q's
-    dtype: what the plain route of the LM path runs."""
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dtype: what the plain route of the LM path runs (over chunks of query
+    rows where the whole score tensor would pass ``SCORE_BYTES``)."""
+    from _torch_parity import attention_ref_chunked
 
-    return attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window).to(q.dtype)
+    return attention_ref_chunked(q.float(), k.float(), v.float(), causal, window).to(q.dtype)
 
 
 def global_attention(q, k, v, causal=True, window=None):
@@ -1076,8 +1126,8 @@ def global_attention(q, k, v, causal=True, window=None):
 
 def tail_dropped_attention(q, k, v, causal=True, window=None):
     """A fault control: plain attention without the keys past the last
-    whole ``KEY_TILE``: at decode the newest 1-16 tokens, at the 2048-token
-    prefill none."""
+    whole ``KEY_TILE``: at decode the newest 1-16 tokens, at a prefill of
+    whole tiles none."""
     lk = k.shape[2]
     keep = lk - lk % KEY_TILE
     if keep == lk:
@@ -1087,6 +1137,15 @@ def tail_dropped_attention(q, k, v, causal=True, window=None):
     # The query stays at position lk - 1: its window keeps its lower edge.
     return plain_attention(q, k[:, :, :keep], v[:, :, :keep], causal,
                            None if window is None else window - (lk - keep))
+
+
+# The LM phases' fault controls: (name, the replay's attention, whether its
+# MoE gates are renormalised).  Each must land beyond LOGIT_RTOL.
+CONTROLS = {
+    "window": ("window ignored on local layers", global_attention, True),
+    "tail": ("ragged tail tile of keys dropped", tail_dropped_attention, True),
+    "gates": ("MoE gates not renormalised", plain_attention, False),
+}
 
 
 def assert_close_tol(name: str, got, want, tol: float) -> float:
@@ -1158,20 +1217,19 @@ class CheckedPlain:
     """Attention for the plain route: the plain version, in float32 from
     the same inputs and cast to q's dtype.  At every call it also runs the
     kernel on the same inputs and holds it to ``FLASH_TOL`` (plus the
-    P-rounding term on the sm90 variant's calls), and, where the keys end
-    in a ragged tile, reads the tail-dropped control's share of the same
-    limit."""
+    P-rounding term on the sm90 variant's calls), and, at a decode call
+    whose keys end in a ragged tile, reads the tail-dropped control's share
+    of the same limit (with the call's number) where a whole tile stays."""
 
     def __init__(self):
         self.calls, self.max_abs_err, self.share, self.control_shares = 0, 0.0, 0.0, []
         self.share_by_variant = {}
 
     def __call__(self, q, k, v, causal=True, window=None):
-        from _torch_parity import flash_close, flash_error, p_rounding_term
+        from _torch_parity import attention_ref_chunked, flash_close, flash_error, p_rounding_term
         from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
-        from repro_torch.kernels.flash_attention.ref import attention_ref
 
-        want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+        want = attention_ref_chunked(q.float(), k.float(), v.float(), causal, window)
         sm90 = flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], q.shape[3]) == "sm90"
         extra = p_rounding_term(q, k, v, causal, window) if sm90 else None
         try:
@@ -1180,23 +1238,62 @@ class CheckedPlain:
         except AssertionError as exc:
             raise AssertionError(f"serve path, attention call {self.calls} (q {tuple(q.shape)}, "
                                  f"{k.shape[2]} keys, window {window}): {exc}") from exc
-        self.calls += 1
         self.max_abs_err, self.share = max(self.max_abs_err, err), max(self.share, share)
         variant = "sm90" if sm90 else "decode"
         self.share_by_variant[variant] = max(self.share_by_variant.get(variant, 0.0), share)
-        if k.shape[2] % KEY_TILE:
+        if q.shape[2] == 1 and k.shape[2] % KEY_TILE and k.shape[2] > KEY_TILE:
             self.control_shares.append(
-                flash_error(tail_dropped_attention(q, k, v, causal, window), want)[1])
+                (self.calls, flash_error(tail_dropped_attention(q, k, v, causal, window), want)[1]))
+        self.calls += 1
         return want.to(q.dtype)
+
+
+class RoutingReplay:
+    """Teacher-forced routing for a replay of an MoE model, installed as
+    ``layers.top_k_routing``: each MoE layer of each model call takes the
+    experts the kernel route chose at the same call and layer, with gates
+    from this route's own router probabilities, renormalised (or not: a
+    fault control).  Where this route's own top-k set differs from the
+    forced one it records a routing flip: the token's router-logit gap
+    between its k-th and (k+1)-th expert, ``log(p_k / p_k+1)``, and the
+    near-tie bound ``ROUTER_TIE_SHARE`` times the spread of its router
+    logits, ``log(p_max / p_min)``."""
+
+    def __init__(self, experts, n_layers: int, renormalise: bool = True):
+        self.experts, self.n_layers, self.renormalise = iter(experts), n_layers, renormalise
+        self.layer_calls, self.flips = 0, []
+
+    def __call__(self, probs, top_k):
+        import torch
+
+        forced = next(self.experts)
+        vals, own = torch.sort(probs, dim=-1, descending=True, stable=True)
+        differ = (own[:, :top_k].sort(dim=1).values != forced.sort(dim=1).values).any(dim=1)
+        rows = differ.nonzero().flatten()
+        if rows.numel():
+            z = torch.log(vals[rows].clamp_min(1e-38))
+            gaps = (z[:, top_k - 1] - z[:, top_k]).tolist()
+            bounds = (ROUTER_TIE_SHARE * (z[:, 0] - z[:, -1])).tolist()
+            for r, gap, bound in zip(rows.tolist(), gaps, bounds, strict=True):
+                self.flips.append({"call": self.layer_calls // self.n_layers,
+                                   "layer": self.layer_calls % self.n_layers, "token": r,
+                                   "gap": gap, "bound": bound})
+        self.layer_calls += 1
+        gates = probs.gather(1, forced)
+        if self.renormalise:
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return gates, forced
 
 
 class LogitRecorder:
     """Keeps a float32 copy of the logits of every ``prefill`` and
-    ``decode_step`` call made while it is installed."""
+    ``decode_step`` call made while it is installed, and with an MoE
+    ``model`` each MoE layer's experts of that call (call-major, layer
+    order: what :class:`RoutingReplay` takes)."""
 
-    def __init__(self, module):
-        self.module = module
-        self.logits = []
+    def __init__(self, module, model=None):
+        self.module, self.model = module, model
+        self.logits, self.experts = [], []
         self._fns = {name: getattr(module, name) for name in ("prefill", "decode_step")}
         for name, fn in self._fns.items():
             setattr(module, name, self._wrap(fn))
@@ -1205,45 +1302,40 @@ class LogitRecorder:
         def wrapped(*args, **kwargs):
             logits, cache = fn(*args, **kwargs)
             self.logits.append(logits.detach().float().clone())
+            if self.model is not None:
+                self.experts.extend(blk.moe.routing.experts for blk in self.model.blocks
+                                    if blk.moe is not None)
             return logits, cache
         return wrapped
-
-    def record_calls(self, owner, attr, describe) -> list:
-        """Wrap ``owner.attr`` so each call appends ``describe(*args,
-        **kwargs)`` to the returned list (undone by ``restore``)."""
-        fn, calls = getattr(owner, attr), []
-
-        def recorded(*args, **kwargs):
-            calls.append(describe(*args, **kwargs))
-            return fn(*args, **kwargs)
-
-        setattr(owner, attr, recorded)
-        self._undo.append((owner, attr, fn))
-        return calls
 
     def restore(self):
         for name, fn in self._fns.items():
             setattr(self.module, name, fn)
 
 
-def replay(torch, model, prompts, fed, attention):
-    """The serve run again with attention through ``attention``, fed the
-    tokens ``fed`` (requests, steps) instead of its own: the logits of the
+def replay(torch, model, prompts, fed, attention, routing=None):
+    """The serve run again with attention through ``attention`` (and with
+    ``routing`` as the MoE layers' ``top_k_routing``), fed the tokens
+    ``fed`` (requests, steps) instead of its own: the logits of the
     prefill and of every step."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     dev = fed.device
     kernel_attention, L.flash_attention = L.flash_attention, attention
+    own_routing = L.top_k_routing
+    if routing is not None:
+        L.top_k_routing = routing
     try:
         cache = T.init_cache(model.cfg, fed.shape[0], prompts.shape[1] + fed.shape[1], dev)
         logits = [T.prefill(model, torch.from_numpy(prompts).to(dev), cache)[0].float()]
         for s in range(fed.shape[1]):
             logits.append(T.decode_step(model, fed[:, s:s + 1], cache)[0].float())
         torch.cuda.synchronize()
+        del cache
         return logits
     finally:
-        L.flash_attention = kernel_attention
+        L.flash_attention, L.top_k_routing = kernel_attention, own_routing
 
 
 def logit_rel_errs(got, want) -> list:
@@ -1252,27 +1344,33 @@ def logit_rel_errs(got, want) -> list:
             for a, b in zip(got, want, strict=True)]
 
 
-def lm_serve(torch, dev):
-    """gemma3-4b at its full width through ``launch/serve.py``'s own
-    functions, then the same run with attention through the plain version
-    (the kernel held to it at every call) and through two faulty versions,
-    fed the kernel route's tokens.  Returns its report and the attention
-    kernel's launch count."""
+def lm_phase(torch, dev, phase: LMPhase):
+    """One LM serving phase through ``launch/serve.py``'s own ``setup`` and
+    ``serve`` (counters set to 0 just before ``serve`` and read just
+    after), then the same run with attention through the plain version
+    (the kernel held to it at every call) and through the phase's faulty
+    controls, fed the kernel route's tokens; an MoE model's replays also
+    take the kernel route's experts (:class:`RoutingReplay`).  Returns its
+    report and the attention kernel's launch count."""
     from _torch_parity import FLASH_VARIANTS
     from repro_torch.kernels import build as B
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
-    args = serve.build_parser().parse_args([
-        "--arch", LM_ARCH, "--config", "full", "--requests", str(LM_REQUESTS),
-        "--prompt-len", str(LM_PROMPT_LEN), "--decode-steps", str(LM_DECODE_STEPS),
-        "--device", "cuda"])
+    argv = ["--arch", phase.arch, "--config", "full", "--requests", str(phase.requests),
+            "--prompt-len", str(phase.prompt_len), "--decode-steps", str(phase.steps),
+            "--device", "cuda"]
+    argv += ["--cell", phase.cell] if phase.cell else []
+    argv += ["--layers", str(phase.layers)] if phase.layers else []
+    args = serve.build_parser().parse_args(argv)
+    resident = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     model, prompts = serve.setup(args)
     init_s = time.perf_counter() - t0
     cfg = model.cfg
+    n_moe = sum(blk.moe is not None for blk in model.blocks)
     torch.cuda.reset_peak_memory_stats(dev)
-    rec = LogitRecorder(T)
+    rec = LogitRecorder(T, model if n_moe else None)
     B.reset_launch_counts()
     try:
         report = serve.serve(model, prompts, args.decode_steps)
@@ -1281,7 +1379,8 @@ def lm_serve(torch, dev):
     torch.cuda.synchronize()
     launches = {name: B.LAUNCHES[name] for name in ("flash_attention_kernel", *FLASH_VARIANTS)}
     peak_bytes = torch.cuda.max_memory_allocated(dev)
-    expected = cfg.n_layers * (1 + args.decode_steps)
+    calls = 1 + args.decode_steps
+    expected = cfg.n_layers * calls
     # One call a layer a model call: the prefill's on the sm90 variant, each
     # decode step's on the split-K variant and its combine.
     design = {"flash_attention_kernel": expected, "flash_attention_sm90": cfg.n_layers,
@@ -1289,50 +1388,56 @@ def lm_serve(torch, dev):
               "flash_attention_combine": cfg.n_layers * args.decode_steps,
               "flash_attention_general": 0}
     if launches != design:
-        raise AssertionError(f"serve path: attention launches {launches}, the design gives "
+        raise AssertionError(f"{phase.name}: attention launches {launches}, the design gives "
                              f"{design}")
     tokens = report["tokens"]
     if tokens.shape != (args.requests, args.decode_steps) or tokens.min() < 0 \
             or tokens.max() >= cfg.vocab:
-        raise AssertionError(f"serve path: tokens of shape {tokens.shape} outside [0, vocab)")
+        raise AssertionError(f"{phase.name}: tokens of shape {tokens.shape} outside [0, vocab)")
     kernel_logits = rec.logits
-    if not all(bool(x.isfinite().all()) for x in kernel_logits):
-        raise AssertionError("serve path: non-finite logits")
+    if len(kernel_logits) != calls or not all(bool(x.isfinite().all()) for x in kernel_logits):
+        raise AssertionError(f"{phase.name}: non-finite logits or a model call missing")
+    if n_moe and len(rec.experts) != n_moe * calls:
+        raise AssertionError(f"{phase.name}: {len(rec.experts)} MoE routings recorded")
 
     # The plain route and the fault controls, teacher-forced with the
-    # kernel route's tokens.
+    # kernel route's tokens (and experts).
     fed = torch.from_numpy(tokens).to(dev)
     checked = CheckedPlain()
-    plain_logits = replay(torch, model, prompts, fed, checked)
+    routing = RoutingReplay(rec.experts, n_moe) if n_moe else None
+    plain_logits = replay(torch, model, prompts, fed, checked, routing)
     rel_errs = logit_rel_errs(kernel_logits, plain_logits)
     controls = {}
-    for name, attention in (("window ignored on local layers", global_attention),
-                            ("ragged tail tile of keys dropped", tail_dropped_attention)):
-        controls[name] = logit_rel_errs(replay(torch, model, prompts, fed, attention),
+    for key in phase.controls:
+        name, attention, renormalise = CONTROLS[key]
+        forced = RoutingReplay(rec.experts, n_moe, renormalise) if n_moe else None
+        controls[name] = logit_rel_errs(replay(torch, model, prompts, fed, attention, forced),
                                         plain_logits)
-    print(f"LM logits against the plain route (max |a - b| / max |b| per call, limit "
+    print(f"{phase.name} logits against the plain route (max |a - b| / max |b| per call, limit "
           f"{LOGIT_RTOL}): kernel route {max(rel_errs):.4g}; " + "; ".join(
               f"{name} {max(errs):.4g}" for name, errs in controls.items()), flush=True)
     shares = checked.control_shares
-    flagged = sum(x > 1.0 for x in shares)
-    print(f"LM attention calls of the plain route: the kernel on the same inputs within "
-          f"{checked.share:.3g} of its limit (max |err| {checked.max_abs_err:.3g}; by variant "
-          f"{checked.share_by_variant}) at "
-          f"{checked.calls} calls; the tail-dropped control beyond it at {flagged} of "
-          f"{len(shares)} ragged decode calls ({min(shares):.3g}-{max(shares):.3g} of it)",
-          flush=True)
+    first_step = [share for call, share in shares if cfg.n_layers <= call < 2 * cfg.n_layers]
+    flagged = sum(share > 1.0 for _, share in shares)
+    print(f"{phase.name} attention calls of the plain route: the kernel on the same inputs "
+          f"within {checked.share:.3g} of its limit (max |err| {checked.max_abs_err:.3g}; by "
+          f"variant {checked.share_by_variant}) at {checked.calls} calls; the tail-dropped "
+          f"control beyond it at {flagged} of {len(shares)} ragged decode calls "
+          f"({min(s for _, s in shares):.3g}-{max(s for _, s in shares):.3g} of it)", flush=True)
     if checked.calls != expected:
-        raise AssertionError(f"serve path: {checked.calls} checked attention calls, not {expected}")
-    if max(shares[:cfg.n_layers]) <= 1.0:
-        raise AssertionError("serve path: the per-call check cannot tell the tail-dropped control "
-                             "(one key) at the first decode step")
+        raise AssertionError(f"{phase.name}: {checked.calls} checked attention calls, not "
+                             f"{expected}")
+    if not first_step or max(first_step) <= 1.0:
+        raise AssertionError(f"{phase.name}: the per-call check cannot tell the tail-dropped "
+                             f"control at the first decode step")
     if max(rel_errs) > LOGIT_RTOL:
-        raise AssertionError(f"serve path: logits differ from the plain route by "
+        raise AssertionError(f"{phase.name}: logits differ from the plain route by "
                              f"{max(rel_errs):.3g} of their largest value (limit {LOGIT_RTOL})")
     for name, errs in controls.items():
         if max(errs) <= LOGIT_RTOL:
-            raise AssertionError(f"serve path: the control '{name}' reads {max(errs):.3g}, "
+            raise AssertionError(f"{phase.name}: the control '{name}' reads {max(errs):.3g}, "
                                  f"within the limit {LOGIT_RTOL}: the comparison cannot tell it")
+    flips = routing_flips(phase.name, routing, calls) if n_moe else None
     near_ties = []
     for s, b in enumerate(plain_logits[:args.decode_steps]):
         plain_top = b.argmax(dim=1)
@@ -1340,76 +1445,184 @@ def lm_serve(torch, dev):
         for r in (plain_top != kern_tok).nonzero().flatten().tolist():
             gap = float(b[r, plain_top[r]] - b[r, kern_tok[r]])
             if gap > LOGIT_RTOL * float(b[r].abs().max()):
-                raise AssertionError(f"serve path: request {r} step {s}: token "
+                raise AssertionError(f"{phase.name}: request {r} step {s}: token "
                                      f"{int(kern_tok[r])} is {gap:.4g} below the plain "
                                      f"route's top logit, beyond a near-tie")
             near_ties.append({"request": r, "step": s, "gap": gap})
+    checks = {"attention_calls_checked": checked.calls,
+              "attention_max_abs_err": checked.max_abs_err,
+              "attention_share_of_limit": checked.share,
+              "attention_share_of_limit_by_variant": checked.share_by_variant}
+    del rec, checked, routing, plain_logits, kernel_logits
     decode_ms = [t * 1e3 for t in report["decode_step_s"]]
     trace = decode_trace(torch, model, prompts, dev)
     out = {
-        "arch": LM_ARCH, "n_params": cfg.n_params(), "requests": args.requests,
+        "arch": cfg.name, "cell": phase.cell, "n_layers": cfg.n_layers,
+        "n_params": cfg.n_params(), "kv_quant": cfg.kv_quant, "requests": args.requests,
         "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
         "cache_len": int(report["cache_len"]), "init_s": init_s,
         "prefill_s": report["prefill_s"], "decode_step_ms": decode_ms,
         "decode_step_ms_median": report["decode_step_s_median"] * 1e3,
         "wall_s": report["wall_s"], "tokens_per_s": report["tokens_per_s"],
-        "peak_memory_bytes": int(peak_bytes),
+        "resident_before_bytes": int(resident), "peak_memory_bytes": int(peak_bytes),
         "attention_launches": launches, "launches_expected": design,
         "logit_rel_err": rel_errs, "logit_rel_err_max": max(rel_errs),
-        "control_logit_rel_err": controls, "attention_calls_checked": checked.calls,
-        "attention_max_abs_err": checked.max_abs_err, "attention_share_of_limit": checked.share,
-        "attention_share_of_limit_by_variant": checked.share_by_variant,
-        "tail_control_share_of_limit": shares,
+        "control_logit_rel_err": controls, **checks,
+        "tail_control_share_of_limit": [share for _, share in shares],
+        "dropped_slots": report["dropped_slots"], "routing_flips": flips,
         "near_ties": near_ties, "first_request": tokens[0].tolist(), "decode_trace": trace,
     }
-    print(f"LM serve path: {LM_ARCH} ({cfg.n_params() / 1e9:.3f} B parameters), "
-          f"{args.requests} x {args.prompt_len} prompt tokens + {args.decode_steps} steps: "
+    if cfg.kv_quant:
+        out["dequantize"] = dequantize_rows(torch, dev, cfg, args.requests, report["cache_len"],
+                                            trace)
+    print(f"{phase.name}: {cfg.name} ({cfg.n_layers} layers, {cfg.n_params() / 1e9:.3f} B "
+          f"parameters{', int8 KV cache' if cfg.kv_quant else ''}), {args.requests} x "
+          f"{args.prompt_len} prompt tokens + {args.decode_steps} steps: "
           f"{out['tokens_per_s']:.1f} tok/s, prefill {out['prefill_s']:.3f} s, median decode "
           f"step {out['decode_step_ms_median']:.2f} ms, peak memory "
-          f"{peak_bytes / 2**30:.2f} GiB; attention launches {launches} (as designed); "
-          f"{len(near_ties)} near-tie tokens", flush=True)
+          f"{peak_bytes / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident before it); "
+          f"attention launches {launches} (as designed); {len(near_ties)} near-tie tokens"
+          + ("" if report["dropped_slots"] is None else
+             f"; dropped slots per model call {report['dropped_slots']}"), flush=True)
     return out, launches
+def routing_flips(name, routing, calls) -> dict:
+    """Checks the plain replay's routing flips against the near-tie bound
+    (``ROUTER_TIE_SHARE``) and returns their count, the calls whose own
+    routing agreed with the kernel route's everywhere, and the largest
+    gap / bound."""
+    if routing.layer_calls != routing.n_layers * calls or next(routing.experts, None) is not None:
+        raise AssertionError(f"{name}: the replay took {routing.layer_calls} routings, the kernel "
+                             f"route made {routing.n_layers * calls}")
+    beyond = [f for f in routing.flips if f["gap"] > f["bound"]]
+    if beyond:
+        raise AssertionError(f"{name}: {len(beyond)} routing flips beyond a near-tie, the first "
+                             f"{beyond[0]}")
+    flipped = sorted({f["call"] for f in routing.flips})
+    out = {"flips": len(routing.flips), "calls_with_flips": flipped,
+           "calls_agreeing": calls - len(flipped),
+           "max_gap_share_of_bound": max((f["gap"] / f["bound"] for f in routing.flips),
+                                         default=0.0),
+           "first": routing.flips[:20]}
+    print(f"{name} routing: the plain route's own top-k differs from the kernel route's at "
+          f"{out['flips']} token-layers (calls {flipped}), every one a near-tie (gap at most "
+          f"{out['max_gap_share_of_bound']:.3g} of its bound); {out['calls_agreeing']} of "
+          f"{calls} calls agree everywhere", flush=True)
+    return out
+
+
+def dequantize_rows(torch, dev, cfg, batch, cache_len, trace) -> dict:
+    """``layers._dequantize`` of one layer's K and V alone at a decode
+    step's shapes: a global layer's whole cache and, with a window, a local
+    layer's window; ms (eager and CUDA graph) beside the byte bound (int8
+    codes and float32 scales read once, the activation dtype written
+    once), and the step's sum over the layers from those times beside the
+    traced one."""
+    from repro_torch.models import layers as L
+
+    windows = cfg.layer_windows()
+    kinds = {"global layer": (cache_len, windows.count(0))}
+    if cfg.window is not None:
+        kinds["local layer"] = (min(cfg.window, cache_len), len(windows) - windows.count(0))
+    rows = {}
+    for kind, (keys, layers) in kinds.items():
+        gen = torch.Generator(device=dev).manual_seed(keys)
+        shape = (batch, keys, cfg.n_kv_heads, cfg.head_dim)
+        codes = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(shape[:-1], generator=gen, device=dev) for _ in range(2)]
+
+        def both(codes=codes, scales=scales):
+            return [L._dequantize(q, sc, cfg.adtype) for q, sc in zip(codes, scales)]
+
+        nbytes = 2 * (codes[0].numel() * (1 + cfg.adtype.itemsize) + scales[0].numel() * 4)
+        rows[kind] = {"keys": keys, "layers": layers, "bytes": nbytes, "ms": time_ms(both),
+                      "device_ms": graph_ms(both), "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3}
+        del codes, scales
+    step = sum(r["device_ms"] * r["layers"] for r in rows.values())
+    out = {"rows": rows, "step_device_ms": step, "traced_ms": trace.get("dequantize_ms")}
+    print("dequantize, one layer's K and V at the decode step: " + "; ".join(
+        f"{kind} ({r['keys']} keys, x{r['layers']}): {r['ms']:.4f} ms eager, {r['device_ms']:.4f} "
+        f"device, bound {r['bound_ms']:.4f} ({r['bytes']} bytes)" for kind, r in rows.items())
+        + f"; {step:.3f} ms a step by these times, traced {trace.get('dequantize_ms')}", flush=True)
+    return out
+
+
+# The decode trace's labelled spans: label -> the function of
+# ``models.layers`` that it wraps.
+TRACE_SPANS = {"dequantize": "_dequantize", "moe": "moe_apply", "expert products": "_expert_ffn"}
 
 
 def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
     """The decode step under ``torch.profiler``: a fresh cache and the
     prompts prefilled (not traced), one warm step, then ``steps`` greedy
-    steps traced.  Returns ms per step on the host clock, the device's
-    kernel ms per step (one stream, so kernels do not overlap), the
-    attention kernels' part of it, and the device's idle share; None
-    where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    steps traced, with ``TRACE_SPANS``' functions in labelled spans.
+    Returns ms per step on the host clock, the device's kernel ms per step
+    (the kernels' own events, one stream, so they do not overlap), its
+    parts (attention's kernels; each span's kernels, from the launching
+    ops under it; MoE dispatch = the MoE span less its expert products;
+    the rest), the device's idle share, and the sum of every
+    ``key_averages`` entry's self device time (which counts an aten op's
+    kernels twice: once under the op, once as the kernel); None where the
+    profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+
+    def spanned(fn, label):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
 
     cache = T.init_cache(model.cfg, prompts.shape[0], prompts.shape[1] + steps + 1, dev)
     logits, cache = T.prefill(model, torch.from_numpy(prompts).to(dev), cache)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     logits, cache = T.decode_step(model, nxt, cache)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            logits, cache = T.decode_step(model, nxt, cache)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    originals = {attr: getattr(L, attr) for attr in TRACE_SPANS.values()}
+    for label, attr in TRACE_SPANS.items():
+        setattr(L, attr, spanned(originals[attr], label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                logits, cache = T.decode_step(model, nxt, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        for attr, fn in originals.items():
+            setattr(L, attr, fn)
     del cache
-    device_us = attention_us = 0.0
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        device_us += us
-        if "flash_" in e.key:
-            attention_us += us
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in TRACE_SPANS]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    attention_us = sum(e.time_range.elapsed_us() for e in kernels if "flash_" in e.name)
+    span_us = {label: sum(e.device_time_total for e in events
+                          if e.name == label and e.device_type == DeviceType.CPU)
+               for label in TRACE_SPANS}
+    key_averages_us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+                          for e in prof.key_averages())
     if device_us <= 0.0:
         print("decode trace: the profiler saw no device time (not measured)", flush=True)
         return {"step_ms": wall_ms, "device_ms": None, "attention_ms": None, "idle_share": None}
+    ms = {label: us / 1e3 / steps for label, us in span_us.items()}
     out = {"step_ms": wall_ms, "device_ms": device_us / 1e3 / steps,
-           "attention_ms": attention_us / 1e3 / steps,
-           "idle_share": 1.0 - device_us / 1e3 / steps / wall_ms}
+           "attention_ms": attention_us / 1e3 / steps, "dequantize_ms": ms["dequantize"],
+           "moe_dispatch_ms": ms["moe"] - ms["expert products"],
+           "expert_products_ms": ms["expert products"],
+           "idle_share": 1.0 - device_us / 1e3 / steps / wall_ms,
+           "key_averages_self_device_ms": key_averages_us / 1e3 / steps}
+    out["rest_ms"] = out["device_ms"] - out["attention_ms"] - ms["dequantize"] - ms["moe"]
     print(f"decode trace ({steps} steps, torch.profiler): {out['step_ms']:.2f} ms a step on the "
-          f"host clock, device kernels {out['device_ms']:.2f} ms (attention "
-          f"{out['attention_ms']:.2f} ms), device idle {out['idle_share']:.1%}", flush=True)
+          f"host clock, device kernels {out['device_ms']:.3f} ms: attention "
+          f"{out['attention_ms']:.3f}, dequantize {out['dequantize_ms']:.3f}, MoE dispatch "
+          f"{out['moe_dispatch_ms']:.3f}, expert products {out['expert_products_ms']:.3f}, rest "
+          f"{out['rest_ms']:.3f}; device idle {out['idle_share']:.1%} (key_averages' self device "
+          f"time summed: {out['key_averages_self_device_ms']:.3f} ms)", flush=True)
     return out
 
 
@@ -1421,31 +1634,52 @@ def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+# The attention's shapes on the LM path, timed by ``flash_rows``: (label,
+# B, H, Hkv, Lq, Lk, D, window, input copies).  gemma3-4b with the bf16
+# cache: a local and a global layer's prefill, a global and a local
+# layer's last decode step; qwen3-moe-30b-a3b and arctic-480b (global
+# layers): prefill and last decode step; gemma3-4b at decode_32k: a global
+# and a local layer's prefill of 32,752 tokens and last decode step (the
+# int8 cache hands a local layer its window of keys).  Decode rotates over
+# enough copies of its inputs to exceed the L2 cache, as each layer's own
+# cache would.
+FLASH_ROW_SHAPES = (
+    ("gemma3-4b prefill, local layer (window 1024)", 8, 8, 4, 2048, 2048, 256, 1024, 1),
+    ("gemma3-4b prefill, global layer", 8, 8, 4, 2048, 2048, 256, 2**30, 1),
+    ("gemma3-4b decode, global layer", 8, 8, 4, 1, 2064, 256, 2**30, 4),
+    ("gemma3-4b decode, local layer (window 1024)", 8, 8, 4, 1, 2064, 256, 1024, 4),
+    ("qwen3-moe-30b-a3b prefill", 8, 32, 4, 2048, 2048, 128, 2**30, 1),
+    ("qwen3-moe-30b-a3b decode", 8, 32, 4, 1, 2064, 128, 2**30, 4),
+    ("arctic-480b prefill", 8, 56, 8, 2048, 2048, 128, 2**30, 1),
+    ("arctic-480b decode (group 7)", 8, 56, 8, 1, 2064, 128, 2**30, 4),
+    ("gemma3-4b decode_32k prefill, global layer", 4, 8, 4, 32752, 32752, 256, 2**30, 1),
+    ("gemma3-4b decode_32k prefill, local layer (window 1024)", 4, 8, 4, 32752, 32752, 256, 1024,
+     1),
+    ("gemma3-4b decode_32k decode, global layer", 4, 8, 4, 1, 32768, 256, 2**30, 2),
+    ("gemma3-4b decode_32k decode, local layer (its window of keys)", 4, 8, 4, 1, 1024, 256, 1024,
+     8),
+)
+# Above this many (query, key) pairs per (B, H) the plain version is timed
+# once: at a 32k-token prefill one call takes seconds.
+PLAIN_ONCE_PAIRS = 10**8
+
+
 def flash_rows(torch, dev, launches, checked_errs):
-    """The attention at the LM path's shapes in bf16 (the model's strided
-    layout): a local and a global layer's prefill, and a global and a local
-    layer's last decode step.  Decode rotates over enough copies of its
-    inputs to exceed the L2 cache, as each layer's own cache would.
-    Returns four entries: the attention call (``flash_attention_kernel``)
-    at all four shapes, the sm90 variant at the prefill shapes, and the
-    decode variant's split kernel and combine, each alone against its
-    plain version, at the decode shapes."""
+    """The attention at the LM path's shapes (``FLASH_ROW_SHAPES``) in bf16
+    (the model's strided layout).  Returns four entries: the attention call
+    (``flash_attention_kernel``) at every shape, the sm90 variant at the
+    prefill shapes, and the decode variant's split kernel and combine, each
+    alone against its plain version, at the decode shapes."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from _torch_parity import flash_close, flash_inputs, p_rounding_term
+    from _torch_parity import attention_ref_chunked, flash_close, flash_inputs, p_rounding_term
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.ref import (attention_ref, combine_ref,
-                                                         decode_partials_ref)
+    from repro_torch.kernels.flash_attention.ref import combine_ref, decode_partials_ref
 
-    b, h, hkv, d = LM_REQUESTS, 8, 4, 256
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lk_decode = LM_PROMPT_LEN + LM_DECODE_STEPS
-    shapes = [("prefill, local layer (window 1024)", LM_PROMPT_LEN, LM_PROMPT_LEN, 1024, 1),
-              ("prefill, global layer", LM_PROMPT_LEN, LM_PROMPT_LEN, 2**30, 1),
-              ("decode, global layer", 1, lk_decode, 2**30, 4),
-              ("decode, local layer (window 1024)", 1, lk_decode, 1024, 4)]
     call_rows, sm90_rows, decode_rows, combine_rows = [], [], [], []
-    for n, (shape, lq, lk, window, copies) in enumerate(shapes):
+    for n, (shape, b, h, hkv, lq, lk, d, window, copies) in enumerate(FLASH_ROW_SHAPES):
         sets = [flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=100 + n + c,
                              model_layout=True)
                 for c in range(copies)]
@@ -1453,14 +1687,27 @@ def flash_rows(torch, dev, launches, checked_errs):
         route = FK.flash_route(q.dtype, h, hkv, lq, d)
         got = FK.flash_attention_cuda(q, k, v, causal=True, window=window)
         extra = p_rounding_term(q, k, v, True, window) if route == "sm90" else None
-        err, share = flash_close(got, attention_ref(q.float(), k.float(), v.float(), True, window),
-                                 extra)
+        want = attention_ref_chunked(q.float(), k.float(), v.float(), True, window)
+        err, share = flash_close(got, want, extra)
+        plain = want.to(q.dtype)
+        del extra, want
+        big = lq * lk > PLAIN_ONCE_PAIRS
         i = torch.arange(lq, device=dev)[:, None] + (lk - lq)
         j = torch.arange(lk, device=dev)[None, :]
         mask = (j <= i) & (j > i - window)
+        if big:
+            # With a mask and enable_gqa the library may take its math
+            # backend, which forms the (B, H, Lq, Lk) scores (137 GB at
+            # 32k): here the efficient backend is required, over K/V heads
+            # repeated beforehand (not timed).
+            kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
 
-        def library_mask(q=q, k=k, v=v, mask=mask):
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+            def library_mask(q=q, kr=kr, vr=vr, mask=mask):
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+        else:
+            def library_mask(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
         # The fastest single call of the same function: no boolean mask
         # where none is needed (it keeps the library off its flash backend).
@@ -1472,7 +1719,6 @@ def flash_rows(torch, dev, launches, checked_errs):
         else:  # one query at the end of the keys sees every key
             library, library_call = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True)), "no mask"
-        plain = plain_attention(q, k, v, True, window)
         assert_close_tol("scaled_dot_product_attention yardstick", library_mask(), plain,
                          LIBRARY_TOL)
         assert_close_tol(f"scaled_dot_product_attention ({library_call}) yardstick", library(),
@@ -1484,8 +1730,9 @@ def flash_rows(torch, dev, launches, checked_errs):
             return FK.flash_attention_cuda(qq, kk, vv, causal=True, window=window)
 
         ms = time_ms(kernel)
+        plain_reps = 1 if big else 3
         plain_ms = time_ms(lambda q=q, k=k, v=v, window=window: plain_attention(q, k, v, True, window),
-                           reps=3)
+                           reps=plain_reps, warmup=plain_reps)
         library_mask_ms = time_ms(library_mask, reps=5)
         library_ms = library_mask_ms if library is library_mask else time_ms(library, reps=5)
         device = {"ms": graph_ms(kernel), "library_ms": graph_ms(library, reps=5),
@@ -1517,7 +1764,9 @@ def flash_rows(torch, dev, launches, checked_errs):
                                                 ops))
             combine_rows.append(decode_combine_row(torch, FK, combine_ref, sets[0], shape, window,
                                                    decode_rows[-1]["plan"]))
-        del sets, q, k, v, got, mask, plain
+        del sets, q, k, v, got, mask, plain, library, library_mask
+        if big:
+            del kr, vr
     entries = [kernel_entry("flash_attention_kernel", launches, call_rows,
                             variant=call_rows[0]["variant"]),
                kernel_entry("flash_attention_sm90", launches, sm90_rows, variant="sm90"),
@@ -1620,6 +1869,21 @@ def main() -> int:
     check_fold_cases(torch, dev)
     score_case_err = check_cluster_score_cases(torch, dev)
 
+    # The LM serving path, first while the card holds nothing else (the MoE
+    # phases' weights take 52-57 GiB): each phase reads only the attention
+    # kernel's counters, summed over the phases.
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    flash_errs = check_flash_cases(torch, dev)
+    lm = {}
+    launches = {}
+    for phase in LM_PHASES:
+        lm[phase.name], phase_launches = lm_phase(torch, dev, phase)
+        for name, n in phase_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+    print(f"attention launches over the LM phases: {launches}", flush=True)
+
     # The search path: only the search kernels' counters are read.
     args = search.build_parser().parse_args([
         "--corpus", "wiki", "--docs", str(N_DOCS), "--k", str(K_CLUSTERS), "--tc", "3000",
@@ -1637,9 +1901,10 @@ def main() -> int:
         torch.cuda.synchronize()
     finally:
         recorder.restore()
-    launches = {name: B.LAUNCHES[name] for name in SEARCH_KERNELS}
-    print(f"launches on the search path: {launches}", flush=True)
-    missing = [name for name, n in launches.items() if n <= 0]
+    launches.update({name: B.LAUNCHES[name] for name in SEARCH_KERNELS})
+    print(f"launches on the search path: { {n: launches[n] for n in SEARCH_KERNELS} }",
+          flush=True)
+    missing = [name for name in SEARCH_KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels the search path never launched: {missing}")
     n_batches = sum(report[f"engine_{name}"]["n_batches"] for name in logs)
@@ -1673,13 +1938,6 @@ def main() -> int:
         f"{name}={sec:.3f}" for name, sec in sorted(kmeans["spans_s"].items())), flush=True)
 
     ell, p, tables8, kmeans["round_check"] = round_check(torch, dev, svc.res.view)
-
-    # The LM serving path: only the attention kernel's counter is read.
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
-    torch.backends.cudnn.allow_tf32 = False
-    flash_errs = check_flash_cases(torch, dev)
-    lm, lm_launches = lm_serve(torch, dev)
-    launches.update(lm_launches)
 
     fold = fold_rows(torch, svc, logs, launches, fold_batches)
     del fold_batches

@@ -7,10 +7,11 @@ import importlib
 _MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 # The JAX package's other archs (``repro.configs.registry``).
-NOT_PORTED = ("qwen1.5-32b", "arctic-480b", "qwen3-moe-30b-a3b", "pna", "dien", "mind",
-              "dcn-v2", "bert4rec")
+NOT_PORTED = ("qwen1.5-32b", "pna", "dien", "mind", "dcn-v2", "bert4rec")
 
 ARCH_NAMES = tuple(_MODULES)
 

@@ -4,9 +4,11 @@ transformer.LM`.
 
 The tree comes as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
 params)``), with the layers stacked on a leading axis as the JAX package
-keeps them.  Each weight is stored in the dtype in which the JAX code uses
-it: dense kernels, biases, the embedding and the head in the activation
-dtype (the JAX ``dense`` and ``_head`` cast them on every call), norm
+keeps them (an MoE layer's router and experts under ``layers["moe"]``,
+Arctic's dense FFN beside them under ``layers["mlp"]``).  Each weight is
+stored in the dtype in which the JAX code uses it: dense kernels, experts,
+biases, the embedding and the head in the activation dtype (the JAX
+``dense``, ``moe_apply`` and ``_head`` cast them on every call), norm
 scales in float32 (``rms_norm`` computes in float32).
 """
 
@@ -57,6 +59,12 @@ def params_from_numpy(tree: Mapping, cfg: LMConfig, device=None) -> LM:
         if blk.attn.q_norm is not None:
             _put(blk.attn.q_norm, attn["q_norm"][i])
             _put(blk.attn.k_norm, attn["k_norm"][i])
-        for name in ("up", "down", "gate"):
-            _put_dense(getattr(blk.mlp, name), layers["mlp"][name], i)
+        if blk.moe is not None:
+            moe = layers["moe"]
+            _put_dense(blk.moe.router, moe["router"], i)
+            for name in ("up", "gate", "down"):
+                _put(getattr(blk.moe, name), moe[name][i])
+        if blk.mlp is not None:
+            for name in ("up", "down", "gate"):
+                _put_dense(getattr(blk.mlp, name), layers["mlp"][name], i)
     return model

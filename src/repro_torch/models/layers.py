@@ -1,5 +1,5 @@
 """Building blocks of the LM family on PyTorch: the port of
-``repro.models.layers`` for dense GQA transformers.
+``repro.models.layers`` for dense GQA transformers and MoE.
 
 Conventions, as in the JAX package:
 
@@ -7,7 +7,9 @@ Conventions, as in the JAX package:
   * attention is GQA-general: n_q heads grouped over n_kv heads, optional
     QKV bias (Qwen), optional sliding window (gemma3 local layers),
     optional per-head QK-norm (gemma3);
-  * decode uses an explicit KV cache.
+  * decode uses an explicit KV cache, optionally int8 with per
+    (position, head) scales (``kv_quant``);
+  * MoE is top-k routing with a capacity-bounded, sort-based dispatch.
 
 How the port differs:
 
@@ -21,14 +23,19 @@ How the port differs:
     (B, H, L, D) views, so nothing is transposed in memory;
   * the KV cache is updated in place, and its ``length`` is a Python int,
     so slicing the valid prefix needs no device sync;
-  * the int8 KV cache (``kv_quant``), the mesh split-K decode and MoE are
-    not ported yet: asking for them raises ``NotImplementedError``.
+  * an int8 cache is dequantized only over the keys some query of the
+    call can see (the valid prefix, or a local layer's last
+    ``window + Lq - 1`` positions), the same function as the JAX
+    package's masked read of the whole buffer;
+  * MoE runs the single-device dispatch (``_moe_apply_dense``) on every
+    input: the mesh split-K decode and the expert-parallel
+    ``_moe_apply_sharded`` need a model axis, which the port has not.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +45,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 
 __all__ = [
     "MLP",
+    "MoE",
+    "Routing",
     "Dense",
     "GQAAttention",
     "KVCache",
@@ -45,8 +54,10 @@ __all__ = [
     "cache_read",
     "cache_update",
     "frozen_param",
+    "moe_apply",
     "rms_norm",
     "rope",
+    "top_k_routing",
 ]
 
 def frozen_param(shape, dtype, device) -> nn.Parameter:
@@ -116,28 +127,56 @@ def attention(
 @dataclasses.dataclass
 class KVCache:
     """Decode cache: ``k``/``v`` (B, L_max, Hkv, D) (a leading layer axis
-    when stacked), ``length`` the valid prefix, a Python int."""
+    when stacked), in the activation dtype or int8; an int8 cache keeps
+    float32 scales ``k_scale``/``v_scale`` (B, L_max, Hkv), else None.
+    ``length`` is the valid prefix, a Python int."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
     length: int = 0
 
 
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(B, L, H) symmetric int8 of x (B, L, H, D): codes and float32
+    scales, ``scale = max(amax / 127, 1e-8)``, codes rounded half to
+    even and clipped to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
-    """Write (B, Ln, Hkv, D) at ``cache.length`` in place and advance it."""
+    """Write (B, Ln, Hkv, D) at ``cache.length`` in place (int8 codes and
+    their scales for an int8 cache) and advance it."""
     pos, ln = cache.length, k_new.shape[1]
     if pos + ln > cache.k.shape[1]:
         raise ValueError(f"KV cache of {cache.k.shape[1]} positions is full at {pos} + {ln}")
+    if cache.k_scale is not None:
+        (k_new, ks), (v_new, vs) = _quantize(k_new), _quantize(v_new)
+        cache.k_scale[:, pos:pos + ln] = ks
+        cache.v_scale[:, pos:pos + ln] = vs
     cache.k[:, pos:pos + ln] = k_new
     cache.v[:, pos:pos + ln] = v_new
     cache.length = pos + ln
 
 
-def cache_read(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Views of the cache's valid prefix.  (The cache holds the activation
-    dtype; the JAX ``cache_read`` casts because of the int8 cache.)"""
+def cache_read(cache: KVCache, dtype: torch.dtype,
+               start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys and values of positions ``start`` … ``length - 1`` in
+    ``dtype``: views of an activation-dtype cache, dequantized copies of
+    an int8 one."""
     n = cache.length
-    return cache.k[:, :n], cache.v[:, :n]
+    if cache.k_scale is not None:
+        return (_dequantize(cache.k[:, start:n], cache.k_scale[:, start:n], dtype),
+                _dequantize(cache.v[:, start:n], cache.v_scale[:, start:n], dtype))
+    return cache.k[:, start:n].to(dtype), cache.v[:, start:n].to(dtype)
 
 
 class GQAAttention(nn.Module):
@@ -175,16 +214,31 @@ class GQAAttention(nn.Module):
             # iff j <= p and j > p - window).  The queries sit at the last
             # l positions of the valid prefix, so over that prefix this is
             # causal attention with queries aligned to the end of the keys.
+            # As in the JAX package the new keys and values are written
+            # first, so an int8 cache's queries attend to the dequantized
+            # codes, the prompt's own at prefill too.  An int8 cache is
+            # dequantized from the first key a query sees (at a local
+            # layer the last ``window + l - 1`` positions); the bf16 cache
+            # hands the kernel a view of the whole prefix, whose keys out
+            # of the window the kernel skips itself.
             cache_update(cache, k, v)
-            k, v = cache_read(cache)
+            start = 0
+            if cache.k_scale is not None:
+                start = max(0, cache.length - l - window + 1)
+            k, v = cache_read(cache, x.dtype, start)
         out = attention(q, k, v, causal=True, window=window)
         return self.o(out.reshape(b, l, self.n_heads * self.head_dim))
 
 
+def _activate(g: torch.Tensor, act: str) -> torch.Tensor:
+    """SwiGLU's ``silu`` or GeGLU's ``gelu`` (the tanh approximation that
+    ``jax.nn.gelu`` computes by default)."""
+    return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+
+
 class MLP(nn.Module):
     """``mlp_init`` / ``mlp_apply``: a gated MLP, SwiGLU (``act="silu"``)
-    or GeGLU (``act="gelu"``, the tanh approximation that ``jax.nn.gelu``
-    computes by default)."""
+    or GeGLU (``act="gelu"``)."""
 
     def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
         super().__init__()
@@ -196,6 +250,115 @@ class MLP(nn.Module):
         self.gate = Dense(d_model, d_ff, False, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = self.gate(x)
-        g = F.silu(g) if self.act == "silu" else F.gelu(g, approximate="tanh")
-        return self.down(g * self.up(x))
+        return self.down(_activate(self.gate(x), self.act) * self.up(x))
+
+
+class MoE(nn.Module):
+    """``moe_init`` / ``moe_apply``: a router (a :class:`Dense` d_model →
+    n_experts) and gated experts, ``up`` and ``gate`` (E, d_model,
+    d_expert) and ``down`` (E, d_expert, d_model), in the activation
+    dtype.  ``routing`` holds the last call's :class:`Routing` (device
+    tensors: the serving launcher counts the dropped slots from it)."""
+
+    def __init__(self, d_model: int, d_expert: int, n_experts: int, top_k: int,
+                 capacity_factor: float, act: str, dtype, device):
+        super().__init__()
+        if act not in ("silu", "gelu"):
+            raise ValueError(f"unknown activation {act!r}")
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k={top_k} outside [1, n_experts={n_experts}]")
+        self.top_k, self.capacity_factor, self.act = top_k, capacity_factor, act
+        self.router = Dense(d_model, n_experts, False, dtype, device)
+        self.up = frozen_param((n_experts, d_model, d_expert), dtype, device)
+        self.gate = frozen_param((n_experts, d_model, d_expert), dtype, device)
+        self.down = frozen_param((n_experts, d_expert, d_model), dtype, device)
+        self.routing: Optional[Routing] = None
+
+    def reset(self, generator: torch.Generator) -> None:
+        """``moe_init``'s experts: ``up`` and ``gate`` ~ N(0, 1) ·
+        d_model^-1/2, ``down`` ~ N(0, 1) · d_expert^-1/2, drawn in float32
+        one expert at a time (an arctic-480b expert stack in float32 would
+        take 17.8 GB).  The router is a :class:`Dense`, reset as one."""
+        for w in (self.up, self.gate, self.down):
+            scale = w.shape[1] ** -0.5
+            for e in range(w.shape[0]):
+                w[e].copy_(torch.randn(w.shape[1:], generator=generator, device=w.device) * scale)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (T, d_model) flattened tokens → (out (T, d_model), aux loss)."""
+        out, aux, self.routing = moe_apply(self, x, self.top_k, self.capacity_factor, self.act)
+        return out, aux
+
+
+class Routing(NamedTuple):
+    """Where a call sent its tokens: ``experts`` (T, k) int64, each
+    token's experts in descending probability, and ``keep`` (T, k) bool,
+    False where that slot was dropped over capacity."""
+
+    experts: torch.Tensor
+    keep: torch.Tensor
+
+
+def top_k_routing(probs: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates, experts), each (T, k): the k largest router probabilities
+    in descending order, equal ones in ascending expert order as
+    ``jax.lax.top_k`` breaks ties (``torch.topk`` promises no order, a
+    stable sort does), and the gates renormalised to sum 1 (the sum held
+    at 1e-9 or above)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def _expert_ffn(moe: MoE, xe: torch.Tensor, act: str) -> torch.Tensor:
+    """The experts' gated MLPs as batched products: xe (E, C, d) → (E, C, d)."""
+    h = _activate(torch.bmm(xe, moe.gate.to(xe.dtype)), act) * torch.bmm(xe, moe.up.to(xe.dtype))
+    return torch.bmm(h, moe.down.to(xe.dtype))
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
+              act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor, Routing]:
+    """The JAX ``_moe_apply_dense`` (GShard dispatch): x (T, d) →
+    (out (T, d), the Switch aux loss (0-dim float32), the
+    :class:`Routing`).
+
+    The router runs in the activation dtype and its logits are cast to
+    float32; softmax, top-k, renormalised gates.  Each expert takes at
+    most ``capacity = int(max(1, cf·T·k/E))`` slots: the (token, k)
+    pairs are stably sorted by expert (token-major order within one),
+    ranked from ``searchsorted``, and those past capacity go to a scratch
+    row and are dropped.  The experts run as batched products over
+    (E, C, d), and the gated outputs are added back to their tokens: the
+    JAX scatter-add, taken here as a sum over each token's k slots in
+    token order, so the card adds in a fixed order (``index_add_`` there
+    takes atomics)."""
+    t, d = x.shape
+    e = moe.router.kernel.shape[1]
+    probs = torch.softmax(moe.router(x).float(), dim=-1)  # (T, E)
+    gates, experts = top_k_routing(probs, top_k)
+
+    # Load-balancing aux loss (Switch): e * Σ_e fraction_tokens * mean_prob.
+    flat_expert = experts.reshape(-1)  # (T*k,), token-major
+    ce = torch.zeros(e, device=x.device).index_add_(
+        0, flat_expert, torch.ones_like(flat_expert, dtype=torch.float32)) / (t * top_k)
+    aux = e * torch.sum(probs.mean(dim=0) * ce)
+
+    capacity = int(max(1, capacity_factor * t * top_k / e))
+    order = torch.sort(flat_expert, stable=True).indices  # group by expert
+    se, st, sg = flat_expert[order], order // top_k, gates.reshape(-1)[order]
+    start = torch.searchsorted(se, torch.arange(e, device=x.device), side="left")
+    rank = torch.arange(t * top_k, device=x.device) - start[se]
+    keep = rank < capacity
+    slot = torch.where(keep, se * capacity + rank, e * capacity)  # drop → scratch
+
+    buf = x.new_zeros((e * capacity + 1, d))
+    buf[slot] = x[st]
+    ye = _expert_ffn(moe, buf[:e * capacity].view(e, capacity, d), act)
+    ye_flat = ye.reshape(e * capacity, d)
+    contrib = torch.where(keep[:, None],
+                          ye_flat[torch.clamp(slot, max=e * capacity - 1)] * sg[:, None], 0.0)
+    by_token = torch.empty_like(contrib, dtype=x.dtype)
+    by_token[order] = contrib.to(x.dtype)
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    return by_token.view(t, top_k, d).sum(dim=1), aux, Routing(experts, kept.view(t, top_k))

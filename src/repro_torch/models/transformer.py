@@ -1,6 +1,7 @@
 """The LM family on PyTorch: the port of ``repro.models.transformer`` for
-dense GQA transformers (Qwen1.5) and the hybrid local:global ones
-(gemma3), serving path only.
+dense GQA transformers (Qwen1.5), the hybrid local:global ones (gemma3)
+and MoE (Qwen3-MoE; Arctic's dense FFN beside its MoE), serving path
+only.
 
 The JAX package stacks the layers and runs them with ``lax.scan``; here
 the model is an ``nn.Module`` tree (:class:`LM` holding one
@@ -10,8 +11,7 @@ with window ``2**30`` as in the JAX ``_block``).  :func:`init` draws from
 the same distributions as the JAX ``init``, from an explicit
 ``torch.Generator``, but not the same numbers;
 :func:`repro_torch.models.convert.params_from_numpy` carries a JAX
-parameter tree across.  MoE, the int8 KV cache and ``loss_fn`` (training)
-are not ported yet.
+parameter tree across.  ``loss_fn`` (training) is not ported yet.
 """
 
 from __future__ import annotations
@@ -114,7 +114,9 @@ class LMConfig:
 
 class Block(nn.Module):
     """One transformer block (the JAX ``_block``): pre-norm attention and
-    pre-norm MLP, each with a residual."""
+    a pre-norm feed-forward, each with a residual.  The feed-forward is
+    the MLP, or with ``cfg.moe`` the MoE, plus the MLP beside it when
+    ``dense_residual`` is set (Arctic)."""
 
     def __init__(self, cfg: LMConfig, window: int, device):
         super().__init__()
@@ -124,11 +126,25 @@ class Block(nn.Module):
         self.attn = L.GQAAttention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                                    cfg.rope_theta, cfg.qkv_bias, cfg.qk_norm, dtype, device)
         self.ffn_norm = L.frozen_param((cfg.d_model,), torch.float32, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+        moe = cfg.moe
+        self.moe = None if moe is None else L.MoE(
+            cfg.d_model, moe.d_expert, moe.n_experts, moe.top_k, moe.capacity_factor, cfg.act,
+            dtype, device)
+        self.mlp = (L.MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+                    if moe is None or moe.dense_residual else None)
 
     def forward(self, x, positions, cache: Optional[L.KVCache] = None):
+        """(x after the block, the MoE aux loss or None)."""
         x = x + self.attn(L.rms_norm(x, self.attn_norm), positions, self.window, cache)
-        return x + self.mlp(L.rms_norm(x, self.ffn_norm))
+        xin = L.rms_norm(x, self.ffn_norm)
+        if self.moe is None:
+            return x + self.mlp(xin), None
+        b, s, d = xin.shape
+        y, aux = self.moe(xin.reshape(b * s, d))
+        y = y.reshape(b, s, d)
+        if self.mlp is not None:
+            y = y + self.mlp(xin)
+        return x + y, aux
 
 
 class LM(nn.Module):
@@ -139,8 +155,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
         self.cfg = cfg
         dtype = cfg.adtype
         self.embed = L.frozen_param((cfg.vocab, cfg.d_model), dtype, device)
@@ -159,9 +173,10 @@ class LM(nn.Module):
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
     """Random weights as the JAX ``init`` draws them: embedding and head
-    ~ N(0, 1) · d_model^-1/2, dense kernels ~ N(0, 1) · d_in^-1/2, biases
-    and norm scales 0.  ``device`` defaults to ``cuda`` and raises without
-    a GPU; ``generator`` must live on that device."""
+    ~ N(0, 1) · d_model^-1/2, dense kernels (the routers too) ~ N(0, 1) ·
+    d_in^-1/2, experts as ``moe_init`` draws them (:meth:`MoE.reset`),
+    biases and norm scales 0.  ``device`` defaults to ``cuda`` and raises
+    without a GPU; ``generator`` must live on that device."""
     dev = resolve_device(device)
     model = LM(cfg, dev)
     scale = cfg.d_model**-0.5
@@ -169,32 +184,40 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
         if w is not None:
             w.copy_(torch.randn(w.shape, generator=generator, device=dev) * scale)
     for module in model.modules():
-        if isinstance(module, L.Dense):
+        if isinstance(module, (L.Dense, L.MoE)):
             module.reset(generator)
     return model
 
 
 def forward(model: LM, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None):
-    """Hidden states (B, S, d) after the final norm.  (The JAX ``forward``
-    also returns the MoE aux loss, which comes with MoE.)"""
+    """(hidden states (B, S, d) after the final norm, the MoE aux loss
+    summed over the layers: a float32 0-dim tensor, 0 without MoE)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = model.embed_tokens(tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in model.blocks:
-        x = blk(x, positions)
-    return L.rms_norm(x, model.final_norm)
+        x, a = blk(x, positions)
+        if a is not None:
+            aux = aux + a
+    return L.rms_norm(x, model.final_norm), aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> L.KVCache:
-    """Stacked over layers: ``k``/``v`` have a leading (n_layers,) axis.
-    ``device`` defaults to ``cuda`` and raises without a GPU."""
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache (kv_quant) is not ported yet")
+    """Stacked over layers: every field has a leading (n_layers,) axis.
+    With ``kv_quant`` the keys and values are int8 codes with float32
+    scales (B, max_len, Hkv) initialised to ones, as in the JAX
+    package.  ``device`` defaults to ``cuda`` and raises without a GPU."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
-    return L.KVCache(k=torch.zeros(shape, dtype=cfg.adtype, device=dev),
-                     v=torch.zeros(shape, dtype=cfg.adtype, device=dev))
+    store = torch.int8 if cfg.kv_quant else cfg.adtype
+    cache = L.KVCache(k=torch.zeros(shape, dtype=store, device=dev),
+                      v=torch.zeros(shape, dtype=store, device=dev))
+    if cfg.kv_quant:
+        cache.k_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+        cache.v_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+    return cache
 
 
 def _run_cached(model: LM, tokens: torch.Tensor, cache: L.KVCache) -> torch.Tensor:
@@ -206,8 +229,11 @@ def _run_cached(model: LM, tokens: torch.Tensor, cache: L.KVCache) -> torch.Tens
     pos0 = cache.length
     positions = (torch.arange(s, device=tokens.device) + pos0).expand(b, s)
     x = model.embed_tokens(tokens)
+    quantized = cache.k_scale is not None
     for i, blk in enumerate(model.blocks):
-        x = blk(x, positions, L.KVCache(cache.k[i], cache.v[i], pos0))
+        layer = L.KVCache(cache.k[i], cache.v[i], cache.k_scale[i] if quantized else None,
+                          cache.v_scale[i] if quantized else None, pos0)
+        x, _aux = blk(x, positions, layer)
     cache.length = pos0 + s
     x = L.rms_norm(x, model.final_norm)
     return (x[:, -1] @ model.head()).float()

@@ -82,7 +82,10 @@ def make_rows(rng, b, ls, ll, universe, holes=False):
 # Lk = 1, a window of one key, a ragged key tail (2049), two query
 # positions and the largest group (8 rows); sm90 prefill with one partial
 # key tile, 9 rows (just past the decode limit, H/Hkv odd) and a single
-# key at H/Hkv = 16.
+# key at H/Hkv = 16.  The MoE archs' shapes (their global layers' window
+# 2**30): qwen3-moe-30b-a3b's decode (group 8 at D = 128, the decode
+# variant's largest group) and prefill (sm90, group 8), and
+# arctic-480b's decode group of 7.
 FLASH_CASES = [
     (2, 4, 4, 1, 300, 64, True, None), (1, 2, 2, 128, 128, 64, True, None),
     (2, 4, 2, 37, 100, 128, True, 8), (1, 8, 2, 1, 2064, 256, True, 1024),
@@ -96,6 +99,8 @@ FLASH_CASES = [
     (1, 4, 2, 2, 77, 128, True, 16), (1, 8, 1, 1, 500, 64, True, None),
     (1, 2, 1, 10, 10, 128, True, None), (1, 3, 1, 3, 90, 64, True, None),
     (1, 16, 1, 1, 1, 64, True, None), (1, 4, 2, 70, 130, 64, False, 32),
+    (2, 32, 4, 1, 2064, 128, True, 2**30), (1, 56, 8, 1, 2064, 128, True, 2**30),
+    (1, 32, 4, 300, 300, 128, True, 2**30),
 ]
 # The counter of each attention variant's kernels (kernel.flash_route picks
 # one a call; decode launches its split kernel and its combine), and what a
@@ -129,10 +134,39 @@ P_ROUNDING = 2**-8
 def p_rounding_term(q, k, v, causal, window):
     """``P_ROUNDING`` times the plain attention of |v| (float32): the sm90
     variant's extra limit per output element."""
+    return P_ROUNDING * attention_ref_chunked(q.float(), k.float(), v.float().abs(), causal,
+                                              window)
+
+
+# The largest (B, H, rows, keys) float32 score tensor that
+# ``attention_ref_chunked`` lets the plain version form at once.
+SCORE_BYTES = 2**30
+
+
+def attention_ref_chunked(q, k, v, causal=True, window=None):
+    """``attention_ref`` over chunks of query rows, each chunk against only
+    the keys its rows can see, so that no score tensor passes
+    ``SCORE_BYTES`` (at a 32k-token prefill the whole one would take
+    137 GB).  The same function as ``attention_ref``; float32 sums over
+    fewer masked terms.  Inputs that fit are handed over whole."""
+    import torch
+
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    return P_ROUNDING * attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
-                                      window=window)
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    rows = max(1, SCORE_BYTES // (4 * b * h * lk))
+    if rows >= lq:
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if not causal:
+        raise ValueError("query chunks keep their alignment to the keys only when causal")
+    off, outs = lk - lq, []
+    for c0 in range(0, lq, rows):
+        c1 = min(lq, c0 + rows)
+        lo = 0 if window is None else max(0, off + c0 - window + 1)
+        outs.append(attention_ref(q[:, :, c0:c1], k[:, :, lo:off + c1], v[:, :, lo:off + c1],
+                                  causal=True, window=window))
+    return torch.cat(outs, dim=2)
 
 
 def flash_inputs(device, dtype, b, h, hkv, lq, lk, d, seed, model_layout=False):

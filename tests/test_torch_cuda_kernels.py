@@ -29,6 +29,9 @@ which variant it took (``kernel.flash_route``).  The decode variant's two
 kernels are also held one by one against their plain versions, and the
 launcher must refuse a misaligned base or stride for the variants that
 read with 16-byte loads or TMA.
+
+``moe_apply`` on the card is held against its CPU run, routing included
+(near-ties apart).
 """
 
 from pathlib import Path
@@ -595,3 +598,44 @@ def test_flash_attention_window_of_one_is_the_value_of_the_own_key(cuda_device):
     q, k, v = flash_inputs(cuda_device, torch.float32, 1, 2, 2, 20, 50, 64, seed=3)
     got = flash_attention(q, k, v, causal=True, window=1)
     torch.testing.assert_close(got, v[:, :, 30:], rtol=1e-6, atol=1e-6)
+
+
+# (tokens, d_model, d_expert, experts, top_k, capacity factor): the SMOKE
+# configs' routing (8 of top 2), qwen3-moe-30b-a3b's (128 of top 8) at a
+# decode batch (capacity 1, most slots dropped) and a prefill chunk.
+MOE_CARD_CASES = [(64, 64, 64, 8, 2, 1.25), (8, 256, 96, 128, 8, 1.25),
+                  (512, 256, 96, 128, 8, 1.25), (96, 128, 64, 16, 2, 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,f,e,top_k,cf", MOE_CARD_CASES)
+def test_moe_apply_on_the_card_equals_its_cpu_run(cuda_device, t, d, f, e, top_k, cf):
+    """float32, TF32 off.  The router's logits round apart between the two
+    devices' float32 products, so a token's experts may differ only at a
+    near-tie (the CPU run's probabilities of the two within 1e-6); every
+    token whose experts and keep flags agree has its output within
+    rtol=atol=1e-5 (sums in another order)."""
+    from repro_torch.models import layers as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = L.MoE(d, f, e, top_k, cf, "silu", torch.float32, "cpu")
+    gen = torch.Generator().manual_seed(t + e)
+    cpu.router.reset(gen)
+    cpu.reset(gen)
+    card = L.MoE(d, f, e, top_k, cf, "silu", torch.float32, cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((t, d), generator=gen)
+    want, want_aux, want_r = L.moe_apply(cpu, x, top_k, cf)
+    got, aux, got_r = L.moe_apply(card, x.to(cuda_device), top_k, cf)
+    probs = torch.softmax(cpu.router(x), dim=-1)
+    got_e, got_k = got_r.experts.cpu(), got_r.keep.cpu()
+    for i, j in (got_e != want_r.experts).nonzero().tolist():
+        gap = float(probs[i, want_r.experts[i, j]] - probs[i, got_e[i, j]])
+        assert abs(gap) <= 1e-6, f"token {i} slot {j}: experts differ beyond a near-tie"
+    same = ((got_e == want_r.experts) & (got_k == want_r.keep)).all(dim=1)
+    assert int(same.sum()) >= t - 2
+    torch.testing.assert_close(got.cpu()[same], want[same], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+    # the card's dispatch adds in a fixed order: a second run is bit-equal
+    again, _, again_r = L.moe_apply(card, x.to(cuda_device), top_k, cf)
+    assert torch.equal(again, got) and torch.equal(again_r.keep, got_r.keep)

@@ -73,9 +73,10 @@ def test_gemma3_full_width_parameter_count():
 def test_forward_hidden_states_match(pair):
     _arch, jcfg, params, model = pair
     tokens = _tokens(1, jcfg, 2, PROMPT_LEN)
-    want, _aux = JT.forward(params, jcfg, jnp.asarray(tokens))
-    got = T.forward(model, torch.from_numpy(tokens))
+    want, want_aux = JT.forward(params, jcfg, jnp.asarray(tokens))
+    got, aux = T.forward(model, torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(aux) == float(want_aux) == 0.0  # no MoE, no aux loss
 
 
 def test_prefill_decode_and_cache_match(pair):
@@ -134,6 +135,13 @@ def test_greedy_loop_matches_the_jax_launcher(pair, capsys, monkeypatch):
     jax_serve.main()
     first = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("first request:")]
     assert first and first[0] == f"first request: {want[0].tolist()}"
+    assert_greedy_tokens_match(got, want, jlogits)
+
+
+def assert_greedy_tokens_match(got, want, jlogits):
+    """Equal tokens, but where a request's first differ the JAX logits of
+    the two tokens lie within ``TOL`` (a near-tie); the request is not
+    compared after it."""
     for r in range(want.shape[0]):
         diff = np.nonzero(got[r] != want[r])[0]
         if diff.size == 0:
@@ -159,13 +167,9 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        T.init_cache(dataclasses.replace(gemma3_4b.SMOKE, kv_quant=True), 1, 8, "cpu")
-    moe = dataclasses.replace(gemma3_4b.SMOKE, moe=T.MoESpec(n_experts=4, top_k=2, d_expert=8))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init(moe, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("dcn-v2")
+    for arch in ("qwen1.5-32b", "dcn-v2"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-2")
     model = T.init(gemma3_4b.SMOKE, torch.Generator().manual_seed(0), "cpu")
