@@ -24,7 +24,7 @@
    engine bit for bit, one fold launch a batch — with every launch
    counter set to 0 just before and the search kernels' counters read
    just after (the fold's arguments of each batch are recorded, for its
-   timing in step 10);
+   timing in step 11);
 5. drives the serving tier over the same fit through the launcher's
    functions (``serve_sharded``, ``replay_sealed``, ``replay_async``,
    ``replay_chaos``), on ``TIER_SHARDS`` shard slots of the card: both
@@ -86,7 +86,30 @@
    ``torch.profiler`` (device kernel time per step split into attention,
    dequantize, MoE dispatch, expert products and the rest; the device's
    idle share) and, with the int8 cache, times the dequantize alone;
-10. times each kernel against its plain version at the main path's
+10. drives the recsys serving path right after the LM phases: first a
+   ``FilteredRetriever`` (``serve/retrieval.py``, its defaults) over the
+   ``retrieval_cand`` cell's ``N_ITEMS`` items with attributes drawn as
+   the example search service draws them, each filter of ``FILTERS`` and
+   a rare pair equal to a brute-force scan of the item CSR (a control
+   that drops one attribute of the pair must fail that check); then, for
+   each arch of ``RECSYS_ARCHS`` at its published widths with seeded
+   random weights, through ``launch/serve.py``'s own functions and with
+   the counters set to 0 just before and read just after: ``serve_p99``
+   (``P99_CALLS`` calls of 512 rows: p50, p99, rows/s, peak memory),
+   ``serve_bulk`` (262,144 rows in slices of ``SERVE_SLICE_ROWS``) and
+   ``retrieval_cand`` (1 query x 10⁶ candidates); BERT4Rec's attention
+   launches the ``general`` variant twice a model call, the other archs
+   launch no kernel.  Then a ``torch.profiler`` window of p99 calls
+   (device time from the kernels' own events, idle share), and the
+   checks: ``forward`` and ``score_candidates`` against the port on the
+   CPU with the same weights on the first rows and candidates (the CPU
+   parity tests' tolerance), the bulk batch's first rows against the
+   p99 call, BERT4Rec's attention within ``FLASH_TOL`` of its plain
+   version at every call of a p99 call and of the first bulk slice and
+   its plain route's scores against the kernel route's, and each
+   filter's survivors scored by the model: the top 10 equal to the
+   unfiltered top 10 on the exact set (near-ties apart);
+11. times each kernel against its plain version at the main path's
    shapes (the attention call at each phase's shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
    single call; the decode variant's split kernel and combine one by
@@ -95,9 +118,10 @@
    ``cluster_scores`` beside its first design, the ``general`` variant,
    re-timed on the same inputs), sums launches x (time - bound) over the
    search run's fold batches and over the TopDown's scoring calls (timed
-   once per shape bucket), and prints one JSON line listing every kernel
-   with its variant;
-11. prints ``{"ok": true, "device": {...}}`` as its last line.
+   once per shape bucket; the ``general`` variant at BERT4Rec's call
+   beside ``scaled_dot_product_attention``'s efficient backend in float32),
+   and prints one JSON line listing every kernel with its variant;
+12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
 GPU, or without the rest of the repository beside it, it exits non-zero
@@ -200,6 +224,33 @@ LM_PHASES = (
     LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32752, 16, None, ("window",)),
     LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 16, 2, ("gates",)),
 )
+# The recsys serving path: every recsys arch of the zoo at its published
+# widths (``CFG``), seeded random weights, at the family's serving cells
+# (``configs/base.py::recsys_cells``): serve_p99 (512 rows, P99_CALLS timed
+# calls), serve_bulk (262,144 rows, in slices of SERVE_SLICE_ROWS) and
+# retrieval_cand (1 query x 10⁶ candidates).  No cut.
+RECSYS_ARCHS = ("dien", "mind", "dcn-v2", "bert4rec")
+P99_CALLS = 20
+RETRIEVAL_CALLS = 5
+# The card against the port on the CPU: the first rows and candidates.
+CPU_CHECK_ROWS = 512
+CPU_CHECK_CANDIDATES = 10_000
+# Scores within RECSYS_RTOL·|want| + RECSYS_ATOL_SHARE·max|want|: the
+# tolerance of tests/test_torch_recsys.py (float32 sums in another order).
+RECSYS_RTOL, RECSYS_ATOL_SHARE = 2e-5, 2e-6
+# The filtered retrieval: the retrieval_cand cell's 10⁶ items, attributes
+# as examples/search_service.py:60-68 draws them (2,000 attributes, Zipf
+# 1.1, 3-19 draws an item), its filters: one attribute, the example's pair
+# and triple (and a rare pair, from the data).  Filtered and unfiltered
+# top-10 scores may swap items whose scores lie within TIE_RTOL of the
+# largest score.
+N_ITEMS = 1_000_000
+ITEM_SEED = 0
+N_ATTRS = 2000
+ATTR_ZIPF = 1.1
+ATTR_DRAWS = (3, 20)
+FILTERS = {"one attribute": (3,), "example pair": (3, 17), "example triple": (3, 17, 8)}
+TIE_RTOL = 1e-6
 SOURCES = {
     "segment_fold": ("src/repro_torch/csrc/fold.cu", "src/repro/core/device_engine.py:396"),
     "intersect_members_kernel": (
@@ -220,6 +271,8 @@ SOURCES = {
     "flash_attention_decode": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
     "flash_attention_combine": (
+        "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
+    "flash_attention_general": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
@@ -1829,6 +1882,426 @@ def decode_combine_row(torch, FK, combine_ref, qkv, shape, window, plan):
             "library_ms": None, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
+# ----------------------------------------------------------------------
+# The recsys serving path: dien, mind, dcn-v2, bert4rec and the SeCluD
+# filter
+# ----------------------------------------------------------------------
+
+
+def attention_bhld(q, k, v, causal, window):
+    """The plain version in float32 on ``layers.attention``'s (B, L, H, D)
+    tensors, returned in their layout (over chunks of query rows past
+    ``SCORE_BYTES``)."""
+    from _torch_parity import attention_ref_chunked
+
+    return attention_ref_chunked(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                 v.transpose(1, 2).float(), causal, window).transpose(1, 2)
+
+
+def plain_route_attention(q, k, v, causal=True, window=None):
+    """``layers.attention`` through the plain version: BERT4Rec's plain
+    route."""
+    return attention_bhld(q, k, v, causal, window).to(q.dtype)
+
+
+class CheckedKernel:
+    """``layers.attention`` through the kernel (the model's own call),
+    held at every call to ``FLASH_TOL`` of the plain version on the same
+    inputs; keeps the first call's q, k, v (B, H, L, D) when asked."""
+
+    def __init__(self, original, keep_inputs: bool = False):
+        self.original, self.keep_inputs = original, keep_inputs
+        self.calls, self.max_abs_err, self.share, self.inputs = 0, 0.0, 0.0, None
+
+    def __call__(self, q, k, v, causal=True, window=None):
+        from _torch_parity import flash_close
+
+        got = self.original(q, k, v, causal, window)
+        try:
+            err, share = flash_close(got, attention_bhld(q, k, v, causal, window))
+        except AssertionError as exc:
+            raise AssertionError(f"bert4rec attention call {self.calls} (q {tuple(q.shape)}): "
+                                 f"{exc}") from exc
+        self.max_abs_err, self.share = max(self.max_abs_err, err), max(self.share, share)
+        if self.keep_inputs and self.inputs is None:
+            self.inputs = tuple(t.transpose(1, 2) for t in (q, k, v))
+        self.calls += 1
+        return got
+
+
+def with_attention(L, attention, fn):
+    """``fn()`` with ``layers.attention`` replaced by ``attention``."""
+    original = L.attention
+    L.attention = attention
+    try:
+        return fn()
+    finally:
+        L.attention = original
+
+
+def recsys_close(name: str, got, want) -> float:
+    """Largest |got - want| / max |want| of two score tensors; raises when
+    ``got`` is not finite or an element lies outside ``RECSYS_RTOL·|want|
+    + RECSYS_ATOL_SHARE·max|want|`` (the CPU parity tests' tolerance)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite scores")
+    top = float(want.abs().max())
+    err = (got - want).abs()
+    if bool((err > RECSYS_RTOL * want.abs() + RECSYS_ATOL_SHARE * top).any()):
+        raise AssertionError(f"{name}: beyond rtol={RECSYS_RTOL}, atol={RECSYS_ATOL_SHARE} x "
+                             f"max|want| (max |err| {float(err.max()):.3g} of max|want| {top:.3g})")
+    return float(err.max()) / max(top, 1e-30)
+
+
+def traced_calls(torch, fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` (each ending in a device sync, as a
+    request's answer returns to the host) under ``torch.profiler``:
+    host-clock ms a call, the device's kernel ms a call from the kernels'
+    own events (one stream, so they do not overlap), attention's share
+    of it, and the device's idle share; None where the profiler saw no
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if device_us <= 0.0:
+        return {"call_ms": wall_ms, "device_ms": None, "attention_ms": None, "idle_share": None,
+                "kernels_per_call": None}
+    device_ms = device_us / 1e3 / calls
+    return {"call_ms": wall_ms, "device_ms": device_ms,
+            "attention_ms": sum(e.time_range.elapsed_us() for e in kernels
+                                if "flash_" in e.name) / 1e3 / calls,
+            "idle_share": 1.0 - device_ms / wall_ms, "kernels_per_call": len(kernels) / calls}
+
+
+def make_items(n_items: int, seed: int):
+    """``n_items`` items with attributes drawn as the example search
+    service draws them (``examples/search_service.py:60-68``: 3-19 draws
+    an item from ``N_ATTRS`` attributes of Zipf exponent ``ATTR_ZIPF``,
+    duplicates merged), vectorised: the item CSR that ``items_as_corpus``
+    builds, and each posting's item."""
+    from repro_torch.data.corpus import Corpus
+
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, N_ATTRS + 1, dtype=np.float64) ** -ATTR_ZIPF
+    p /= p.sum()
+    draws = rng.integers(ATTR_DRAWS[0], ATTR_DRAWS[1], n_items)
+    attrs = rng.choice(N_ATTRS, size=int(draws.sum()), p=p)
+    key = np.unique(np.repeat(np.arange(n_items, dtype=np.int64), draws) * N_ATTRS + attrs)
+    item, attr = key // N_ATTRS, key % N_ATTRS
+    ptr = np.zeros(n_items + 1, np.int64)
+    np.cumsum(np.bincount(item, minlength=n_items), out=ptr[1:])
+    return Corpus(doc_ptr=ptr, doc_terms=attr.astype(np.int32), n_terms=N_ATTRS), item
+
+
+def brute_force(items, item_of, attrs) -> np.ndarray:
+    """Items holding every attribute of ``attrs``, by a mask over the item
+    CSR: each item's count of postings among the attributes."""
+    want = np.unique(np.asarray(attrs))
+    hits = np.bincount(item_of[np.isin(items.doc_terms, want)], minlength=items.n_docs)
+    return np.flatnonzero(hits == len(want))
+
+
+def filtered_retrieval_setup(torch) -> dict:
+    """The items of ``retrieval_cand`` (``N_ITEMS``, attributes from the
+    seed), ``FilteredRetriever(items)`` with its defaults on the card, and
+    each filter of ``FILTERS`` (plus the rare pair: the two rarest
+    attributes of item 0) run once: its ids held exactly to the brute
+    force, its work and time.  The control: a 2-attribute filter with one
+    attribute dropped must fail that exactness check."""
+    from repro_torch.serve.retrieval import FilteredRetriever, items_as_corpus
+
+    t0 = time.perf_counter()
+    items, item_of = make_items(N_ITEMS, ITEM_SEED)
+    draw_s = time.perf_counter() - t0
+    head = items_as_corpus([items.doc(i) for i in range(1000)], N_ATTRS)
+    if not (np.array_equal(head.doc_ptr, items.doc_ptr[:1001])
+            and np.array_equal(head.doc_terms, items.doc_terms[:items.doc_ptr[1000]])):
+        raise AssertionError("the vectorised item draw is not the CSR items_as_corpus builds")
+    t0 = time.perf_counter()
+    retriever = FilteredRetriever(items, device="cuda")
+    fit_s = time.perf_counter() - t0
+    freq = np.bincount(items.doc_terms, minlength=N_ATTRS)
+    first = items.doc(0)
+    rare = tuple(int(a) for a in first[np.argsort(freq[first], kind="stable")[:2]])
+    filters = {**FILTERS, "rare pair (item 0's two rarest)": rare}
+    rows = []
+    for label, attrs in filters.items():
+        t0 = time.perf_counter()
+        ids, report = retriever.filter(*attrs)
+        filter_ms = (time.perf_counter() - t0) * 1e3
+        brute = brute_force(items, item_of, attrs)
+        if len(ids) != len(brute) or not np.array_equal(np.sort(ids), brute):
+            raise AssertionError(f"filter {label} {attrs}: {len(ids)} ids, brute force "
+                                 f"{len(brute)}: not the exact set")
+        rows.append({"label": label, "attrs": list(attrs), "ids": ids, "brute": brute,
+                     "n_filtered": report.n_filtered, "filter_work": report.filter_work,
+                     "baseline_work": report.baseline_work, "speedup": report.speedup,
+                     "filter_ms": filter_ms, "score_ms": {}})
+    pair = FILTERS["example pair"]
+    brute_pair = next(r["brute"] for r in rows if r["label"] == "example pair")
+    dropped, _ = retriever.filter(pair[0])
+    if len(dropped) == len(brute_pair) and np.array_equal(np.sort(dropped), brute_pair):
+        raise AssertionError(f"control: the filter {pair} without {pair[1]} passes the "
+                             f"exactness check")
+    out = {"items": items.n_docs, "postings": items.nnz, "draw_s": draw_s, "fit_s": fit_s,
+           "k_actual": retriever.res.k, "filters": rows, "retriever": retriever,
+           "control_dropped_attr_ids": len(dropped)}
+    print(f"filtered retrieval: {out['items']} items, {out['postings']} postings, drawn in "
+          f"{draw_s:.1f}s, FilteredRetriever fit {fit_s:.1f}s (k_actual {out['k_actual']}); "
+          + "; ".join(f"{r['label']} {tuple(r['attrs'])}: n_filtered {r['n_filtered']}, work "
+                      f"{r['filter_work']:.0f} vs {r['baseline_work']:.0f} "
+                      f"({r['speedup']:.2f}x), {r['filter_ms']:.2f} ms" for r in rows)
+          + f"; every filter equal to the brute force; control {pair[0]} alone "
+          f"({len(dropped)} ids) caught", flush=True)
+    return out
+
+
+def score_filtered(torch, dev, model, query, filt: dict, cands: np.ndarray,
+                   full_scores: np.ndarray) -> None:
+    """Each filter's survivors scored by the model's ``score_candidates``
+    (``FilteredRetriever.retrieve``; item i is candidate ``cands[i]`` of
+    ``retrieval_cand``): the top 10 must be the top 10 of the unfiltered
+    scores ``full_scores`` restricted to the brute-force set, ties within
+    ``TIE_RTOL`` of the largest score in either order."""
+    name = model.cfg.name
+    retriever = filt["retriever"]
+    scale = float(np.abs(full_scores).max())
+    for row in filt["filters"]:
+        def score_fn(cand):
+            out = model.score_candidates(query, torch.from_numpy(cands[cand]).to(dev))
+            torch.cuda.synchronize()
+            return out
+
+        t0 = time.perf_counter()
+        ids, scores, _ = retriever.retrieve(score_fn, *row["attrs"], top_k=10)
+        row["score_ms"][name] = (time.perf_counter() - t0) * 1e3
+        brute = row["brute"]
+        want = np.sort(full_scores[brute])[::-1][:10]
+        if not np.isin(ids, brute).all() or len(np.unique(ids)) != len(ids) \
+                or len(ids) != len(want):
+            raise AssertionError(f"{name}, filter {row['label']}: top ids outside the exact set")
+        tol = TIE_RTOL * scale
+        if np.abs(full_scores[ids] - want).max(initial=0.0) > tol \
+                or np.abs(scores - full_scores[ids]).max(initial=0.0) > tol:
+            raise AssertionError(f"{name}, filter {row['label']}: the filtered top 10 is not the "
+                                 f"top 10 of the unfiltered scores on the exact set")
+
+
+def general_row(torch, launches, q, k, v) -> dict:
+    """The ``general`` variant at BERT4Rec's call (the first bulk slice's
+    first block: q, k, v as the model handed them): eager and graph ms
+    against the bound, the plain version and SDPA (float32, not causal,
+    its efficient backend: its flash backend takes no float32)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from _torch_parity import attention_ref_chunked, flash_close
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    got = FK.flash_attention_cuda(q, k, v, causal=False)
+    want = attention_ref_chunked(q.float(), k.float(), v.float(), False)
+    err, share = flash_close(got, want)
+
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v)
+
+    assert_close_tol("scaled_dot_product_attention (efficient, fp32) yardstick", library(),
+                     want, LIBRARY_TOL)
+    del got, want
+    kernel = lambda: FK.flash_attention_cuda(q, k, v, causal=False)  # noqa: E731
+    ops = 4 * b * h * d * lq * lk
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {
+        "shape": f"bert4rec serve_bulk slice: q, k, v ({b}, {h}, {lq}, {d}) fp32, not causal",
+        "variant": "general", "ops": ops, "bytes": nbytes, "max_abs_err": err,
+        "share_of_limit": share, "ms": time_ms(kernel, reps=10),
+        "device_ms": graph_ms(kernel, reps=10),
+        "plain_ms": time_ms(lambda: attention_ref_chunked(q, k, v, False), reps=1, warmup=1),
+        "library_ms": time_ms(library, reps=10), "library_device_ms": graph_ms(library, reps=10),
+        "library_call": "scaled_dot_product_attention, EFFICIENT_ATTENTION backend, fp32",
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "launches": int(launches),
+    }
+
+
+def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
+    """One recsys arch at its published widths through ``launch/serve.py``
+    (``setup_recsys``, ``recsys_batch``, ``forward_sliced``,
+    ``candidate_ids``, the model's ``score_candidates``): counters set to
+    0 just before and read just after ``serve_p99`` (``P99_CALLS`` timed
+    calls after a warm-up), ``serve_bulk`` (262,144 rows in slices) and
+    ``retrieval_cand`` (1 query x 10⁶ candidates); then the traced p99
+    window and the checks (the CPU port on the first rows and candidates,
+    BERT4Rec's attention at every p99 call and the first bulk slice and
+    its plain route, the slicing, the filtered top 10).  Returns its
+    report, the attention launches and (BERT4Rec) the general variant's
+    row."""
+    from _torch_parity import FLASH_VARIANTS
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+
+    args = serve.build_parser().parse_args(["--arch", name, "--config", "full",
+                                            "--device", str(dev)])
+    t0 = time.perf_counter()
+    model, _ = serve.setup_recsys(args)
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    cells = get_arch(name).cells
+    bulk_rows, p99_rows = cells["serve_bulk"].batch, cells["serve_p99"].batch
+    n_cand = cells["retrieval_cand"].extra["n_candidates"]
+    host = serve.recsys_batch(name, cfg, bulk_rows, np.random.default_rng(serve.BATCH_SEED))
+    bulk = serve.to_device(host, dev)
+    p99 = {k: v[:p99_rows] for k, v in bulk.items()}
+    query = {k: v[:1] for k, v in bulk.items()}
+    cands = torch.from_numpy(serve.candidate_ids(cfg, n_cand)).to(dev)
+    torch.cuda.synchronize()
+
+    counted = ("flash_attention_kernel", *FLASH_VARIANTS)
+    B.reset_launch_counts()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.forward_sliced(model, p99)  # warm-up
+        call_ms = []
+        for _ in range(P99_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p99_scores = serve.forward_sliced(model, p99)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        p99_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        bulk_scores = serve.forward_sliced(model, bulk)
+        torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t0
+        bulk_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        retrieval_ms = []
+        for _ in range(1 + RETRIEVAL_CALLS):  # the first call warms up
+            t0 = time.perf_counter()
+            full = model.score_candidates(query, cands)
+            torch.cuda.synchronize()
+            retrieval_ms.append((time.perf_counter() - t0) * 1e3)
+        retrieval_peak = torch.cuda.max_memory_allocated(dev)
+    launches = {n: B.LAUNCHES[n] for n in counted}
+    slices = -(-bulk_rows // serve.SERVE_SLICE_ROWS)
+    if name == "bert4rec":
+        model_calls = 1 + P99_CALLS + slices + 1 + RETRIEVAL_CALLS
+        per = cfg.n_blocks * model_calls
+        design = {n: 0 for n in counted}
+        design.update(flash_attention_kernel=per, flash_attention_general=per)
+    else:
+        design = {n: 0 for n in counted}
+    if launches != design:
+        raise AssertionError(f"{name}: attention launches {launches}, the design gives {design}")
+    if bulk_scores.shape != (bulk_rows,) or full.shape != (1, n_cand) \
+            or not bool(bulk_scores.isfinite().all()) or not bool(full.isfinite().all()):
+        raise AssertionError(f"{name}: scores of the wrong shape or not finite")
+
+    with torch.no_grad():
+        trace = traced_calls(torch, lambda: serve.forward_sliced(model, p99), 5)
+        # The card against the port on the CPU, with the same weights.
+        cpu_model = type(model)(cfg, "cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        cpu_batch = {k: v[:CPU_CHECK_ROWS].cpu() for k, v in p99.items()}
+        cpu_query = {k: v.cpu() for k, v in query.items()}
+        errs = {"forward_vs_cpu": recsys_close(f"{name} forward, card vs CPU", p99_scores,
+                                               cpu_model(cpu_batch)),
+                "score_candidates_vs_cpu": recsys_close(
+                    f"{name} score_candidates, card vs CPU", full[:, :CPU_CHECK_CANDIDATES],
+                    cpu_model.score_candidates(cpu_query, cands[:CPU_CHECK_CANDIDATES].cpu())),
+                "bulk_head_vs_p99": recsys_close(f"{name} serve_bulk's first rows vs serve_p99",
+                                                 bulk_scores[:p99_rows], p99_scores)}
+        del cpu_model
+        row = None
+        attention = {}
+        if name == "bert4rec":
+            checked = CheckedKernel(L.attention)
+            with_attention(L, checked, lambda: model(p99))
+            first = {k: v[:serve.SERVE_SLICE_ROWS] for k, v in bulk.items()}
+            checked_bulk = CheckedKernel(L.attention, keep_inputs=True)
+            with_attention(L, checked_bulk, lambda: model(first))
+            plain = with_attention(L, plain_route_attention, lambda: model(p99))
+            errs["plain_route_vs_kernel_route"] = recsys_close(
+                f"{name} forward, plain attention vs the kernel", p99_scores, plain)
+            attention = {"p99_calls_checked": checked.calls, "p99_share": checked.share,
+                         "p99_max_abs_err": checked.max_abs_err,
+                         "bulk_slice_calls_checked": checked_bulk.calls,
+                         "bulk_slice_share": checked_bulk.share,
+                         "bulk_slice_max_abs_err": checked_bulk.max_abs_err}
+            if checked.calls != cfg.n_blocks or checked_bulk.calls != cfg.n_blocks:
+                raise AssertionError(f"{name}: {checked.calls} and {checked_bulk.calls} checked "
+                                     f"attention calls, not {cfg.n_blocks} each")
+            del first
+        score_filtered(torch, dev, model, query, filt, cands.cpu().numpy(),
+                       full[0].cpu().numpy())
+        if name == "bert4rec":
+            row = general_row(torch, launches["flash_attention_general"],
+                              *checked_bulk.inputs)
+            del checked_bulk
+    call_ms_sorted = sorted(call_ms)
+    out = {
+        "arch": name, "n_params": cfg.n_params(), "init_s": init_s,
+        "p99": {"rows": p99_rows, "calls": P99_CALLS,
+                "p50_ms": float(np.percentile(call_ms_sorted, 50)),
+                "p99_ms": float(np.percentile(call_ms_sorted, 99)),
+                "rows_per_s": p99_rows / (float(np.median(call_ms_sorted)) / 1e3),
+                "peak_gib": p99_peak / 2**30, "trace": trace},
+        "bulk": {"rows": bulk_rows, "slices": slices, "wall_s": bulk_s,
+                 "rows_per_s": bulk_rows / bulk_s, "peak_gib": bulk_peak / 2**30},
+        "retrieval": {"candidates": n_cand, "first_ms": retrieval_ms[0],
+                      "median_ms": float(np.median(retrieval_ms[1:])),
+                      "peak_gib": retrieval_peak / 2**30},
+        "launches": launches, "checks_rel_err": errs, "attention": attention,
+    }
+    t = trace
+    # The profiler slows the host (each launch is recorded): the idle share
+    # against the untraced p50 is the one to read for a host-bound call.
+    out["p99"]["idle_share_untraced"] = (None if t["device_ms"] is None
+                                         else 1.0 - t["device_ms"] / out["p99"]["p50_ms"])
+    print(f"recsys {name} ({cfg.n_params() / 1e6:.1f} M parameters, init {init_s:.1f}s): "
+          f"serve_p99 {p99_rows} rows p50 {out['p99']['p50_ms']:.2f} ms p99 "
+          f"{out['p99']['p99_ms']:.2f} ms ({out['p99']['rows_per_s']:.0f} rows/s, peak "
+          f"{out['p99']['peak_gib']:.2f} GiB; traced: {t['call_ms']:.2f} ms a call, device "
+          + (f"{t['device_ms']:.3f} ms (attention {t['attention_ms']:.3f}), idle "
+             f"{t['idle_share']:.1%} (against the untraced p50 "
+             f"{out['p99']['idle_share_untraced']:.1%}), {t['kernels_per_call']:.0f} kernels a call"
+             if t["device_ms"] is not None else "not measured")
+          + f"); serve_bulk {bulk_rows} rows in {slices} slices {bulk_s:.3f} s "
+          f"({out['bulk']['rows_per_s']:.0f} rows/s, peak {out['bulk']['peak_gib']:.2f} GiB); "
+          f"retrieval_cand 1 x {n_cand}: median {out['retrieval']['median_ms']:.3f} ms of "
+          f"{RETRIEVAL_CALLS} (first call {retrieval_ms[0]:.3f} ms); launches {launches} (as "
+          f"designed); checks (max |err| / max |want|): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + ("" if not attention else
+             f"; attention within {attention['p99_share']:.3g} / "
+             f"{attention['bulk_slice_share']:.3g} of FLASH_TOL at p99 / the first bulk slice"),
+          flush=True)
+    del model, bulk, p99, query, cands, full, bulk_scores
+    return out, launches, row
+
+
 def kernel_entry(name, launches, rows, variant):
     source, replaces = SOURCES[name]
     main = rows[0]
@@ -1883,6 +2356,29 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
     print(f"attention launches over the LM phases: {launches}", flush=True)
+
+    # The recsys serving path: the filtered retrieval's host fit, then each
+    # arch's phase (which reads only the attention counters and scores the
+    # filters' survivors).
+    t0 = time.perf_counter()
+    filt = filtered_retrieval_setup(torch)
+    recsys, general = {}, None
+    for name in RECSYS_ARCHS:
+        recsys[name], phase_launches, row = recsys_phase(torch, dev, name, filt)
+        for n, c in phase_launches.items():
+            launches[n] = launches.get(n, 0) + c
+        general = row or general
+        torch.cuda.empty_cache()
+    for row in filt["filters"]:
+        print(f"filter {row['label']} {tuple(row['attrs'])}: scoring the {row['n_filtered']} "
+              f"survivors (ms) " + ", ".join(f"{k} {v:.3f}" for k, v in row["score_ms"].items())
+              + "; each top 10 the unfiltered top 10 on the exact set", flush=True)
+    recsys["filtered_retrieval"] = {k: v for k, v in filt.items() if k != "retriever"}
+    recsys["filtered_retrieval"]["filters"] = [
+        {k: v for k, v in r.items() if k not in ("ids", "brute")} for r in filt["filters"]]
+    recsys["wall_s"] = time.perf_counter() - t0
+    del filt
+    print(f"recsys path: {recsys['wall_s']:.1f}s; attention launches now {launches}", flush=True)
 
     # The search path: only the search kernels' counters are read.
     args = search.build_parser().parse_args([
@@ -1948,7 +2444,8 @@ def main() -> int:
     staged = kernel_entry("cluster_scores_staged", launches, scores["shapes"][:1], variant="staged")
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
     kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
-               *flash_rows(torch, dev, launches, flash_errs)]
+               *flash_rows(torch, dev, launches, flash_errs),
+               kernel_entry("flash_attention_general", launches, [general], variant="general")]
     for k in kernels:  # the search kernels' launches on the sharded path too
         if k["name"] in tier["sharded_launches"]:
             k["sharded_launches"] = tier["sharded_launches"][k["name"]]
@@ -1979,7 +2476,7 @@ def main() -> int:
           f"ms (general, the first design: {score_excess['general']:.3f} ms, device "
           f"{score_excess['general_device']:.3f} ms)", flush=True)
     kmeans["score_buckets"], kmeans["score_excess_ms"] = buckets, score_excess
-    for row in kernels[-4]["shapes"]:
+    for row in kernels[-5]["shapes"]:
         print(f"flash_attention_kernel {row['shape']} [{row['variant']}]: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"({row['library_call']}) library_mask_ms={row['library_mask_ms']:.4f} "
@@ -1990,7 +2487,13 @@ def main() -> int:
               f"visible_pairs={row['visible_pairs']} max_abs_err={row['max_abs_err']:.3g} "
               f"({row['share_of_limit']:.3g} of the limit)",
               flush=True)
-    for entry in kernels[-2:]:
+    print(f"flash_attention_general {general['shape']}: ms={general['ms']:.4f} "
+          f"device_ms={general['device_ms']:.4f} plain_ms={general['plain_ms']:.4f} "
+          f"library_ms={general['library_ms']:.4f} (device {general['library_device_ms']:.4f}; "
+          f"{general['library_call']}) bound_ms={general['bound_ms']:.5f} "
+          f"({general['bound_by']}) max_abs_err={general['max_abs_err']:.3g} "
+          f"({general['share_of_limit']:.3g} of the limit)", flush=True)
+    for entry in kernels[-3:-1]:
         for row in entry["shapes"]:
             print(f"{entry['name']} {row['shape']}: ms={row['ms']:.4f} "
                   f"device_ms={row['device_ms']:.4f} "
@@ -2008,6 +2511,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
+        "recsys": recsys,
         "flash_cases": flash_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))

@@ -5,7 +5,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-__all__ = ["Cell", "ArchSpec", "lm_cells"]
+__all__ = ["Cell", "ArchSpec", "lm_cells", "recsys_cells"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,5 +56,16 @@ def lm_cells(full_attention_only: bool, microbatches: int = 4) -> Dict[str, Cell
         "long_500k": Cell(
             kind="decode", batch=1, extra={"cache_len": 524288},
             overrides={"kv_quant": True}, skip=skip,
+        ),
+    }
+
+
+def recsys_cells() -> Dict[str, Cell]:
+    return {
+        "train_batch": Cell(kind="train", batch=65536),
+        "serve_p99": Cell(kind="serve", batch=512),
+        "serve_bulk": Cell(kind="serve", batch=262144),
+        "retrieval_cand": Cell(
+            kind="retrieval", batch=1, extra={"n_candidates": 1_000_000}
         ),
     }

@@ -9,9 +9,13 @@ _MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "dien": "repro_torch.configs.dien",
+    "mind": "repro_torch.configs.mind",
+    "dcn-v2": "repro_torch.configs.dcn_v2",
+    "bert4rec": "repro_torch.configs.bert4rec",
 }
 # The JAX package's other archs (``repro.configs.registry``).
-NOT_PORTED = ("qwen1.5-32b", "pna", "dien", "mind", "dcn-v2", "bert4rec")
+NOT_PORTED = ("qwen1.5-32b", "pna")
 
 ARCH_NAMES = tuple(_MODULES)
 

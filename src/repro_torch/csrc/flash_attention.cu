@@ -64,6 +64,7 @@
 #define FA_BK 32                     // keys per tile: one per lane
 #define FA_KT_STRIDE (FA_BK + 1)     // padded row of the transposed K tile
 #define FA_FULL 0xffffffffu
+#define FA_MAX_GRID_Y 65535          // gridDim.y's limit: B·H is launched in such chunks
 
 struct FaStrides {  // in elements: batch, head, position (D is dense)
   int64_t q[3], k[3], v[3], o[3];
@@ -94,7 +95,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int h, int groups, int lq, int lk, int d,
                        FaStrides st, int causal, int has_window,
-                       int64_t window, float scale) {
+                       int64_t window, float scale, int64_t bh0) {
   constexpr int DP = NC * 32;  // D padded to a multiple of 32 with zeros
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                       // [FA_BQ][DP]
@@ -104,9 +105,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int hq = bh % h;
+  const int64_t bh = bh0 + blockIdx.y;
+  const int64_t b = bh / h;
+  const int hq = (int)(bh % h);
   const int hk = hq / groups;
   const int q0 = blockIdx.x * FA_BQ;
   const T* qb = q + b * st.q[0] + hq * st.q[1];
@@ -260,11 +261,18 @@ static int launch_nc(const void* q, const void* k, const void* v, void* o,
       flash_attention_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((lq + FA_BQ - 1) / FA_BQ), (unsigned)(b * h));
-  flash_attention_kernel<T, NC><<<grid, FA_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)h, (int)(h / hkv),
-      (int)lq, (int)lk, (int)d, st, causal, has_window, window, scale);
-  return (int)cudaGetLastError();
+  // B·H rows in launches of at most FA_MAX_GRID_Y (gridDim.y's limit), on
+  // one stream: no host sync between them.
+  for (int64_t bh0 = 0; bh0 < b * h; bh0 += FA_MAX_GRID_Y) {
+    const int64_t rows = b * h - bh0 < FA_MAX_GRID_Y ? b * h - bh0 : FA_MAX_GRID_Y;
+    const dim3 grid((unsigned)((lq + FA_BQ - 1) / FA_BQ), (unsigned)rows);
+    flash_attention_kernel<T, NC><<<grid, FA_THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, (int)h, (int)(h / hkv),
+        (int)lq, (int)lk, (int)d, st, causal, has_window, window, scale, bh0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -293,8 +301,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       const int64_t* strides, int causal,
                                       int has_window, int64_t window, float scale,
                                       int dtype, void* stream) {
-  if (d < 1 || d > 256 || hkv < 1 || h % hkv != 0 || b * h > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
   if (lq <= 0 || b * h <= 0) return 0;
   FaStrides st;
   for (int i = 0; i < 3; ++i) {
@@ -320,7 +327,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // Rows.  The Lq·(H/Hkv) query rows of one (batch, KV head) -- every query
 // head of the group at every query position, row r = g·Lq + i -- form one
 // block's rows (at most FD_MAX_ROWS), so each K/V row is read from device
-// memory once per group.  Grid: (split, batch·KV head).  The split's keys
+// memory once per group.  Grid: (split, batch·KV head), the second axis in
+// launches of at most 65,535 (batch, KV head) pairs.  The split's keys
 // are [j_begin + split·chunk, + chunk) ∩ [j_begin, j_end), where
 // [j_begin, j_end) is the union of the rows' visible keys (the launcher
 // chooses chunk and the number of splits, so that several blocks run on
@@ -359,6 +367,7 @@ struct FdParams {
   float scale;
   int64_t j_begin, j_end;
   int chunk, n_splits;
+  int64_t bh0;  // the first (batch, KV head) of this launch
 };
 
 __device__ __forceinline__ void fd_unpack(const uint4& x, float* f, const float*) {
@@ -388,9 +397,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   extern __shared__ __align__(16) float fd_smem[];  // [slot][row][d + 2]
 
   const int split = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int64_t bh = p.bh0 + blockIdx.y;
   const int hkv = p.h / p.groups;
-  const int b = bh / hkv, hk = bh % hkv;
+  const int64_t b = bh / hkv;
+  const int hk = (int)(bh % hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ks = lane / LPK, sl = lane % LPK;
   const int64_t s0 = p.j_begin + (int64_t)split * p.chunk;
@@ -528,7 +538,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   __syncthreads();
   const int n_slots = FD_WARPS * KPW;
-  const int64_t part = (int64_t)bh * p.n_splits + split;
+  const int64_t part = bh * p.n_splits + split;
   for (int idx = threadIdx.x; idx < p.rows * p.d; idx += FD_THREADS) {
     const int r = idx / p.d, c = idx % p.d;
     float mx = FA_NEG_INF;
@@ -600,16 +610,26 @@ flash_combine_kernel(const float* __restrict__ part_ml, const float* __restrict_
 
 template <typename T, int LPK, int NU>
 static int decode_launch_lpk(const void* q, const void* k, const void* v, float* ml, float* acc,
-                             int64_t b, int64_t hkv, const FdParams& p, cudaStream_t stream) {
-  const dim3 grid((unsigned)p.n_splits, (unsigned)(b * hkv));
-  const size_t smem = sizeof(float) * (size_t)FD_WARPS * (32 / LPK) * p.rows * (p.d + 2);
-  if (p.rows <= 2)
-    flash_decode_kernel<T, LPK, NU, 2, 8><<<grid, FD_THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
-  else
-    flash_decode_kernel<T, LPK, NU, FD_MAX_ROWS, 4><<<grid, FD_THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
-  return (int)cudaGetLastError();
+                             int64_t b, int64_t hkv, const FdParams& params,
+                             cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)FD_WARPS * (32 / LPK) * params.rows * (params.d + 2);
+  // B·Hkv in launches of at most FA_MAX_GRID_Y (gridDim.y's limit), on one
+  // stream: no host sync between them.
+  FdParams p = params;
+  for (p.bh0 = 0; p.bh0 < b * hkv; p.bh0 += FA_MAX_GRID_Y) {
+    const int64_t rows = b * hkv - p.bh0 < FA_MAX_GRID_Y ? b * hkv - p.bh0 : FA_MAX_GRID_Y;
+    const dim3 grid((unsigned)p.n_splits, (unsigned)rows);
+    if (p.rows <= 2)
+      flash_decode_kernel<T, LPK, NU, 2, 8><<<grid, FD_THREADS, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+    else
+      flash_decode_kernel<T, LPK, NU, FD_MAX_ROWS, 4><<<grid, FD_THREADS, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -644,7 +664,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
   const int dtype = (int)a[22];
   const int64_t esize = dtype == 0 ? 4 : 2;
   if (d < 1 || d > 256 || (d * esize) % 16 != 0 || hkv < 1 || h % hkv != 0 ||
-      lq * (h / hkv) > FD_MAX_ROWS || b * hkv > 65535 || chunk < 1 || n_splits < 1 ||
+      lq * (h / hkv) > FD_MAX_ROWS || chunk < 1 || n_splits < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (lq <= 0 || b * h <= 0) return 0;
@@ -668,6 +688,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
   p.j_end = j_end;
   p.chunk = (int)chunk;
   p.n_splits = (int)n_splits;
+  p.bh0 = 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return decode_launch_t<float>(q, k, v, (float*)ml, (float*)acc, b, hkv, p, s);

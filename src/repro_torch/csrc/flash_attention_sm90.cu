@@ -73,6 +73,7 @@
 #define SM90_CONSUMERS 2
 #define SM90_THREADS ((SM90_CONSUMERS + 1) * 128)
 #define SM90_LOG2E 1.4426950408889634f
+#define SM90_MAX_GRID_Y 65535   // gridDim.y's limit: its rows go in such chunks
 
 struct Sm90Params {
   int h, groups, lq, lk;
@@ -84,6 +85,7 @@ struct Sm90Params {
   int slot_k[3];
   int slot_v[3];
   int slot_o[3];
+  int64_t bh0;         // the first (batch, head) row of gridDim.y in this launch
 };
 
 __device__ __forceinline__ uint32_t sm90_smem(const void* p) {
@@ -421,16 +423,17 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   const int xt = gridDim.x - 1 - blockIdx.x;  // the last positions first
   const int hkv = p.h / p.groups;
   int b, hk, hq0, hq1, row0, row1, rows_hi;
+  const int64_t by = p.bh0 + blockIdx.y;  // (batch, KV head) or (batch, head)
   if (p.pair) {
-    b = blockIdx.y / hkv;
-    hk = blockIdx.y % hkv;
+    b = (int)(by / hkv);
+    hk = (int)(by % hkv);
     hq0 = hk * p.groups + 2 * blockIdx.z;
     hq1 = hq0 + 1;
     row0 = row1 = xt * SM90_ROWS;
     rows_hi = row0 + SM90_ROWS - 1;
   } else {
-    b = blockIdx.y / p.h;
-    hq0 = hq1 = blockIdx.y % p.h;
+    b = (int)(by / p.h);
+    hq0 = hq1 = (int)(by % p.h);
     hk = hq0 / p.groups;
     row0 = xt * 2 * SM90_ROWS;
     row1 = row0 + SM90_ROWS;
@@ -660,19 +663,27 @@ static int sm90_map(CUtensorMap* map, Sm90EncodeFn encode, const void* ptr, int6
 
 template <int D>
 static int sm90_launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                       const CUtensorMap& mo, const Sm90Params& p, int64_t b, int64_t lq,
+                       const CUtensorMap& mo, const Sm90Params& params, int64_t b, int64_t lq,
                        cudaStream_t stream) {
   const int smem = Sm90Cfg<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_sm90_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t hkv = p.h / p.groups;
-  const dim3 grid = p.pair
-      ? dim3((unsigned)((lq + SM90_ROWS - 1) / SM90_ROWS), (unsigned)(b * hkv),
-             (unsigned)(p.groups / 2))
-      : dim3((unsigned)((lq + 2 * SM90_ROWS - 1) / (2 * SM90_ROWS)), (unsigned)(b * p.h), 1u);
-  flash_attention_sm90_kernel<D><<<grid, SM90_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
-  return (int)cudaGetLastError();
+  const int64_t hkv = params.h / params.groups;
+  const int64_t ys = params.pair ? b * hkv : b * params.h;
+  // gridDim.y in launches of at most SM90_MAX_GRID_Y rows, on one stream:
+  // no host sync between them.
+  Sm90Params p = params;
+  for (p.bh0 = 0; p.bh0 < ys; p.bh0 += SM90_MAX_GRID_Y) {
+    const unsigned rows = (unsigned)(ys - p.bh0 < SM90_MAX_GRID_Y ? ys - p.bh0 : SM90_MAX_GRID_Y);
+    const dim3 grid = p.pair
+        ? dim3((unsigned)((lq + SM90_ROWS - 1) / SM90_ROWS), rows, (unsigned)(p.groups / 2))
+        : dim3((unsigned)((lq + 2 * SM90_ROWS - 1) / (2 * SM90_ROWS)), rows, 1u);
+    flash_attention_sm90_kernel<D><<<grid, SM90_THREADS, smem, stream>>>(mq, mk, mv, mo, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // bf16 q, k, v, o; strides: 12 int64 (q, k, v, o; each batch, head,
@@ -686,7 +697,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
                                            int64_t lk, int64_t d, const int64_t* strides,
                                            int causal, int has_window, int64_t window,
                                            float scale, void* stream) {
-  if ((d != 64 && d != 128 && d != 256) || hkv < 1 || h % hkv != 0 || b * h > 65535)
+  if ((d != 64 && d != 128 && d != 256) || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (lq <= 0 || b * h <= 0) return 0;
   const Sm90EncodeFn encode = sm90_encode();
@@ -701,6 +712,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   p.has_window = has_window;
   p.window = window;
   p.scale_log2 = scale * SM90_LOG2E;
+  p.bh0 = 0;
   CUtensorMap mq, mk, mv, mo;
   const int64_t size_q[3] = {lq, h, b}, size_k[3] = {lk, hkv, b};
   const int64_t sq[3] = {strides[2], strides[1], strides[0]};

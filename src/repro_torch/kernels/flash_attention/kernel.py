@@ -22,7 +22,10 @@ raise ``ValueError`` when a base pointer or a stride (of a dimension
 longer than 1) is not a multiple of 16 bytes.  Every launch runs on
 ``torch.cuda.current_stream()`` and raises when it reports a CUDA error.
 Each call adds one to ``LAUNCHES["flash_attention_kernel"]`` and one to
-the counter of each kernel it launched.
+the counter of each kernel it launched.  Any B·H goes: the kernels take
+(batch, head) pairs on ``gridDim.y``, whose limit is 65,535, so their C
+launchers cut B·H (B·Hkv for decode) into launches of at most that many
+pairs on the same stream, with no host sync; a call still counts once.
 """
 
 from __future__ import annotations
@@ -99,8 +102,8 @@ def _check_inputs(q, k, v, causal, window, name) -> None:
         raise ValueError(f"{name}: Hkv={hkv} must divide H={h}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} outside [1, {MAX_HEAD_DIM}]")
-    if b * h > 65535 or max(lq, lk) > _INT32_MAX:
-        raise ValueError(f"{name}: B·H <= 65535 and lengths below 2**31 required")
+    if max(lq, lk) > _INT32_MAX:
+        raise ValueError(f"{name}: lengths below 2**31 required")
     if window is not None and not 1 <= window <= _INT32_MAX:
         raise ValueError(f"{name}: window {window} outside [1, 2**31)")
     if lk < 1 or (causal and lk < lq):

@@ -1,5 +1,6 @@
-"""LM serving launcher on one device: a batch of prompts through prefill
-and a greedy decode loop.
+"""Serving launcher on one device.  LM archs: a batch of prompts through
+prefill and a greedy decode loop; recsys archs (dien, mind, dcn-v2,
+bert4rec): batched scoring and candidate retrieval.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --config full \\
@@ -21,7 +22,26 @@ model too large for one card at full depth).  On ``cuda`` every attention runs
 the CUDA kernel of ``repro_torch.kernels.flash_attention``; ``--device
 cpu`` runs its plain PyTorch version.  With MoE the launcher also
 reports the slots the dispatch dropped over capacity in each model call.
-Only the LM archs are ported (``configs.registry``).
+
+The recsys branch (the port of the JAX launcher's, and of the serve and
+retrieval cells of ``repro.launch.steps``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dien --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch bert4rec --config full \
+        --cell serve_bulk
+
+Without ``--cell`` it runs the JAX launcher's work: ``max(--requests, 4)``
+rows with full histories (mask all ones), ``forward``, then
+``score_candidates`` against 1,000 random candidates.  ``--cell
+serve_p99`` or ``serve_bulk`` runs ``forward`` on the cell's batch (512
+or 262,144 rows), ``retrieval_cand`` runs ``score_candidates`` for the
+cell's one query against its ``n_candidates`` (10⁶): the catalogue's
+first items, ``candidate_ids``.  A cell's histories have lengths drawn
+uniformly from [1, T], left-padded with id 0 and mask 0
+(``recsys_batch``).  Rows are independent, so a batch is served in slices
+of at most ``SERVE_SLICE_ROWS`` rows and the scores concatenated
+(``forward_sliced``): at 32,768 rows bert4rec's MLP activations take
+6.7 GB, the whole bulk batch's would take 53.7 GB.
 """
 
 from __future__ import annotations
@@ -39,6 +59,11 @@ from repro_torch.models import transformer as T
 
 WEIGHT_SEED = 0
 PROMPT_SEED = 0
+BATCH_SEED = 0
+# Rows of one recsys model call; a larger batch is served in such slices.
+SERVE_SLICE_ROWS = 32_768
+# The JAX launcher's candidates per request without a cell.
+SMOKE_CANDIDATES = 1000
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,17 +74,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--config", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--cell", default=None,
-                    help="a prefill or decode cell of the arch whose overrides to apply")
+                    help="the arch's serving cell: LM prefill or decode (its overrides), "
+                         "recsys serve or retrieval (its batch)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (default: the config's)")
     ap.add_argument("--device", default="cuda")
     return ap
 
 
+# The cell kinds the launcher serves, per family.
+SERVING_KINDS = {"lm": ("prefill", "decode"), "recsys": ("serve", "retrieval")}
+
+
 def cell_config(spec, cfg, cell_name: Optional[str]):
     """``cfg`` with the overrides of the serving cell ``cell_name`` (None:
     ``cfg`` itself).  Raises for an unknown cell, a skipped one, or one
-    that is not a prefill or decode cell."""
+    the launcher does not serve: an LM serves prefill and decode cells, a
+    recsys arch serve and retrieval cells."""
     if cell_name is None:
         return cfg
     if cell_name not in spec.cells:
@@ -67,9 +98,10 @@ def cell_config(spec, cfg, cell_name: Optional[str]):
     cell = spec.cells[cell_name]
     if cell.skip:
         raise ValueError(f"{spec.name} skips cell {cell_name!r}: {cell.skip}")
-    if cell.kind not in ("prefill", "decode"):
+    kinds = SERVING_KINDS.get(spec.family, ())
+    if cell.kind not in kinds:
         raise ValueError(f"cell {cell_name!r} is a {cell.kind} cell; the launcher serves "
-                         f"prefill and decode cells")
+                         f"{' and '.join(kinds)} cells of a {spec.family} arch")
     return dataclasses.replace(cfg, **cell.overrides)
 
 
@@ -161,8 +193,146 @@ def serve(model: T.LM, prompts: np.ndarray, decode_steps: int, log_fn=print) -> 
     return report
 
 
+# ----------------------------------------------------------------------
+# The recsys branch
+# ----------------------------------------------------------------------
+
+
+def item_vocab(cfg) -> int:
+    """Items of the arch's catalogue: its item table's rows (DCN-v2's
+    field tables have ``vocab_per_field``)."""
+    return getattr(cfg, "vocab", None) or cfg.vocab_per_field
+
+
+def history_len(cfg) -> int:
+    return getattr(cfg, "seq_len", None) or cfg.hist_len
+
+
+def recsys_batch(name: str, cfg, rows: int, rng: np.random.Generator,
+                 full_histories: bool = False) -> Dict[str, np.ndarray]:
+    """A serving batch of ``rows`` as numpy (the JAX ``_recsys_batch_struct``
+    less its label).  DCN-v2: 13 standard-normal dense features, sparse
+    ids uniform over each field's table, a target id.  The sequence
+    models: item ids uniform over the catalogue; history lengths drawn
+    uniformly from [1, T] and left-padded (id 0, mask 0: the model reads
+    the last position), or with ``full_histories`` all T positions valid
+    (the JAX launcher's batch); a target id."""
+    if name == "dcn-v2":
+        return {
+            "dense": rng.standard_normal((rows, cfg.n_dense)).astype(np.float32),
+            "sparse_ids": rng.integers(0, cfg.vocab_per_field,
+                                       (rows, cfg.n_sparse)).astype(np.int32),
+            "target_id": rng.integers(0, cfg.vocab_per_field, rows).astype(np.int32),
+        }
+    t = history_len(cfg)
+    ids = rng.integers(0, cfg.vocab, (rows, t)).astype(np.int32)
+    if full_histories:
+        mask = np.ones((rows, t), np.float32)
+    else:
+        lengths = rng.integers(1, t + 1, rows)
+        valid = np.arange(t)[None, :] >= t - lengths[:, None]
+        ids = np.where(valid, ids, 0).astype(np.int32)
+        mask = valid.astype(np.float32)
+    return {"hist_ids": ids, "hist_mask": mask,
+            "target_id": rng.integers(0, cfg.vocab, rows).astype(np.int32)}
+
+
+def candidate_ids(cfg, n: int) -> np.ndarray:
+    """The ``retrieval_cand`` cell's candidates: the catalogue's first n
+    items (ids taken modulo its size where n exceeds it), int32."""
+    return (np.arange(n) % item_vocab(cfg)).astype(np.int32)
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def forward_sliced(model, batch: Dict[str, torch.Tensor],
+                   slice_rows: int = SERVE_SLICE_ROWS) -> torch.Tensor:
+    """``model(batch)`` (B,) computed over slices of at most
+    ``slice_rows`` rows (rows are independent), concatenated."""
+    n = next(iter(batch.values())).shape[0]
+    if n <= slice_rows:
+        return model(batch)
+    return torch.cat([model({k: v[i:i + slice_rows] for k, v in batch.items()})
+                      for i in range(0, n, slice_rows)])
+
+
+def setup_recsys(args: argparse.Namespace, log_fn=print):
+    """The recsys model with seeded random weights on ``args.device`` and
+    its cell (None without ``--cell``).  Raises for a cell it cannot
+    serve and, on ``cuda``, without a GPU."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.device_engine import resolve_device
+    from repro_torch.models.recsys import recsys_module
+
+    spec = get_arch(args.arch)
+    cfg = cell_config(spec, spec.smoke_cfg if args.config == "smoke" else spec.cfg, args.cell)
+    if args.layers is not None:
+        raise ValueError("--layers cuts an LM's depth; a recsys arch has no such cut")
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    model = recsys_module(spec.name).init(
+        cfg, torch.Generator(device=dev).manual_seed(WEIGHT_SEED), dev)
+    _sync(dev)
+    log_fn(f"{cfg.name} [{args.config}{', ' + args.cell if args.cell else ''}]: "
+           f"{cfg.n_params() / 1e6:.3f} M parameters on {dev} in "
+           f"{time.perf_counter() - t0:.1f}s")
+    return model, (spec.cells[args.cell] if args.cell else None)
+
+
+def serve_recsys(model, cell, requests: int = 8, log_fn=print) -> Dict[str, object]:
+    """The recsys serving work of ``cell`` (None: the JAX launcher's),
+    timed on the host clock with a device sync at the end.  Returns the
+    scores as numpy ((rows,) from ``forward``, (1, N) from
+    ``score_candidates``) and the times."""
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(BATCH_SEED)
+    name = cfg.name
+    report: Dict[str, object] = {"device": str(dev), "arch": name,
+                                 "cell": None if cell is None else cell.kind}
+    if cell is None or cell.kind == "serve":
+        rows = max(requests, 4) if cell is None else cell.batch
+        batch = to_device(recsys_batch(name, cfg, rows, rng, full_histories=cell is None), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            scores = forward_sliced(model, batch)
+        _sync(dev)
+        wall_s = time.perf_counter() - t0
+        report.update(rows=rows, scores=scores.cpu().numpy(), wall_s=wall_s,
+                      rows_per_s=rows / wall_s, slices=-(-rows // SERVE_SLICE_ROWS))
+        log_fn(f"scored {rows} requests in {report['slices']} slice(s) in {wall_s:.3f}s "
+               f"({report['rows_per_s']:.0f} rows/s): {report['scores'][:4].round(3)}...")
+        if cell is not None:
+            return report
+        cands = rng.integers(0, item_vocab(cfg), SMOKE_CANDIDATES).astype(np.int32)
+    else:
+        batch = to_device(recsys_batch(name, cfg, cell.batch, rng), dev)
+        cands = candidate_ids(cfg, cell.extra["n_candidates"])
+    cand = torch.from_numpy(cands).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        top = model.score_candidates(batch, cand)
+    _sync(dev)
+    score_s = time.perf_counter() - t0
+    report.update(candidates=top.shape[1], candidate_scores=top.cpu().numpy(),
+                  score_s=score_s)
+    best = torch.topk(top[0], min(10, top.shape[1])).indices.cpu().numpy()
+    log_fn(f"scored {top.shape[0]} x {top.shape[1]} candidates in {score_s:.3f}s; "
+           f"top candidates of the first request: {cands[best].tolist()}")
+    return report
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = build_parser().parse_args(argv)
+    from repro_torch.configs.registry import get_arch
+
+    if get_arch(args.arch).family == "recsys":
+        model, cell = setup_recsys(args)
+        return serve_recsys(model, cell, args.requests)
     model, prompts = setup(args)
     return serve(model, prompts, args.decode_steps)
 

@@ -1,5 +1,6 @@
 """Building blocks of the LM family on PyTorch: the port of
-``repro.models.layers`` for dense GQA transformers and MoE.
+``repro.models.layers`` for dense GQA transformers and MoE (BERT4Rec's
+encoder takes its attention, non-causal, and its ungated MLP).
 
 Conventions, as in the JAX package:
 
@@ -181,7 +182,8 @@ def cache_read(cache: KVCache, dtype: torch.dtype,
 
 class GQAAttention(nn.Module):
     """``gqa_attention_init`` / ``gqa_attention_apply``: q, k, v, o dense
-    layers, optional QK-norm, RoPE, causal attention with a window."""
+    layers, optional QK-norm, RoPE, attention with an optional window,
+    causal (the LM path) or not (BERT4Rec's bidirectional encoder)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
                  rope_theta: float, qkv_bias: bool, qk_norm: bool, dtype, device):
@@ -195,8 +197,8 @@ class GQAAttention(nn.Module):
         self.q_norm = frozen_param((head_dim,), torch.float32, device) if qk_norm else None
         self.k_norm = frozen_param((head_dim,), torch.float32, device) if qk_norm else None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: Optional[int],
+                cache: Optional[KVCache] = None, causal: bool = True) -> torch.Tensor:
         """(B, L, d_model) output; with ``cache``, this layer's keys and
         values are written into it first."""
         b, l, _ = x.shape
@@ -226,7 +228,7 @@ class GQAAttention(nn.Module):
             if cache.k_scale is not None:
                 start = max(0, cache.length - l - window + 1)
             k, v = cache_read(cache, x.dtype, start)
-        out = attention(q, k, v, causal=True, window=window)
+        out = attention(q, k, v, causal=causal, window=window)
         return self.o(out.reshape(b, l, self.n_heads * self.head_dim))
 
 
@@ -238,18 +240,21 @@ def _activate(g: torch.Tensor, act: str) -> torch.Tensor:
 
 class MLP(nn.Module):
     """``mlp_init`` / ``mlp_apply``: a gated MLP, SwiGLU (``act="silu"``)
-    or GeGLU (``act="gelu"``)."""
+    or GeGLU (``act="gelu"``), or with ``gated=False`` the plain
+    ``down(act(up(x)))`` (BERT4Rec's feed-forward)."""
 
-    def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
+    def __init__(self, d_model: int, d_ff: int, act: str, dtype, device, gated: bool = True):
         super().__init__()
         if act not in ("silu", "gelu"):
             raise ValueError(f"unknown activation {act!r}")
         self.act = act
         self.up = Dense(d_model, d_ff, False, dtype, device)
         self.down = Dense(d_ff, d_model, False, dtype, device)
-        self.gate = Dense(d_model, d_ff, False, dtype, device)
+        self.gate = Dense(d_model, d_ff, False, dtype, device) if gated else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gate is None:
+            return self.down(_activate(self.up(x), self.act))
         return self.down(_activate(self.gate(x), self.act) * self.up(x))
 
 

@@ -147,8 +147,10 @@ def attention_ref_chunked(q, k, v, causal=True, window=None):
     """``attention_ref`` over chunks of query rows, each chunk against only
     the keys its rows can see, so that no score tensor passes
     ``SCORE_BYTES`` (at a 32k-token prefill the whole one would take
-    137 GB).  The same function as ``attention_ref``; float32 sums over
-    fewer masked terms.  Inputs that fit are handed over whole."""
+    137 GB; BERT4Rec's bidirectional call at 32,768 rows 10.5 GB).  The
+    same function as ``attention_ref``; float32 sums over fewer masked
+    terms.  Inputs that fit are handed over whole.  Without a mask (not
+    causal, no window) every chunk sees every key."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -158,8 +160,11 @@ def attention_ref_chunked(q, k, v, causal=True, window=None):
     rows = max(1, SCORE_BYTES // (4 * b * h * lk))
     if rows >= lq:
         return attention_ref(q, k, v, causal=causal, window=window)
-    if not causal:
+    if not causal and window is not None:
         raise ValueError("query chunks keep their alignment to the keys only when causal")
+    if not causal:
+        return torch.cat([attention_ref(q[:, :, c0:c0 + rows], k, v, causal=False)
+                          for c0 in range(0, lq, rows)], dim=2)
     off, outs = lk - lq, []
     for c0 in range(0, lq, rows):
         c1 = min(lq, c0 + rows)

@@ -28,7 +28,9 @@ tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``, plus
 which variant it took (``kernel.flash_route``).  The decode variant's two
 kernels are also held one by one against their plain versions, and the
 launcher must refuse a misaligned base or stride for the variants that
-read with 16-byte loads or TMA.
+read with 16-byte loads or TMA.  Each variant also runs past gridDim.y's
+65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and 131,072,
+BERT4Rec's call among them), which its launcher cuts into launches.
 
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
@@ -41,8 +43,9 @@ import pytest
 import torch
 
 from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, FOLD_CASES, VARIANT_LAUNCHES,
-                           flash_close, flash_inputs, fold_emulation, make_rows, p_rounding_term,
-                           staged_scores_emulation, synthetic_fold_case)
+                           attention_ref_chunked, flash_close, flash_inputs, fold_emulation,
+                           make_rows, p_rounding_term, staged_scores_emulation,
+                           synthetic_fold_case)
 from repro_torch.kernels import build as B
 from repro_torch.kernels.cluster_score import kernel as CK
 from repro_torch.kernels.cluster_score import ops as cops
@@ -598,6 +601,60 @@ def test_flash_attention_window_of_one_is_the_value_of_the_own_key(cuda_device):
     q, k, v = flash_inputs(cuda_device, torch.float32, 1, 2, 2, 20, 50, 64, seed=3)
     got = flash_attention(q, k, v, causal=True, window=1)
     torch.testing.assert_close(got, v[:, :, 30:], rtol=1e-6, atol=1e-6)
+
+
+# Past gridDim.y's 65,535: (variant, dtype, B, H, Hkv, Lq, Lk, D, causal).
+# Every variant at B·H = 65,536 and 131,072 (the decode variant's grid
+# rows are B·Hkv, sm90's B·Hkv when it pairs the two heads of a group):
+# general at BERT4Rec's shape (fp32, D = 32, 200 positions, not causal),
+# decode at bf16 D = 128, sm90 at bf16 D = 64 with 64 positions, unpaired
+# and paired.
+BIG_BH_CASES = [
+    ("general", torch.float32, 32768, 2, 2, 200, 200, 32, False),
+    ("general", torch.float32, 65536, 2, 2, 200, 200, 32, False),
+    ("decode", torch.bfloat16, 65536, 1, 1, 1, 100, 128, True),
+    ("decode", torch.bfloat16, 65536, 2, 2, 1, 100, 128, True),
+    ("sm90", torch.bfloat16, 65536, 1, 1, 64, 64, 64, True),
+    ("sm90", torch.bfloat16, 65536, 2, 2, 64, 64, 64, True),
+    ("sm90", torch.bfloat16, 131072, 2, 1, 64, 64, 64, True),
+]
+
+
+def _check_flash_call(q, k, v, causal, variant):
+    """One ``flash_attention`` call through ``variant`` (read from the
+    counters) held to ``FLASH_TOL`` of the plain version in float32 (over
+    chunks of query rows, ``attention_ref_chunked``), plus
+    ``p_rounding_term`` on sm90."""
+    assert FK.flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], q.shape[3]) == variant
+    before = dict(B.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    launched = {n: B.LAUNCHES[n] - before[n] for n in FLASH_VARIANTS}
+    assert launched == {n: VARIANT_LAUNCHES[variant].get(n, 0) for n in FLASH_VARIANTS}
+    want = attention_ref_chunked(q.float(), k.float(), v.float(), causal)
+    extra = p_rounding_term(q, k, v, causal, None) if variant == "sm90" else None
+    flash_close(got, want, extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dtype,b,h,hkv,lq,lk,d,causal", BIG_BH_CASES,
+                         ids=[f"{c[0]}-bh{c[2] * c[3]}-hkv{c[4]}" for c in BIG_BH_CASES])
+def test_flash_attention_past_65535_batch_heads(cuda_device, variant, dtype, b, h, hkv, lq, lk,
+                                                d, causal):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=b + h + hkv + d)
+    _check_flash_call(q, k, v, causal, variant)
+
+
+@pytest.mark.cuda
+def test_flash_attention_at_bert4recs_call(cuda_device):
+    """BERT4Rec's encoder call at a serving slice of 32,768 rows: q, k, v
+    (32768, 2, 200, 32) float32 as the model hands them, (B, H, L, D) views
+    of (B, L, H, D) buffers, bidirectional."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, torch.float32, 32768, 2, 2, 200, 200, 32, seed=4,
+                           model_layout=True)
+    _check_flash_call(q, k, v, False, "general")
 
 
 # (tokens, d_model, d_expert, experts, top_k, capacity factor): the SMOKE

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and it never picks the CPU on its own."""
+package (every module under ``src/repro_torch``, the recsys models and
+``serve/retrieval.py`` among them), and it never picks the CPU on its
+own."""
 
 import ast
 import os
@@ -118,6 +120,54 @@ def test_lm_entry_points_without_device_raise_instead_of_using_the_cpu():
     report = serve.main(["--arch", "gemma3-4b", "--device", "cpu", "--requests", "2",
                          "--decode-steps", "2"])
     assert report["device"] == "cpu" and report["tokens"].shape == (2, 2)
+
+
+@pytest.mark.parametrize("arch", ["dien", "mind", "dcn-v2", "bert4rec"])
+def test_recsys_entry_points_without_device_raise_instead_of_using_the_cpu(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import recsys_from_numpy
+    from repro_torch.models.recsys import recsys_module
+
+    cfg = get_arch(arch).smoke_cfg
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recsys_module(arch).init(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recsys_from_numpy({}, arch, cfg)
+    for cell in ([], ["--cell", "serve_p99"], ["--cell", "retrieval_cand"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, *cell])
+    # the explicit CPU device is accepted and runs the plain path
+    report = serve.main(["--arch", arch, "--device", "cpu", "--requests", "4"])
+    assert report["device"] == "cpu" and report["scores"].shape == (4,)
+
+
+def test_filtered_retriever_without_device_raises_instead_of_using_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    import numpy as np
+
+    from repro_torch.serve.retrieval import FilteredRetriever, items_as_corpus
+
+    rng = np.random.default_rng(0)
+    items = items_as_corpus([np.unique(rng.choice(40, 5)) for _ in range(300)], 40)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FilteredRetriever(items, k=4, tc=40)
+    ids, report = FilteredRetriever(items, k=4, tc=40, device="cpu").filter(1, 2)
+    assert report.n_filtered == len(ids)
+
+
+def test_recsys_launcher_fails_without_a_gpu_when_run_as_a_program():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the launcher would start for real")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "bert4rec"],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 def test_lm_launcher_fails_without_a_gpu_when_run_as_a_program():

@@ -167,7 +167,7 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_unported_paths_raise():
-    for arch in ("qwen1.5-32b", "dcn-v2"):
+    for arch in ("qwen1.5-32b", "pna"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
