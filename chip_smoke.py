@@ -86,6 +86,27 @@
    ``torch.profiler`` (device kernel time per step split into attention,
    dequantize, MoE dispatch, expert products and the rest; the device's
    idle share) and, with the int8 cache, times the dequantize alone;
+   then the model axis, the phases of ``MESH_PHASES`` (``launch/serve.py
+   --mesh 1x4``: a ``(data, model)`` mesh of four slots of the card):
+   qwen1.5-32b at full width and depth and qwen3-moe-30b-a3b, both at
+   ``decode_32k`` — counters set to 0 just before ``serve`` and read
+   just after (per decode step and layer one split-K launch per sequence
+   shard with visible keys and one combine) — then replays fed the served
+   tokens: through the kernels with the mesh decode held to
+   ``FLASH_TOL`` of ``attention_ref`` over the dequantized visible prefix
+   at every call; the plain route under the same mesh (MoE: with the
+   kernel route's experts; its logits within ``LOGIT_RTOL``); a dense
+   model's single-device route, kernels and all, and that route again
+   with one bf16 unit moved in one attention output (the floor of the
+   logit comparison: a dense model's mesh route is held to the
+   single-device and the plain route within ``LOGIT_RTOL`` or
+   ``FLOOR_MARGIN`` times that floor, its step time beside the mesh's);
+   and the faulty controls of
+   ``MESH_CONTROLS`` (one shard's partials dropped from the combine, one
+   slot's expert outputs left out of the sum), which must land beyond
+   the limit; a trace of four decode steps under the mesh, the splits of
+   each shard and the combine's total, and the dropped MoE slots under
+   both capacity rules;
 10. drives the recsys serving path right after the LM phases: first a
    ``FilteredRetriever`` (``serve/retrieval.py``, its defaults) over the
    ``retrieval_cand`` cell's ``N_ITEMS`` items with attributes drawn as
@@ -190,6 +211,20 @@ LOGIT_RTOL = 2e-2
 # route's margin p_k - p_k+1 = p_k (1 - exp(-gap)) lies within
 # p_k (1 - exp(-ROUTER_TIE_SHARE · log(p_max / p_min))).
 ROUTER_TIE_SHARE = 2 * LOGIT_RTOL
+# A dense mesh phase's logit limit follows the model's own floor, read in
+# the same run: the single-device route again with one element of the
+# first decode call's attention output moved by one bf16 unit in the last
+# place (OneUlpAttention), against the single-device route.  Its logits
+# are held to LOGIT_RTOL, or to FLOOR_MARGIN times that floor where the
+# floor passes LOGIT_RTOL/FLOOR_MARGIN: a model that moves its logits that
+# far for one unit in one element cannot tell a sound route from any
+# other rounding below it.  Readings (tools/mesh_logit_probe.py on the
+# card, qwen1.5-32b cut to 16/32/48/64 layers): the one-unit witness read
+# 0.016/0.026/0.027/0.028; every rounding-only pair of routes (the mesh
+# decode, two single-device decodes with 2 or 7 splits for 4, the plain
+# route in fp32 and in bf16) read at most 1.27 times it at the same depth;
+# a shard dropped from the combine read 0.14-0.21.
+FLOOR_MARGIN = 1.5
 
 
 class LMPhase(NamedTuple):
@@ -223,6 +258,41 @@ LM_PHASES = (
             ("gates",)),
     LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32752, 16, None, ("window",)),
     LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 16, 2, ("gates",)),
+)
+
+
+class MeshPhase(NamedTuple):
+    """One LM serving run under a ``(data, model)`` slot mesh of the card
+    (``launch/serve.py --mesh``): the arch, its serving cell, the mesh
+    ("DATAxMODEL"), requests x prompt tokens + greedy steps, a depth cut
+    (None: full depth) and its fault controls (``MESH_CONTROLS``)."""
+
+    name: str
+    arch: str
+    cell: str
+    mesh: str
+    requests: int
+    prompt_len: int
+    steps: int
+    layers: Optional[int]
+    controls: Tuple[str, ...]
+
+
+# The model axis, after the LM phases: qwen1.5-32b at full width and depth
+# (64 layers, 35.2 B parameters, 65.6 GiB in bf16) and qwen3-moe-30b-a3b at
+# full width and depth, each at ``decode_32k`` (the int8 KV cache) under a
+# 1 x 4 mesh of slots of the card: every decode step splits the cache's
+# 2,064 positions over the 4 model slots (516 each: one split-K launch a
+# shard with visible keys, one combine a layer), and qwen3's 128 experts
+# run 32 a slot.  Cuts: the cell's batch of 128 to 4 (qwen1.5-32b: its
+# weights leave ~13 GiB) or 8, the cache of 32,768 positions to 2,064,
+# weights random (qwen3's drawn again from the LM phase's seed: both
+# models do not fit at once).
+MESH_PHASES = (
+    MeshPhase("qwen1.5-32b decode_32k mesh 1x4", "qwen1.5-32b", "decode_32k", "1x4", 4, 2048, 16,
+              None, ("shard",)),
+    MeshPhase("qwen3-moe-30b-a3b decode_32k mesh 1x4", "qwen3-moe-30b-a3b", "decode_32k", "1x4", 8,
+              2048, 16, None, ("shard", "slot")),
 )
 # The recsys serving path: every recsys arch of the zoo at its published
 # widths (``CFG``), seeded random weights, at the family's serving cells
@@ -1563,6 +1633,395 @@ def routing_flips(name, routing, calls) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# The model axis: LM serving under a (data, model) slot mesh
+# ----------------------------------------------------------------------
+
+
+def mesh_decode_launches(mesh, cfg, batch: int, prompt_len: int, steps: int,
+                         cache_len: int) -> int:
+    """Split-kernel launches the mesh decode's design gives over a serve
+    run: per decode step and layer, one per shard with a key the query
+    sees (``layers.decode_shards``; a local layer's window may leave a
+    shard none)."""
+    from repro_torch.models import layers as L
+
+    shards = L.decode_shards(mesh, batch, cache_len)
+    total = 0
+    for step in range(steps):
+        length = prompt_len + step
+        for w in cfg.layer_windows():
+            for sd in shards:
+                lo = max(sd.pos0, length - w + 1) if w else sd.pos0
+                total += min(sd.pos1, length + 1) > lo
+    return total
+
+
+class CheckedMeshDecode:
+    """``layers._flash_decode`` (the mesh decode through the kernels),
+    held at every call to ``FLASH_TOL`` of ``attention_ref`` in float32
+    over the visible prefix of the cache as the layer reads it (an int8
+    cache dequantized to the activation dtype), after the call's write."""
+
+    def __init__(self, real):
+        self.real, self.calls, self.max_abs_err, self.share = real, 0, 0.0, 0.0
+
+    def __call__(self, q, k_new, v_new, cache, window):
+        from _torch_parity import attention_ref_chunked, flash_close
+        from repro_torch.models import layers as L
+
+        out = self.real(q, k_new, v_new, cache, window)
+        start = 0 if window is None else max(0, cache.length - window)
+        k, v = L.cache_read(cache, q.dtype, start)
+        want = attention_ref_chunked(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                                     v.transpose(1, 2).float(), True, window)
+        try:
+            err, share = flash_close(out.transpose(1, 2), want)
+        except AssertionError as exc:
+            raise AssertionError(f"mesh decode call {self.calls} ({cache.length} keys, window "
+                                 f"{window}): {exc}") from exc
+        self.max_abs_err, self.share = max(self.max_abs_err, err), max(self.share, share)
+        self.calls += 1
+        return out
+
+
+class OneUlpAttention:
+    """``layers.attention`` as it is, but the first decode call's output
+    (layer 0 of the first step) has its first element moved by one bf16
+    unit in the last place: the smallest change a route can make, whose
+    distance from the route as it is reads the logit comparison's floor."""
+
+    def __init__(self, real):
+        self.real, self.done = real, False
+
+    def __call__(self, q, k, v, causal=True, window=None):
+        import torch
+
+        out = self.real(q, k, v, causal=causal, window=window)
+        if q.shape[1] == 1 and not self.done:
+            if out.dtype != torch.bfloat16:
+                raise ValueError(f"the one-unit witness takes bf16 outputs, not {out.dtype}")
+            self.done = True
+            out = out.clone()
+            out.view(torch.int16).view(-1)[0] ^= 1
+        return out
+
+
+def plain_decode_partials(q, k, v):
+    """The mesh decode's split kernel through its plain version (on the
+    card's tensors): the plain route of a mesh phase."""
+    from repro_torch.kernels.flash_attention.kernel import decode_plan, sm_count
+    from repro_torch.kernels.flash_attention.ref import decode_partials_ref
+
+    plan = decode_plan(1, k.shape[2], None, k.shape[0] * k.shape[1],
+                       sm_count(q.device.index) if q.is_cuda else 1)
+    return decode_partials_ref(q, k, v, True, None, plan)
+
+
+def plain_decode_combine(ml, acc, dims, dtype):
+    """The mesh decode's combine through its plain version."""
+    from repro_torch.kernels.flash_attention.ref import combine_ref
+
+    b, h, hkv, lq, _d = dims
+    return combine_ref(ml, acc, b, h, hkv, lq, dtype)
+
+
+def shard_dropped_merge(parts, dims, dtype, device):
+    """A fault control: the first shard's partials left out of the merge."""
+    return MESH_REAL["_merge_partials"](parts[1:], dims, dtype, device)
+
+
+def slot_dropped_sum(outs, device):
+    """A fault control: model slot 1's expert outputs left out of the sum."""
+    return MESH_REAL["_sum_slots"](outs[:1] + outs[2:], device)
+
+
+# The layers' functions the mesh replays patch, as they are.
+MESH_REAL = {}
+# The mesh phases' fault controls: name -> the layers' functions replaced.
+MESH_CONTROLS = {
+    "shard": ("one shard's partials dropped from the combine",
+              {"_merge_partials": shard_dropped_merge}),
+    "slot": ("one slot's expert outputs left out of the sum", {"_sum_slots": slot_dropped_sum}),
+}
+
+
+def mesh_replay(torch, model, prompts, fed, mesh, patches=None):
+    """The serve run again, fed the tokens ``fed`` (requests, steps),
+    under ``mesh`` (None: one device) with functions of ``layers``
+    replaced by ``patches`` (name -> function; ``top_k_routing`` forces
+    MoE routing): the logits of the prefill and of every step, and each
+    step's host ms (ending in a device sync)."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    patches = patches or {}
+    own = {name: getattr(L, name) for name in patches}
+    dev = fed.device
+    for name, fn in patches.items():
+        setattr(L, name, fn)
+    sh.set_mesh(mesh)
+    try:
+        cache = T.init_cache(model.cfg, fed.shape[0], prompts.shape[1] + fed.shape[1], dev)
+        logits = [T.prefill(model, torch.from_numpy(prompts).to(dev), cache)[0].float()]
+        step_ms = []
+        for s in range(fed.shape[1]):
+            t0 = time.perf_counter()
+            logits.append(T.decode_step(model, fed[:, s:s + 1], cache)[0].float())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del cache
+        return logits, step_ms
+    finally:
+        sh.set_mesh(None)
+        for name, fn in own.items():
+            setattr(L, name, fn)
+
+
+def dense_rule_dropped(experts_per_layer, cfg) -> int:
+    """Slots the single-device dispatch's capacity rule, ``int(max(1,
+    cf·T·k/E))`` an expert over all T tokens, would drop for these
+    routings (one (T, k) tensor a layer of one model call)."""
+    import torch
+
+    moe = cfg.moe
+    dropped = 0
+    for experts in experts_per_layer:
+        t = experts.shape[0]
+        cap = int(max(1, moe.capacity_factor * t * moe.top_k / moe.n_experts))
+        counts = torch.bincount(experts.reshape(-1), minlength=moe.n_experts)
+        dropped += int((counts - cap).clamp_min(0).sum())
+    return dropped
+
+
+def mesh_phase(torch, dev, phase: MeshPhase):
+    """One LM serving phase under a slot mesh of the card through
+    ``launch/serve.py``'s own ``setup``, ``build_mesh`` and ``serve``
+    (counters set to 0 just before ``serve`` and read just after: one
+    sm90 prefill a layer, then per decode step and layer one split-K
+    launch a shard with visible keys and one combine).  Then the same run
+    again, fed the served tokens: through the kernels with the mesh
+    decode held to ``FLASH_TOL`` at every call (:class:`CheckedMeshDecode`);
+    the reference route (a dense model: its single-device route, kernels
+    and all; MoE: the plain route under the same mesh, both decode kernels
+    and the prefill's attention through their plain versions, the
+    kernel route's experts forced); and the phase's faulty controls,
+    which must land beyond ``LOGIT_RTOL``.  Returns its report and the
+    attention kernels' launch counts."""
+    from _torch_parity import FLASH_VARIANTS
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention.kernel import decode_plan, sm_count
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    MESH_REAL.update({name: getattr(L, name) for name in ("_merge_partials", "_sum_slots")})
+    argv = ["--arch", phase.arch, "--config", "full", "--requests", str(phase.requests),
+            "--prompt-len", str(phase.prompt_len), "--decode-steps", str(phase.steps),
+            "--device", "cuda", "--cell", phase.cell, "--mesh", phase.mesh]
+    argv += ["--layers", str(phase.layers)] if phase.layers else []
+    args = serve.build_parser().parse_args(argv)
+    resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model, prompts = serve.setup(args)
+    mesh = serve.build_mesh(args.mesh, dev)
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_moe = sum(blk.moe is not None for blk in model.blocks)
+    cache_len = args.prompt_len + args.decode_steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = LogitRecorder(T, model if n_moe else None)
+    B.reset_launch_counts()
+    try:
+        report = serve.serve(model, prompts, args.decode_steps, mesh=mesh)
+    finally:
+        rec.restore()
+    torch.cuda.synchronize()
+    launches = {name: B.LAUNCHES[name] for name in ("flash_attention_kernel", *FLASH_VARIANTS)}
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    calls = 1 + args.decode_steps
+    decode_design = mesh_decode_launches(mesh, cfg, args.requests, args.prompt_len,
+                                         args.decode_steps, cache_len)
+    design = {"flash_attention_kernel": cfg.n_layers, "flash_attention_sm90": cfg.n_layers,
+              "flash_attention_decode": decode_design,
+              "flash_attention_combine": cfg.n_layers * args.decode_steps,
+              "flash_attention_general": 0}
+    if launches != design:
+        raise AssertionError(f"{phase.name}: attention launches {launches}, the design gives "
+                             f"{design}")
+    tokens = report["tokens"]
+    if tokens.shape != (args.requests, args.decode_steps) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"{phase.name}: tokens of shape {tokens.shape} outside [0, vocab)")
+    kernel_logits = rec.logits
+    if len(kernel_logits) != calls or not all(bool(x.isfinite().all()) for x in kernel_logits):
+        raise AssertionError(f"{phase.name}: non-finite logits or a model call missing")
+    if n_moe and len(rec.experts) != n_moe * calls:
+        raise AssertionError(f"{phase.name}: {len(rec.experts)} MoE routings recorded")
+    fed = torch.from_numpy(tokens).to(dev)
+
+    # The kernel route again, the mesh decode held to FLASH_TOL at every call.
+    checked = CheckedMeshDecode(L._flash_decode)
+    checked_logits, _ = mesh_replay(torch, model, prompts, fed, mesh, {"_flash_decode": checked})
+    if checked.calls != cfg.n_layers * args.decode_steps:
+        raise AssertionError(f"{phase.name}: {checked.calls} mesh decode calls, not "
+                             f"{cfg.n_layers * args.decode_steps}")
+    replay_err = max(logit_rel_errs(checked_logits, kernel_logits))
+    del checked_logits
+    print(f"{phase.name}: the mesh decode within {checked.share:.3g} of its limit (max |err| "
+          f"{checked.max_abs_err:.3g}) of attention_ref over the dequantized visible prefix at "
+          f"all {checked.calls} calls; the replay's logits {replay_err:.3g} from the served ones",
+          flush=True)
+
+    # The reference: MoE, the plain route under the same mesh (the
+    # prefill's attention and both decode kernels through their plain
+    # versions, the prefill's held to the kernel at every call) with the
+    # kernel route's experts (the sharded capacity differs from the
+    # single-device one), within LOGIT_RTOL; a dense model, its
+    # single-device route, kernels and all, and the plain route under the
+    # mesh, both within the limit the model's floor gives (FLOOR_MARGIN).
+    def forced(renormalise=True):
+        return {"top_k_routing": RoutingReplay(rec.experts, n_moe, renormalise)} if n_moe else {}
+
+    checked_plain = CheckedPlain()
+    plain_patches = {"flash_attention": checked_plain,
+                     "flash_decode_partials": plain_decode_partials,
+                     "flash_decode_combine": plain_decode_combine, **forced()}
+    plain_logits, _ = mesh_replay(torch, model, prompts, fed, mesh, plain_patches)
+    if checked_plain.calls != cfg.n_layers:
+        raise AssertionError(f"{phase.name}: {checked_plain.calls} prefill attention calls on "
+                             f"the plain route, not {cfg.n_layers}")
+    print(f"{phase.name} prefill attention calls of the plain route: the kernel on the same "
+          f"inputs within {checked_plain.share:.3g} of its limit (max |err| "
+          f"{checked_plain.max_abs_err:.3g}; by variant {checked_plain.share_by_variant}) at "
+          f"{checked_plain.calls} calls", flush=True)
+    flips = routing_flips(phase.name, plain_patches["top_k_routing"], calls) if n_moe else None
+    plain_errs = logit_rel_errs(kernel_logits, plain_logits)
+    single = floor = None
+    if n_moe:
+        reference, limit, ref_logits = ("the plain route under the same mesh and experts",
+                                        LOGIT_RTOL, plain_logits)
+    else:
+        reference = "the single-device route (no mesh, the same kernels)"
+        ref_logits, single_step_ms = mesh_replay(torch, model, prompts, fed, None)
+        witness = OneUlpAttention(L.attention)
+        floor_errs = logit_rel_errs(
+            mesh_replay(torch, model, prompts, fed, None, {"attention": witness})[0], ref_logits)
+        if not witness.done:
+            raise AssertionError(f"{phase.name}: the one-unit witness met no decode call")
+        floor = max(floor_errs)
+        limit = max(LOGIT_RTOL, FLOOR_MARGIN * floor)
+        single = {"plain_logit_rel_err": logit_rel_errs(ref_logits, plain_logits),
+                  "step_ms": single_step_ms, "step_ms_median": float(np.median(single_step_ms)),
+                  "one_unit_floor_logit_rel_err": floor_errs}
+        print(f"{phase.name}: one bf16 unit in one attention output of the first decode call "
+              f"moves the single-device route's logits by {floor:.4g} (per call "
+              f"{[round(e, 4) for e in floor_errs]}): the limit is max({LOGIT_RTOL}, "
+              f"{FLOOR_MARGIN} x {floor:.4g}) = {limit:.4g}", flush=True)
+    del plain_logits
+    rel_errs = logit_rel_errs(kernel_logits, ref_logits)
+    controls = {}
+    for key in phase.controls:
+        name, patches = MESH_CONTROLS[key]
+        controls[name] = logit_rel_errs(
+            mesh_replay(torch, model, prompts, fed, mesh, {**patches, **forced()})[0], ref_logits)
+    print(f"{phase.name} logits against {reference} (max |a - b| / max |b| per call, limit "
+          f"{limit:.4g}): mesh route {max(rel_errs):.4g} (per call "
+          f"{[round(e, 4) for e in rel_errs]}); " + "; ".join(
+              f"{name} {max(errs):.4g}" for name, errs in controls.items())
+          + f"; the mesh route against the plain route under the mesh {max(plain_errs):.4g}"
+          + ("" if single is None else f", the single-device route against it "
+             f"{max(single['plain_logit_rel_err']):.4g}"), flush=True)
+    held = {reference: rel_errs}
+    if single is not None:
+        held["the plain route under the mesh"] = plain_errs
+        held["the plain route (the single-device route's distance)"] = single[
+            "plain_logit_rel_err"]
+    for what, errs in held.items():
+        if max(errs) > limit:
+            raise AssertionError(f"{phase.name}: logits differ from {what} by {max(errs):.3g} "
+                                 f"of their largest value (limit {limit:.4g})")
+    for name, errs in controls.items():
+        if max(errs) <= limit:
+            raise AssertionError(f"{phase.name}: the control '{name}' reads {max(errs):.3g}, "
+                                 f"within the limit {limit:.4g}: the comparison cannot tell it")
+    near_ties = []
+    for s, b in enumerate(ref_logits[:args.decode_steps]):
+        ref_top = b.argmax(dim=1)
+        kern_tok = fed[:, s].long()
+        for r in (ref_top != kern_tok).nonzero().flatten().tolist():
+            gap = float(b[r, ref_top[r]] - b[r, kern_tok[r]])
+            if gap > limit * float(b[r].abs().max()):
+                raise AssertionError(f"{phase.name}: request {r} step {s}: token "
+                                     f"{int(kern_tok[r])} is {gap:.4g} below the reference "
+                                     f"route's top logit, beyond a near-tie")
+            near_ties.append({"request": r, "step": s, "gap": gap})
+    dropped_dense = None
+    if n_moe:
+        per_call = [rec.experts[c * n_moe:(c + 1) * n_moe] for c in range(calls)]
+        dropped_dense = [dense_rule_dropped(e, cfg) for e in per_call]
+    del rec, ref_logits, kernel_logits
+
+    # The splits: each shard's plan at the last step, and the combine's total.
+    sms = sm_count(dev.index)
+    length = cache_len - 1
+    shard_plans = []
+    for sd in L.decode_shards(mesh, args.requests, cache_len):
+        keys = max(0, min(sd.pos1, length + 1) - sd.pos0)
+        plan = (decode_plan(1, keys, None, (sd.row1 - sd.row0) * cfg.n_kv_heads, sms)
+                if keys else None)
+        shard_plans.append({"slot": sd.slot.id, "positions": [sd.pos0, sd.pos1],
+                            "visible_keys": keys, "plan": plan})
+    combine_splits = sum(p["plan"][3] for p in shard_plans if p["plan"])
+    single_plan = decode_plan(1, length + 1, None, args.requests * cfg.n_kv_heads, sms)
+    trace = decode_trace(torch, model, prompts, dev, cache_len=cache_len, mesh=mesh)
+    decode_ms = [t * 1e3 for t in report["decode_step_s"]]
+    out = {
+        "arch": cfg.name, "cell": phase.cell, "mesh": mesh.shape, "n_layers": cfg.n_layers,
+        "n_params": cfg.n_params(), "kv_quant": cfg.kv_quant, "requests": args.requests,
+        "prompt_len": args.prompt_len, "decode_steps": args.decode_steps,
+        "cache_len": int(report["cache_len"]), "decode_shards": report["decode_shards"],
+        "init_s": init_s, "prefill_s": report["prefill_s"], "decode_step_ms": decode_ms,
+        "decode_step_ms_median": report["decode_step_s_median"] * 1e3,
+        "single_device_route": single,
+        "wall_s": report["wall_s"], "tokens_per_s": report["tokens_per_s"],
+        "resident_before_bytes": int(resident), "peak_memory_bytes": int(peak_bytes),
+        "attention_launches": launches, "launches_expected": design,
+        "shard_plans_last_step": shard_plans, "combine_splits_last_step": combine_splits,
+        "single_device_plan_last_step": single_plan,
+        "reference": reference, "logit_limit": limit, "logit_floor": floor,
+        "logit_rel_err": rel_errs,
+        "logit_rel_err_max": max(rel_errs), "plain_route_logit_rel_err": plain_errs,
+        "control_logit_rel_err": controls, "replay_logit_rel_err": replay_err,
+        "mesh_decode_calls_checked": checked.calls,
+        "mesh_decode_max_abs_err": checked.max_abs_err,
+        "mesh_decode_share_of_limit": checked.share,
+        "prefill_calls_checked": checked_plain.calls,
+        "prefill_max_abs_err": checked_plain.max_abs_err,
+        "prefill_share_of_limit": checked_plain.share,
+        "dropped_slots_sharded_rule": report["dropped_slots"],
+        "dropped_slots_dense_rule": dropped_dense, "routing_flips": flips,
+        "near_ties": near_ties, "first_request": tokens[0].tolist(), "decode_trace": trace,
+    }
+    print(f"{phase.name}: {cfg.name} ({cfg.n_layers} layers, {cfg.n_params() / 1e9:.3f} B "
+          f"parameters, int8 KV cache) under mesh {mesh.shape}, {args.requests} x "
+          f"{args.prompt_len} prompt tokens + {args.decode_steps} steps: "
+          f"{out['tokens_per_s']:.1f} tok/s, prefill {out['prefill_s']:.3f} s, median decode "
+          f"step {out['decode_step_ms_median']:.2f} ms"
+          + ("" if single is None else
+             f" (the single-device route's, teacher-forced: {single['step_ms_median']:.2f} ms)")
+          + f", peak memory {peak_bytes / 2**30:.2f} GiB "
+          f"({resident / 2**30:.2f} GiB resident before it); attention launches {launches} (as "
+          f"designed); splits at the last step per shard "
+          f"{[p['plan'][3] if p['plan'] else 0 for p in shard_plans]}, combine of "
+          f"{combine_splits} (one device: {single_plan[3]}); {len(near_ties)} near-tie tokens"
+          + ("" if dropped_dense is None else
+             f"; dropped slots per model call, sharded rule {report['dropped_slots']}, "
+             f"single-device rule {dropped_dense}"), flush=True)
+    return out, launches
+
+
 def dequantize_rows(torch, dev, cfg, batch, cache_len, trace) -> dict:
     """``layers._dequantize`` of one layer's K and V alone at a decode
     step's shapes: a global layer's whole cache and, with a window, a local
@@ -1605,7 +2064,8 @@ def dequantize_rows(torch, dev, cfg, batch, cache_len, trace) -> dict:
 TRACE_SPANS = {"dequantize": "_dequantize", "moe": "moe_apply", "expert products": "_expert_ffn"}
 
 
-def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
+def decode_trace(torch, model, prompts, dev, steps: int = 4, cache_len: Optional[int] = None,
+                 mesh=None) -> dict:
     """The decode step under ``torch.profiler``: a fresh cache and the
     prompts prefilled (not traced), one warm step, then ``steps`` greedy
     steps traced, with ``TRACE_SPANS``' functions in labelled spans.
@@ -1616,7 +2076,9 @@ def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
     the rest), the device's idle share, and the sum of every
     ``key_averages`` entry's self device time (which counts an aten op's
     kernels twice: once under the op, once as the kernel); None where the
-    profiler saw no device time."""
+    profiler saw no device time.  ``cache_len`` (default: prompt + steps
+    + 1 positions) and ``mesh`` (the ambient mesh of the run) serve the
+    mesh phases."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1629,7 +2091,11 @@ def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
                 return fn(*args, **kwargs)
         return wrapped
 
-    cache = T.init_cache(model.cfg, prompts.shape[0], prompts.shape[1] + steps + 1, dev)
+    from repro_torch.dist import sharding as sh
+
+    sh.set_mesh(mesh)
+    cache = T.init_cache(model.cfg, prompts.shape[0], cache_len or prompts.shape[1] + steps + 1,
+                         dev)
     logits, cache = T.prefill(model, torch.from_numpy(prompts).to(dev), cache)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     logits, cache = T.decode_step(model, nxt, cache)
@@ -1648,6 +2114,7 @@ def decode_trace(torch, model, prompts, dev, steps: int = 4) -> dict:
     finally:
         for attr, fn in originals.items():
             setattr(L, attr, fn)
+        sh.set_mesh(None)
     del cache
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
@@ -1711,6 +2178,9 @@ FLASH_ROW_SHAPES = (
     ("gemma3-4b decode_32k decode, global layer", 4, 8, 4, 1, 32768, 256, 2**30, 2),
     ("gemma3-4b decode_32k decode, local layer (its window of keys)", 4, 8, 4, 1, 1024, 256, 1024,
      8),
+    ("qwen1.5-32b prefill", 4, 40, 40, 2048, 2048, 128, 2**30, 1),
+    ("qwen1.5-32b mesh 1x4 decode, one shard's 516 keys", 4, 40, 40, 1, 516, 128, 2**30, 4),
+    ("qwen3-moe-30b-a3b mesh 1x4 decode, one shard's 516 keys", 8, 32, 4, 1, 516, 128, 2**30, 8),
 )
 # Above this many (query, key) pairs per (B, H) the plain version is timed
 # once: at a 32k-token prefill one call takes seconds.
@@ -2355,6 +2825,12 @@ def main() -> int:
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
+    mesh_lm = {}
+    for phase in MESH_PHASES:
+        mesh_lm[phase.name], phase_launches = mesh_phase(torch, dev, phase)
+        for name, n in phase_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
     print(f"attention launches over the LM phases: {launches}", flush=True)
 
     # The recsys serving path: the filtered retrieval's host fit, then each
@@ -2511,7 +2987,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
-        "recsys": recsys,
+        "mesh_lm": mesh_lm, "recsys": recsys,
         "flash_cases": flash_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))

@@ -7,6 +7,7 @@ import importlib
 _MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "dien": "repro_torch.configs.dien",
@@ -15,7 +16,7 @@ _MODULES = {
     "bert4rec": "repro_torch.configs.bert4rec",
 }
 # The JAX package's other archs (``repro.configs.registry``).
-NOT_PORTED = ("qwen1.5-32b", "pna")
+NOT_PORTED = ("pna",)
 
 ARCH_NAMES = tuple(_MODULES)
 

@@ -39,7 +39,8 @@ import torch
 from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
 __all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "SM90_HEAD_DIMS", "combine_cuda",
-           "decode_partials_cuda", "decode_plan", "flash_attention_cuda", "flash_route"]
+           "decode_partials_cuda", "decode_plan", "flash_attention_cuda", "flash_route",
+           "sm_count"]
 
 MAX_HEAD_DIM = 256
 # Query rows (Lq·(H/Hkv)) of one (batch, KV head) that the decode variant
@@ -147,7 +148,7 @@ class _Launch:
                                for i in range(3))
         if self.route == "decode":
             self.plan = decode_plan(lq, lk, window, b * hkv,
-                                    _sm_count(q.device.index) if not self.empty else 1)
+                                    sm_count(q.device.index) if not self.empty else 1)
             rows = lq * (h // hkv)
             self.ml_numel = b * hkv * self.plan[3] * rows * 2
             self.scratch_numel = self.ml_numel + b * hkv * self.plan[3] * rows * d
@@ -185,7 +186,7 @@ def _launch_of(q, k, v, causal, window, name) -> _Launch:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 

@@ -9,14 +9,16 @@ or raises.  Nothing falls back from the card to the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (combine_cuda, decode_partials_cuda,
+                                                        decode_plan, flash_attention_cuda,
+                                                        sm_count)
+from repro_torch.kernels.flash_attention.ref import attention_ref, combine_ref, decode_partials_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_decode_combine", "flash_decode_partials"]
 
 
 def flash_attention(
@@ -34,3 +36,30 @@ def flash_attention(
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode variant's split kernel over keys that the one query of
+    each row sees whole (q (B, H, 1, D), k and v (B, Hkv, Lk, D), Lk >= 1):
+    the fp32 ``ml`` (B·Hkv, n_splits, H/Hkv, 2) and ``acc``
+    (B·Hkv, n_splits, H/Hkv, D) of ``kernel.decode_partials_cuda``, split
+    by ``kernel.decode_plan`` for the card's SM count (one SM on the CPU,
+    where the plain version takes any plan)."""
+    b, hkv, lk = k.shape[0], k.shape[1], k.shape[2]
+    if q.is_cuda:
+        plan = decode_plan(1, lk, None, b * hkv, sm_count(q.device.index))
+        return decode_partials_cuda(q, k, v, True, None, plan)
+    return decode_partials_ref(q, k, v, True, None, decode_plan(1, lk, None, b * hkv, 1))
+
+
+def flash_decode_combine(ml: torch.Tensor, acc: torch.Tensor, dims, dtype) -> torch.Tensor:
+    """The decode variant's combine of the splits in ``ml``/``acc``
+    (split order) into a new (B, H, Lq, D) tensor in ``dtype``; ``dims``
+    is (B, H, Hkv, Lq, D)."""
+    b, h, hkv, lq, d = dims
+    if ml.is_cuda:
+        out = torch.empty((b, h, lq, d), dtype=dtype, device=ml.device)
+        combine_cuda(ml, acc, out, hkv)
+        return out
+    return combine_ref(ml, acc, b, h, hkv, lq, dtype)

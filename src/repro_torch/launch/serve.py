@@ -7,6 +7,8 @@ bert4rec): batched scoring and candidate retrieval.
         --prompt-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
         --cell decode_32k --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b \\
+        --cell decode_32k --mesh 1x4 --device cpu
 
 The port of the LM branch of ``repro.launch.serve``: random weights from
 a seeded generator (``init``), ``--requests`` prompts of ``--prompt-len``
@@ -18,7 +20,13 @@ applies the overrides of the arch's serving cell ``NAME`` to the config
 (as ``repro.launch.steps`` does: ``decode_32k`` and ``prefill_32k`` set
 the int8 KV cache, ``kv_quant``); the cell's batch and lengths stay
 ``--requests`` and ``--prompt-len``.  ``--layers`` cuts the depth (a
-model too large for one card at full depth).  On ``cuda`` every attention runs
+model too large for one card at full depth).  ``--mesh DATAxMODEL`` (e.g.
+``1x4``) serves the LM under a ``(data, model)`` slot mesh of DATA·MODEL
+slots of the serving device (``ElasticMesh(model_parallel=MODEL)``, the
+port's counterpart of the mesh the JAX ``build_cell`` takes): each decode
+step splits the cache's sequence over the model slots (one split-K launch
+a shard with visible keys, one combine a layer), MoE runs expert-parallel
+over them.  On ``cuda`` every attention runs
 the CUDA kernel of ``repro_torch.kernels.flash_attention``; ``--device
 cpu`` runs its plain PyTorch version.  With MoE the launcher also
 reports the slots the dispatch dropped over capacity in each model call.
@@ -55,6 +63,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 WEIGHT_SEED = 0
@@ -78,8 +87,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "recsys serve or retrieval (its batch)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (default: the config's)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve the LM under a (data, model) mesh of slots of the device, "
+                         "e.g. 1x4 (default: no mesh)")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def build_mesh(spec: str, device):
+    """The ``(data, model)`` slot mesh ``spec`` ("DATAxMODEL") over
+    DATA·MODEL slots of ``device``."""
+    from repro_torch.dist.fault_tolerance import ElasticMesh
+
+    try:
+        data, model = (int(n) for n in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DATAxMODEL, e.g. 1x4; got {spec!r}") from None
+    if data < 1 or model < 1:
+        raise ValueError(f"--mesh {spec}: both axes need at least one slot")
+    return ElasticMesh(model_parallel=model).remesh([device] * (data * model))
 
 
 # The cell kinds the launcher serves, per family.
@@ -144,15 +170,35 @@ def _dropped(model: T.LM) -> Optional[torch.Tensor]:
     return torch.stack(counts).sum() if counts else None
 
 
-def serve(model: T.LM, prompts: np.ndarray, decode_steps: int, log_fn=print) -> Dict[str, object]:
+def serve(model: T.LM, prompts: np.ndarray, decode_steps: int, log_fn=print,
+          mesh=None) -> Dict[str, object]:
     """Prefill ``prompts`` and decode ``decode_steps`` greedy tokens per
-    request, as the JAX launcher does.  Returns the tokens (requests,
-    decode_steps) as numpy, the host-clock times, each ending in a device
-    sync, and with MoE the dropped slots of each model call (prefill
-    first)."""
+    request, as the JAX launcher does, under ``mesh`` (a ``SlotMesh``,
+    the ambient mesh for the run) where given.  Returns the tokens
+    (requests, decode_steps) as numpy, the host-clock times, each ending
+    in a device sync, and with MoE the dropped slots of each model call
+    (prefill first)."""
+    from repro_torch.dist import sharding as sh
+
+    previous = sh.get_active_mesh()
+    sh.set_mesh(mesh)
+    try:
+        return _serve(model, prompts, decode_steps, log_fn, mesh)
+    finally:
+        sh.set_mesh(previous)
+
+
+def _serve(model: T.LM, prompts: np.ndarray, decode_steps: int, log_fn, mesh):
     dev = model.embed.device
     b, plen = prompts.shape
     cache = T.init_cache(model.cfg, b, plen + decode_steps, dev)
+    shards = None
+    if mesh is not None and L._flash_decode_applicable(L.KVCache(cache.k[0], cache.v[0]), b):
+        shards = [(s.slot.id, (s.row0, s.row1), (s.pos0, s.pos1))
+                  for s in L.decode_shards(mesh, b, cache.k.shape[2])]
+    if mesh is not None:
+        log_fn(f"mesh {mesh!r}: the mesh decode's shards of the KV cache (slot, rows, "
+               f"positions) {shards if shards else 'none: every step decodes on one device'}")
     tokens = torch.from_numpy(prompts).to(dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -178,6 +224,7 @@ def serve(model: T.LM, prompts: np.ndarray, decode_steps: int, log_fn=print) -> 
         "decode_step_s_median": statistics.median(step_s) if step_s else 0.0,
         "wall_s": wall_s, "tokens_per_s": b * decode_steps / wall_s,
         "kv_quant": model.cfg.kv_quant,
+        "mesh": None if mesh is None else mesh.shape, "decode_shards": shards,
         "dropped_slots": (None if dropped[0] is None
                           else [int(n) for n in torch.stack(dropped).tolist()]),
     }
@@ -331,10 +378,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     from repro_torch.configs.registry import get_arch
 
     if get_arch(args.arch).family == "recsys":
+        if args.mesh is not None:
+            raise ValueError("--mesh serves an LM arch under a slot mesh; a recsys arch has none")
         model, cell = setup_recsys(args)
         return serve_recsys(model, cell, args.requests)
     model, prompts = setup(args)
-    return serve(model, prompts, args.decode_steps)
+    mesh = None if args.mesh is None else build_mesh(args.mesh, model.embed.device)
+    return serve(model, prompts, args.decode_steps, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -28,9 +28,18 @@ How the port differs:
     call can see (the valid prefix, or a local layer's last
     ``window + Lq - 1`` positions), the same function as the JAX
     package's masked read of the whole buffer;
-  * MoE runs the single-device dispatch (``_moe_apply_dense``) on every
-    input: the mesh split-K decode and the expert-parallel
-    ``_moe_apply_sharded`` need a model axis, which the port has not.
+  * under an ambient mesh with a ``model`` axis of 2 or more
+    (:func:`repro_torch.dist.sharding.set_mesh`, a ``SlotMesh``), a
+    one-token decode splits the cache's sequence over the slots
+    (:func:`_flash_decode`: per shard a launch of the decode variant's
+    split kernel over the keys the query sees, then one combine over
+    every shard's partials) and MoE runs expert-parallel
+    (:func:`_moe_apply_sharded`: each slot its own experts, its outputs
+    summed).  The reference's ``shard_map`` collectives become a
+    concatenation and a sum on the first slot's device.  The cache stays
+    one tensor, each shard a view of it, so the slots of a mesh decode
+    share the cache's device (a mesh over several cards would hold each
+    shard on its slot's device; not done yet).
 """
 
 from __future__ import annotations
@@ -42,13 +51,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.dist.sharding import CacheShard, axes_size, batch_axes, get_active_mesh
+from repro_torch.kernels.flash_attention.ops import (flash_attention, flash_decode_combine,
+                                                     flash_decode_partials)
 
 __all__ = [
     "MLP",
     "MoE",
     "Routing",
     "Dense",
+    "ExpertShard",
     "GQAAttention",
     "KVCache",
     "attention",
@@ -210,6 +222,9 @@ class GQAAttention(nn.Module):
             k = rms_norm(k, self.k_norm)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
+        if cache is not None and l == 1 and _flash_decode_applicable(cache, b):
+            out = _flash_decode(q, k, v, cache, window)
+            return self.o(out.reshape(b, l, self.n_heads * self.head_dim))
         if cache is not None:
             # The JAX package's ``_cached_attention`` masks the whole cache
             # buffer by absolute position (key j visible to the query at p
@@ -230,6 +245,112 @@ class GQAAttention(nn.Module):
             k, v = cache_read(cache, x.dtype, start)
         out = attention(q, k, v, causal=causal, window=window)
         return self.o(out.reshape(b, l, self.n_heads * self.head_dim))
+
+
+def _flash_decode_applicable(cache: KVCache, batch: int) -> bool:
+    """The split-K mesh decode applies under an ambient mesh whose
+    ``model`` axis has 2 slots or more and divides the cache's sequence
+    (and the data axes divide the batch, or the batch is 1 and every axis
+    together divides the sequence): the reference's rule."""
+    mesh = get_active_mesh()
+    if mesh is None or "model" not in mesh.axis_names or mesh.shape["model"] < 2:
+        return False
+    s_len = cache.k.shape[1]
+    dp_size = axes_size(mesh, batch_axes(mesh))
+    if batch % dp_size == 0:
+        return s_len % mesh.shape["model"] == 0
+    if batch == 1:
+        return s_len % (mesh.shape["model"] * dp_size) == 0
+    return False
+
+
+def decode_shards(mesh, batch: int, seq_len: int) -> list:
+    """The mesh decode's sequence shards, one :class:`CacheShard` a slot
+    in slot order: with the batch divisible by the data axes, slot (d, m)
+    holds data block d's rows and the m-th of ``model`` position ranges;
+    with batch 1, the slots split the positions over every axis,
+    row-major (the reference's ``axis_index`` sum)."""
+    dp_size, model = axes_size(mesh, batch_axes(mesh)), int(mesh.shape["model"])
+    out = []
+    for flat, slot in enumerate(mesh):  # row-major: model is the fastest axis
+        if batch % dp_size == 0:
+            (d, m), rows, span = divmod(flat, model), batch // dp_size, seq_len // model
+            out.append(CacheShard(slot, d * rows, (d + 1) * rows, m * span, (m + 1) * span))
+        else:
+            span = seq_len // (model * dp_size)
+            out.append(CacheShard(slot, 0, 1, flat * span, (flat + 1) * span))
+    return out
+
+
+def _flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, cache: KVCache,
+                  window: Optional[int]) -> torch.Tensor:
+    """Split-K single-token decode over the ambient mesh's sequence
+    shards (:func:`decode_shards`): q (B, 1, H, D), k_new and v_new
+    (B, 1, Hkv, D) → (B, 1, H, D); the cache is written in place and its
+    ``length`` advanced.
+
+    Per shard, in the reference's order: (a) the new keys and values are
+    written iff ``length`` falls in the shard (an int8 cache's codes and
+    scales by :func:`_quantize`); (b) the decode variant's split kernel
+    (``flash_decode_partials``) runs over the shard's keys that the query
+    sees, ``max(start, length - window + 1)`` … ``min(end, length + 1)``
+    (an int8 shard dequantized over just those), and a shard with none
+    launches nothing; (c) the shards' fp32 partials (max, sum,
+    accumulator) are concatenated on the first slot's device in shard
+    order and merged by one combine (:func:`_merge_partials`):
+    ``m = max m_i``, ``l = Σ l_i e^{m_i − m}``,
+    ``out = Σ acc_i e^{m_i − m} / l``, the reference's ``pmax``/``psum``."""
+    mesh = get_active_mesh()
+    b, _, h, d = q.shape
+    s_len, hkv = cache.k.shape[1], cache.k.shape[2]
+    length = cache.length
+    if length >= s_len:
+        raise ValueError(f"KV cache of {s_len} positions is full at {length} + 1")
+    quantized = cache.k_scale is not None
+    if quantized:
+        (k_new, k_sc), (v_new, v_sc) = _quantize(k_new), _quantize(v_new)
+    parts = []
+    for shard in decode_shards(mesh, b, s_len):
+        if shard.slot.device != cache.k.device:
+            raise ValueError(f"the mesh decode keeps the cache on one device: slot "
+                             f"{shard.slot.id} is on {shard.slot.device}, the cache on "
+                             f"{cache.k.device}")
+        rows = slice(shard.row0, shard.row1)
+        if shard.pos0 <= length < shard.pos1:  # (a)
+            cache.k[rows, length] = k_new[rows, 0]
+            cache.v[rows, length] = v_new[rows, 0]
+            if quantized:
+                cache.k_scale[rows, length] = k_sc[rows, 0]
+                cache.v_scale[rows, length] = v_sc[rows, 0]
+        lo = max(shard.pos0, length - window + 1) if window is not None else shard.pos0
+        hi = min(shard.pos1, length + 1)
+        if hi <= lo:  # (b): no key of this shard is visible
+            continue
+        if quantized:
+            k = _dequantize(cache.k[rows, lo:hi], cache.k_scale[rows, lo:hi], q.dtype)
+            v = _dequantize(cache.v[rows, lo:hi], cache.v_scale[rows, lo:hi], q.dtype)
+        else:
+            k, v = cache.k[rows, lo:hi].to(q.dtype), cache.v[rows, lo:hi].to(q.dtype)
+        ml, acc = flash_decode_partials(q[rows].transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2))
+        parts.append((shard.row0, ml, acc))
+    cache.length = length + 1
+    out = _merge_partials(parts, (b, h, hkv, d), q.dtype, mesh[0].device)
+    return out.transpose(1, 2)
+
+
+def _merge_partials(parts, dims, dtype: torch.dtype, device) -> torch.Tensor:
+    """(c) of :func:`_flash_decode`: ``parts`` (first row, ml, acc) in
+    shard order; each row block's shards concatenated along the split
+    axis, the row blocks along the (batch, KV head) axis, on ``device``,
+    and merged by one combine into (B, H, 1, D)."""
+    b, h, hkv, d = dims
+    blocks = {}
+    for row0, ml, acc in parts:
+        blocks.setdefault(row0, []).append((ml.to(device), acc.to(device)))
+    ml = torch.cat([torch.cat([m for m, _ in blocks[r]], dim=1) for r in sorted(blocks)])
+    acc = torch.cat([torch.cat([a for _, a in blocks[r]], dim=1) for r in sorted(blocks)])
+    return flash_decode_combine(ml, acc, (b, h, hkv, 1, d), dtype)
 
 
 def _activate(g: torch.Tensor, act: str) -> torch.Tensor:
@@ -263,7 +384,9 @@ class MoE(nn.Module):
     n_experts) and gated experts, ``up`` and ``gate`` (E, d_model,
     d_expert) and ``down`` (E, d_expert, d_model), in the activation
     dtype.  ``routing`` holds the last call's :class:`Routing` (device
-    tensors: the serving launcher counts the dropped slots from it)."""
+    tensors: the serving launcher counts the dropped slots from it).
+    Under a mesh, :meth:`slot_experts` places each model slot's experts
+    on its slot's device."""
 
     def __init__(self, d_model: int, d_expert: int, n_experts: int, top_k: int,
                  capacity_factor: float, act: str, dtype, device):
@@ -278,6 +401,7 @@ class MoE(nn.Module):
         self.gate = frozen_param((n_experts, d_model, d_expert), dtype, device)
         self.down = frozen_param((n_experts, d_expert, d_model), dtype, device)
         self.routing: Optional[Routing] = None
+        self._placed = {}
 
     def reset(self, generator: torch.Generator) -> None:
         """``moe_init``'s experts: ``up`` and ``gate`` ~ N(0, 1) ·
@@ -289,10 +413,34 @@ class MoE(nn.Module):
             for e in range(w.shape[0]):
                 w[e].copy_(torch.randn(w.shape[1:], generator=generator, device=w.device) * scale)
 
+    def slot_experts(self, m: int, n_model: int, device: torch.device) -> "ExpertShard":
+        """The experts of model slot ``m`` of ``n_model``, ``[m·E/M,
+        (m+1)·E/M)``, on ``device``: views of the weights where they lie
+        there (one card: nothing moves), else copies placed there at the
+        first call and kept."""
+        e_loc = self.up.shape[0] // n_model
+        sl = slice(m * e_loc, (m + 1) * e_loc)
+        if torch.device(device) == self.up.device:
+            return ExpertShard(self.up[sl], self.gate[sl], self.down[sl])
+        key = (m, n_model, torch.device(device))
+        if key not in self._placed:
+            self._placed[key] = ExpertShard(*(w[sl].to(device)
+                                              for w in (self.up, self.gate, self.down)))
+        return self._placed[key]
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (T, d_model) flattened tokens → (out (T, d_model), aux loss)."""
         out, aux, self.routing = moe_apply(self, x, self.top_k, self.capacity_factor, self.act)
         return out, aux
+
+
+class ExpertShard(NamedTuple):
+    """One model slot's experts: ``up``, ``gate`` (E/M, d_model, d_expert)
+    and ``down`` (E/M, d_expert, d_model)."""
+
+    up: torch.Tensor
+    gate: torch.Tensor
+    down: torch.Tensor
 
 
 class Routing(NamedTuple):
@@ -315,14 +463,117 @@ def top_k_routing(probs: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.
     return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
 
 
-def _expert_ffn(moe: MoE, xe: torch.Tensor, act: str) -> torch.Tensor:
-    """The experts' gated MLPs as batched products: xe (E, C, d) → (E, C, d)."""
-    h = _activate(torch.bmm(xe, moe.gate.to(xe.dtype)), act) * torch.bmm(xe, moe.up.to(xe.dtype))
-    return torch.bmm(h, moe.down.to(xe.dtype))
+def _expert_ffn(experts, xe: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated MLPs of ``experts`` (a :class:`MoE` or an
+    :class:`ExpertShard`) as batched products: xe (E, C, d) → (E, C, d)."""
+    h = (_activate(torch.bmm(xe, experts.gate.to(xe.dtype)), act)
+         * torch.bmm(xe, experts.up.to(xe.dtype)))
+    return torch.bmm(h, experts.down.to(xe.dtype))
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
               act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor, Routing]:
+    """MoE FFN: x (T, d) → (out (T, d), the Switch aux loss (0-dim
+    float32), the :class:`Routing`).  Under an ambient mesh whose
+    ``model`` axis has 2 slots or more and divides the experts, with the
+    data axes dividing the tokens, the expert-parallel
+    :func:`_moe_apply_sharded` (the reference's condition); otherwise the
+    single-device :func:`_moe_apply_dense`."""
+    mesh = get_active_mesh()
+    if (mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1
+            and moe.up.shape[0] % mesh.shape["model"] == 0
+            and x.shape[0] % axes_size(mesh, batch_axes(mesh)) == 0):
+        return _moe_apply_sharded(moe, x, top_k, capacity_factor, act, mesh)
+    return _moe_apply_dense(moe, x, top_k, capacity_factor, act)
+
+
+def _combine_slots(ye_flat: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,
+                   order: torch.Tensor, sg: torch.Tensor, t: int, top_k: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The gated expert outputs added back to their tokens: the JAX
+    scatter-add, taken as a sum over each token's k slots in token order
+    (``index_add_`` on the card takes atomics, this a fixed order)."""
+    n = ye_flat.shape[0]
+    contrib = torch.where(keep[:, None], ye_flat[torch.clamp(slot, max=n - 1)] * sg[:, None], 0.0)
+    by_token = torch.empty_like(contrib, dtype=dtype)
+    by_token[order] = contrib.to(dtype)
+    return by_token.view(t, top_k, -1).sum(dim=1)
+
+
+def _moe_apply_sharded(moe: MoE, x: torch.Tensor, top_k: int, capacity_factor: float,
+                       act: str, mesh) -> Tuple[torch.Tensor, torch.Tensor, Routing]:
+    """The JAX ``_moe_apply_sharded``: expert parallelism over the mesh's
+    ``model`` axis, tokens split over its data axes.
+
+    Per data shard of ``t_loc = T / dp`` tokens the router runs as
+    ``x_loc @ router`` (float32 logits, softmax, top-k, renormalised
+    gates), once for all of its model slots (the reference computes the
+    same on each).  Model slot m owns experts ``[m·E/M, (m+1)·E/M)``
+    (:meth:`MoE.slot_experts`): its (token, k) pairs routed elsewhere go to
+    the drop group E/M, the pairs are stably sorted by local expert and
+    ranked by ``searchsorted``, each expert keeps at most ``capacity =
+    max(8, ⌈int(cf·t_loc·k/E) / 8⌉·8)`` of them, the slot's products run on
+    its own device and its gated outputs are added back to their tokens.
+    The slots' outputs are summed on the data shard's first slot's device
+    (:func:`_sum_slots`: the reference's ``psum`` over ``model``).  The aux
+    loss is each data shard's, averaged over the data shards."""
+    t, d = x.shape
+    e = moe.router.kernel.shape[1]
+    n_model = int(mesh.shape["model"])
+    e_loc = e // n_model
+    dp_size = axes_size(mesh, batch_axes(mesh))
+    t_loc = t // dp_size
+    capacity = max(8, -(-int(capacity_factor * t_loc * top_k / e) // 8) * 8)
+    outs, auxes, experts_all, kept_all = [], [], [], []
+    for di in range(dp_size):
+        x_loc = x[di * t_loc:(di + 1) * t_loc]
+        probs = torch.softmax((x_loc @ moe.router.kernel.to(x.dtype)).float(), dim=-1)
+        gates, experts = top_k_routing(probs, top_k)
+        flat_e = experts.reshape(-1)  # (t_loc * k,), token-major
+        ce = torch.zeros(e, device=x.device).index_add_(
+            0, flat_e, torch.ones_like(flat_e, dtype=torch.float32)) / (t_loc * top_k)
+        auxes.append(e * torch.sum(probs.mean(dim=0) * ce))
+        flat_g = gates.reshape(-1)
+        kept = torch.zeros_like(flat_e, dtype=torch.bool)
+        slot_outs = []
+        for m in range(n_model):
+            dev = mesh[di * n_model + m].device  # slots row-major, model last
+            fe, fg, xs = flat_e.to(dev), flat_g.to(dev), x_loc.to(dev)
+            lo = m * e_loc
+            local = (fe >= lo) & (fe < lo + e_loc)
+            le = torch.where(local, fe - lo, e_loc)  # e_loc: the drop group
+            order = torch.sort(le, stable=True).indices
+            se, st, sg = le[order], order // top_k, fg[order]
+            start = torch.searchsorted(se, torch.arange(e_loc, device=dev), side="left")
+            rank = torch.arange(t_loc * top_k, device=dev) - start[torch.clamp(se, max=e_loc - 1)]
+            keep = (se < e_loc) & (rank < capacity)
+            slot = torch.where(keep, se * capacity + rank, e_loc * capacity)
+            buf = xs.new_zeros((e_loc * capacity + 1, d))
+            buf[slot] = xs[st]
+            ye = _expert_ffn(moe.slot_experts(m, n_model, dev),
+                             buf[:e_loc * capacity].view(e_loc, capacity, d), act)
+            slot_outs.append(_combine_slots(ye.reshape(e_loc * capacity, d), keep, slot, order,
+                                            sg, t_loc, top_k, x.dtype))
+            kept_m = torch.empty_like(keep)
+            kept_m[order] = keep
+            kept |= kept_m.to(x.device)
+        outs.append(_sum_slots(slot_outs, mesh[di * n_model].device).to(x.device))
+        experts_all.append(experts)
+        kept_all.append(kept.view(t_loc, top_k))
+    return (torch.cat(outs), sum(auxes) / dp_size,
+            Routing(torch.cat(experts_all), torch.cat(kept_all)))
+
+
+def _sum_slots(outs, device) -> torch.Tensor:
+    """The model slots' outputs summed on ``device``, in slot order."""
+    total = outs[0].to(device)
+    for o in outs[1:]:
+        total = total + o.to(device)
+    return total
+
+
+def _moe_apply_dense(moe: MoE, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
+                     act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor, Routing]:
     """The JAX ``_moe_apply_dense`` (GShard dispatch): x (T, d) →
     (out (T, d), the Switch aux loss (0-dim float32), the
     :class:`Routing`).
@@ -359,11 +610,7 @@ def moe_apply(moe: MoE, x: torch.Tensor, top_k: int, capacity_factor: float = 1.
     buf = x.new_zeros((e * capacity + 1, d))
     buf[slot] = x[st]
     ye = _expert_ffn(moe, buf[:e * capacity].view(e, capacity, d), act)
-    ye_flat = ye.reshape(e * capacity, d)
-    contrib = torch.where(keep[:, None],
-                          ye_flat[torch.clamp(slot, max=e * capacity - 1)] * sg[:, None], 0.0)
-    by_token = torch.empty_like(contrib, dtype=x.dtype)
-    by_token[order] = contrib.to(x.dtype)
+    out = _combine_slots(ye.reshape(e * capacity, d), keep, slot, order, sg, t, top_k, x.dtype)
     kept = torch.empty_like(keep)
     kept[order] = keep
-    return by_token.view(t, top_k, d).sum(dim=1), aux, Routing(experts, kept.view(t, top_k))
+    return out, aux, Routing(experts, kept.view(t, top_k))

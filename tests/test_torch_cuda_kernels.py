@@ -696,3 +696,82 @@ def test_moe_apply_on_the_card_equals_its_cpu_run(cuda_device, t, d, f, e, top_k
     # the card's dispatch adds in a fixed order: a second run is bit-equal
     again, _, again_r = L.moe_apply(card, x.to(cuda_device), top_k, cf)
     assert torch.equal(again, got) and torch.equal(again_r.keep, got_r.keep)
+
+
+# The mesh decode (``layers._flash_decode``) on slots of the card: (mesh
+# dims, batch, cache positions, H, Hkv, D, dtype, int8 cache, length,
+# window).  Shards after the query's hold no visible key, and with a
+# window so do those wholly before it; one case writes on a shard boundary.
+MESH_DECODE_CASES = [((1, 4), 4, 64, 8, 4, 128, torch.bfloat16, False, 37, None),
+                     ((1, 4), 4, 64, 8, 1, 128, torch.bfloat16, True, 40, 20),
+                     ((2, 4), 4, 64, 4, 4, 64, torch.float32, False, 32, None),
+                     ((2, 4), 1, 64, 16, 2, 128, torch.bfloat16, True, 50, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,b,s,h,hkv,d,dtype,quantized,length,window", MESH_DECODE_CASES)
+def test_mesh_decode_on_the_card_equals_its_plain_version(cuda_device, dims, b, s, h, hkv, d,
+                                                          dtype, quantized, length, window):
+    """The split kernel once per shard with visible keys and one combine.
+    The output within ``FLASH_TOL`` of the plain attention in float32 over
+    the visible prefix of its own cache as the layer reads it (an int8
+    cache dequantized to the activation dtype), as is the same function's
+    plain version on CPU slots; the cache written as that plain version
+    writes it.  An int8 scale may lie one unit in the last place from the
+    plain version's (on the card PyTorch takes ``amax / 127.0``, a
+    division by a host scalar, as a multiply by its reciprocal); a row
+    whose scale is equal has equal codes, one with a scale 1 ulp apart
+    codes within one step."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist.fault_tolerance import ElasticMesh
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(length)
+    q, kn, vn = (torch.randn((b, 1, n, d), generator=gen).to(dtype) for n in (h, hkv, hkv))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen).to(dtype) for _ in range(2))
+    caches = {}
+    for where, dev in (("card", cuda_device), ("plain", "cpu")):
+        if quantized:
+            (kq, ks), (vq, vs) = L._quantize(k), L._quantize(v)
+            caches[where] = L.KVCache(kq.to(dev), vq.to(dev), ks.to(dev), vs.to(dev), length)
+        else:
+            caches[where] = L.KVCache(k.to(dev), v.to(dev), length=length)
+    visible = sum(min(p1, length + 1) > max(p0, length - window + 1 if window else p0)
+                  for _, _, _, p0, p1 in L.decode_shards(
+                      ElasticMesh(dims[1]).remesh(["cpu"] * (dims[0] * dims[1])), b, s))
+    try:
+        sh.set_mesh(ElasticMesh(dims[1]).remesh([cuda_device] * (dims[0] * dims[1])))
+        assert L._flash_decode_applicable(caches["card"], b)
+        B.reset_launch_counts()
+        got = L._flash_decode(q.to(cuda_device), kn.to(cuda_device), vn.to(cuda_device),
+                              caches["card"], window)
+        torch.cuda.synchronize()
+        launches = {n: B.LAUNCHES[n] for n in FLASH_VARIANTS}
+        sh.set_mesh(ElasticMesh(dims[1]).remesh(["cpu"] * (dims[0] * dims[1])))
+        plain = L._flash_decode(q, kn, vn, caches["plain"], window)
+    finally:
+        sh.set_mesh(None)
+    assert 0 < visible < dims[0] * dims[1]
+    assert launches == {"flash_attention_decode": visible, "flash_attention_combine": 1,
+                        "flash_attention_sm90": 0, "flash_attention_general": 0}
+    for name, out in (("card", got), ("plain", plain)):
+        keys, values = L.cache_read(caches[name], dtype)
+        want = attention_ref(q.float().transpose(1, 2).to(out.device),
+                             keys.float().transpose(1, 2), values.float().transpose(1, 2),
+                             causal=True, window=window)
+        try:
+            flash_close(out.transpose(1, 2), want)
+        except AssertionError as exc:
+            raise AssertionError(f"the {name} mesh decode: {exc}") from exc
+    card, plain_cache = caches["card"], caches["plain"]
+    assert card.length == plain_cache.length == length + 1
+    if not quantized:
+        assert torch.equal(card.k.cpu(), plain_cache.k) and torch.equal(card.v.cpu(), plain_cache.v)
+        return
+    for codes, scale in (("k", "k_scale"), ("v", "v_scale")):
+        a, w = getattr(card, scale).cpu(), getattr(plain_cache, scale)
+        same = a == w
+        torch.testing.assert_close(a, w, rtol=2**-23, atol=0)  # 1 ulp at most
+        ca, cw = getattr(card, codes).cpu().int(), getattr(plain_cache, codes).int()
+        assert torch.equal(ca[same], cw[same]), codes
+        assert int((ca - cw).abs().max()) <= 1, codes

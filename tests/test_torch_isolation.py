@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package (every module under ``src/repro_torch``, the recsys models and
-``serve/retrieval.py`` among them), and it never picks the CPU on its
-own."""
+package (every module under ``src/repro_torch``, the recsys models,
+``serve/retrieval.py`` and the model axis's modules among them), and it
+never picks the CPU on its own, a mesh's slots included."""
 
 import ast
 import os
@@ -43,6 +43,29 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         timeout=300, check=True,
     )
     assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+def test_the_model_axis_modules_are_among_those_checked():
+    mods = _port_modules()
+    for m in ("repro_torch.dist.fault_tolerance", "repro_torch.dist.sharding",
+              "repro_torch.models.layers", "repro_torch.models.transformer",
+              "repro_torch.configs.qwen1_5_32b", "repro_torch.configs.registry",
+              "repro_torch.kernels.flash_attention.ops", "repro_torch.launch.serve"):
+        assert m in mods, m
+
+
+def test_mesh_entry_points_without_device_raise_instead_of_using_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from repro_torch.dist.fault_tolerance import ElasticMesh
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticMesh(model_parallel=4).remesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen1.5-32b", "--mesh", "1x4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_mesh("1x4", "cuda")
 
 
 def test_no_import_of_jax_or_the_reference_in_the_source():
