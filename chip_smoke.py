@@ -58,8 +58,9 @@
    2**-8 times the plain attention of |v| on the sm90 variant, which
    rounds P to bf16), each case through the variant the launcher picks
    (``kernel.flash_route``: the bf16 tensor-core prefill ``sm90``, the
-   split-K ``decode`` with its combine, or the ``general`` kernel) and
-   read from the counters;
+   split-K ``decode`` with its combine, the fp32 ``resident`` kernel (K
+   and V of a head in shared memory; not causal, no window) or the
+   ``general`` kernel) and read from the counters;
 9. drives the LM serving path through the launcher's own functions
    (``repro_torch.launch.serve``), in the phases of ``LM_PHASES`` (run
    right after step 8, before step 4, while the card holds nothing else):
@@ -119,7 +120,7 @@
    (``P99_CALLS`` calls of 512 rows: p50, p99, rows/s, peak memory),
    ``serve_bulk`` (262,144 rows in slices of ``SERVE_SLICE_ROWS``) and
    ``retrieval_cand`` (1 query x 10⁶ candidates); BERT4Rec's attention
-   launches the ``general`` variant twice a model call, the other archs
+   launches the ``resident`` variant twice a model call, the other archs
    launch no kernel.  Then a ``torch.profiler`` window of p99 calls
    (device time from the kernels' own events, idle share), and the
    checks: ``forward`` and ``score_candidates`` against the port on the
@@ -139,9 +140,13 @@
    ``cluster_scores`` beside its first design, the ``general`` variant,
    re-timed on the same inputs), sums launches x (time - bound) over the
    search run's fold batches and over the TopDown's scoring calls (timed
-   once per shape bucket; the ``general`` variant at BERT4Rec's call
-   beside ``scaled_dot_product_attention``'s efficient backend in float32),
-   and prints one JSON line listing every kernel with its variant;
+   once per shape bucket; at BERT4Rec's call the ``resident`` variant,
+   eager and as a graph replay, beside the ``general`` kernel forced on
+   the same inputs, ``scaled_dot_product_attention``'s efficient backend
+   in float32 and the plain version, both kernels held to ``FLASH_TOL``),
+   and prints one JSON line listing every kernel with its variant (the
+   ``general`` kernel with its launches on the main path: none since the
+   resident variant took BERT4Rec's call);
 12. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
@@ -341,6 +346,8 @@ SOURCES = {
     "flash_attention_decode": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
     "flash_attention_combine": (
+        "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
+    "flash_attention_resident": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
     "flash_attention_general": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
@@ -1303,7 +1310,7 @@ def check_flash_cases(torch, dev) -> dict:
         for n, (b, h, hkv, lq, lk, d, causal, window) in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(dev, dtype, b, h, hkv, lq, lk, d, seed=n,
                                    model_layout=n % 2 == 0)
-            route = flash_route(dtype, h, hkv, lq, d)
+            route = flash_route(dtype, h, hkv, lq, lk, d, causal, window)
             before = {name: B.LAUNCHES[name] for name in FLASH_VARIANTS}
             got = flash_attention_cuda(q, k, v, causal=causal, window=window)
             took = {name: B.LAUNCHES[name] - before[name] for name in FLASH_VARIANTS}
@@ -1353,7 +1360,8 @@ class CheckedPlain:
         from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, flash_route
 
         want = attention_ref_chunked(q.float(), k.float(), v.float(), causal, window)
-        sm90 = flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], q.shape[3]) == "sm90"
+        sm90 = flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                           causal, window) == "sm90"
         extra = p_rounding_term(q, k, v, causal, window) if sm90 else None
         try:
             err, share = flash_close(flash_attention_cuda(q, k, v, causal=causal, window=window),
@@ -1509,7 +1517,7 @@ def lm_phase(torch, dev, phase: LMPhase):
     design = {"flash_attention_kernel": expected, "flash_attention_sm90": cfg.n_layers,
               "flash_attention_decode": cfg.n_layers * args.decode_steps,
               "flash_attention_combine": cfg.n_layers * args.decode_steps,
-              "flash_attention_general": 0}
+              "flash_attention_resident": 0, "flash_attention_general": 0}
     if launches != design:
         raise AssertionError(f"{phase.name}: attention launches {launches}, the design gives "
                              f"{design}")
@@ -1846,7 +1854,7 @@ def mesh_phase(torch, dev, phase: MeshPhase):
     design = {"flash_attention_kernel": cfg.n_layers, "flash_attention_sm90": cfg.n_layers,
               "flash_attention_decode": decode_design,
               "flash_attention_combine": cfg.n_layers * args.decode_steps,
-              "flash_attention_general": 0}
+              "flash_attention_resident": 0, "flash_attention_general": 0}
     if launches != design:
         raise AssertionError(f"{phase.name}: attention launches {launches}, the design gives "
                              f"{design}")
@@ -2207,7 +2215,7 @@ def flash_rows(torch, dev, launches, checked_errs):
                              model_layout=True)
                 for c in range(copies)]
         q, k, v = sets[0]
-        route = FK.flash_route(q.dtype, h, hkv, lq, d)
+        route = FK.flash_route(q.dtype, h, hkv, lq, lk, d, True, window)
         got = FK.flash_attention_cuda(q, k, v, causal=True, window=window)
         extra = p_rounding_term(q, k, v, True, window) if route == "sm90" else None
         want = attention_ref_chunked(q.float(), k.float(), v.float(), True, window)
@@ -2571,11 +2579,14 @@ def score_filtered(torch, dev, model, query, filt: dict, cands: np.ndarray,
                                  f"top 10 of the unfiltered scores on the exact set")
 
 
-def general_row(torch, launches, q, k, v) -> dict:
-    """The ``general`` variant at BERT4Rec's call (the first bulk slice's
-    first block: q, k, v as the model handed them): eager and graph ms
-    against the bound, the plain version and SDPA (float32, not causal,
-    its efficient backend: its flash backend takes no float32)."""
+def bert4rec_attention_rows(torch, launches, q, k, v) -> tuple:
+    """BERT4Rec's attention call (the first bulk slice's first block: q, k,
+    v as the model handed them) through the ``resident`` variant the route
+    takes and the ``general`` kernel forced on the same inputs: each held
+    to ``FLASH_TOL`` of the plain version, eager and graph ms against the
+    bound, beside the plain version and SDPA (float32, not causal, its
+    efficient backend: its flash backend takes no float32), all timed in
+    this one call.  Returns the two rows (resident, general)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2584,9 +2595,18 @@ def general_row(torch, launches, q, k, v) -> dict:
 
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    got = FK.flash_attention_cuda(q, k, v, causal=False)
+    if FK.flash_route(q.dtype, h, k.shape[1], lq, lk, d, False, None) != "resident":
+        raise AssertionError("bert4rec's attention call does not take the resident variant")
     want = attention_ref_chunked(q.float(), k.float(), v.float(), False)
-    err, share = flash_close(got, want)
+    kernels = {name: (lambda name=name: FK.flash_attention_cuda(q, k, v, causal=False,
+                                                                variant=name))
+               for name in ("resident", "general")}
+    errs = {}
+    for name, fn in kernels.items():
+        try:
+            errs[name] = flash_close(fn(), want)
+        except AssertionError as exc:
+            raise AssertionError(f"flash_attention_{name} at bert4rec's call: {exc}") from exc
 
     def library():
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -2594,23 +2614,28 @@ def general_row(torch, launches, q, k, v) -> dict:
 
     assert_close_tol("scaled_dot_product_attention (efficient, fp32) yardstick", library(),
                      want, LIBRARY_TOL)
-    del got, want
-    kernel = lambda: FK.flash_attention_cuda(q, k, v, causal=False)  # noqa: E731
+    del want
     ops = 4 * b * h * d * lq * lk
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + q.numel())
     bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return {
+    # In turns on the same inputs: resident, general, general, resident.
+    ms = {name: [] for name in kernels}
+    for name in ("resident", "general", "general", "resident"):
+        ms[name].append(time_ms(kernels[name], reps=10))
+    device_ms = {name: graph_ms(fn, reps=10) for name, fn in kernels.items()}
+    shared = {
         "shape": f"bert4rec serve_bulk slice: q, k, v ({b}, {h}, {lq}, {d}) fp32, not causal",
-        "variant": "general", "ops": ops, "bytes": nbytes, "max_abs_err": err,
-        "share_of_limit": share, "ms": time_ms(kernel, reps=10),
-        "device_ms": graph_ms(kernel, reps=10),
+        "ops": ops, "bytes": nbytes,
         "plain_ms": time_ms(lambda: attention_ref_chunked(q, k, v, False), reps=1, warmup=1),
         "library_ms": time_ms(library, reps=10), "library_device_ms": graph_ms(library, reps=10),
         "library_call": "scaled_dot_product_attention, EFFICIENT_ATTENTION backend, fp32",
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": max(bytes_ms, ops_ms), "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "launches": int(launches),
     }
+    return tuple(dict(shared, variant=name, max_abs_err=errs[name][0],
+                      share_of_limit=errs[name][1], ms=sum(ms[name]) / 2, ms_turns=ms[name],
+                      device_ms=device_ms[name], launches=int(launches[f"flash_attention_{name}"]))
+                 for name in ("resident", "general"))
 
 
 def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
@@ -2623,8 +2648,8 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
     window and the checks (the CPU port on the first rows and candidates,
     BERT4Rec's attention at every p99 call and the first bulk slice and
     its plain route, the slicing, the filtered top 10).  Returns its
-    report, the attention launches and (BERT4Rec) the general variant's
-    row."""
+    report, the attention launches and (BERT4Rec) the rows of the resident
+    variant and the general kernel at its attention call."""
     from _torch_parity import FLASH_VARIANTS
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import build as B
@@ -2680,7 +2705,7 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
         model_calls = 1 + P99_CALLS + slices + 1 + RETRIEVAL_CALLS
         per = cfg.n_blocks * model_calls
         design = {n: 0 for n in counted}
-        design.update(flash_attention_kernel=per, flash_attention_general=per)
+        design.update(flash_attention_kernel=per, flash_attention_resident=per)
     else:
         design = {n: 0 for n in counted}
     if launches != design:
@@ -2704,7 +2729,7 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
                 "bulk_head_vs_p99": recsys_close(f"{name} serve_bulk's first rows vs serve_p99",
                                                  bulk_scores[:p99_rows], p99_scores)}
         del cpu_model
-        row = None
+        rows = None
         attention = {}
         if name == "bert4rec":
             checked = CheckedKernel(L.attention)
@@ -2727,8 +2752,7 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
         score_filtered(torch, dev, model, query, filt, cands.cpu().numpy(),
                        full[0].cpu().numpy())
         if name == "bert4rec":
-            row = general_row(torch, launches["flash_attention_general"],
-                              *checked_bulk.inputs)
+            rows = bert4rec_attention_rows(torch, launches, *checked_bulk.inputs)
             del checked_bulk
     call_ms_sorted = sorted(call_ms)
     out = {
@@ -2769,7 +2793,7 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
              f"{attention['bulk_slice_share']:.3g} of FLASH_TOL at p99 / the first bulk slice"),
           flush=True)
     del model, bulk, p99, query, cands, full, bulk_scores
-    return out, launches, row
+    return out, launches, rows
 
 
 def kernel_entry(name, launches, rows, variant):
@@ -2838,12 +2862,12 @@ def main() -> int:
     # filters' survivors).
     t0 = time.perf_counter()
     filt = filtered_retrieval_setup(torch)
-    recsys, general = {}, None
+    recsys, bert4rec_rows = {}, None
     for name in RECSYS_ARCHS:
-        recsys[name], phase_launches, row = recsys_phase(torch, dev, name, filt)
+        recsys[name], phase_launches, rows = recsys_phase(torch, dev, name, filt)
         for n, c in phase_launches.items():
             launches[n] = launches.get(n, 0) + c
-        general = row or general
+        bert4rec_rows = rows or bert4rec_rows
         torch.cuda.empty_cache()
     for row in filt["filters"]:
         print(f"filter {row['label']} {tuple(row['attrs'])}: scoring the {row['n_filtered']} "
@@ -2920,8 +2944,16 @@ def main() -> int:
     staged = kernel_entry("cluster_scores_staged", launches, scores["shapes"][:1], variant="staged")
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
     kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
-               *flash_rows(torch, dev, launches, flash_errs),
-               kernel_entry("flash_attention_general", launches, [general], variant="general")]
+               *flash_rows(torch, dev, launches, flash_errs)]
+    for row in bert4rec_rows:  # the resident variant, then the general kernel
+        entry = kernel_entry(f"flash_attention_{row['variant']}", launches, [row],
+                             variant=row["variant"])
+        entry["device_ms"] = row["device_ms"]
+        kernels.append(entry)
+    checked = recsys["bert4rec"]["attention"]  # every call of the phase's checks
+    kernels[-2]["max_abs_err"] = max(kernels[-2]["max_abs_err"], checked["p99_max_abs_err"],
+                                     checked["bulk_slice_max_abs_err"])
+    by_name = {k["name"]: k for k in kernels}
     for k in kernels:  # the search kernels' launches on the sharded path too
         if k["name"] in tier["sharded_launches"]:
             k["sharded_launches"] = tier["sharded_launches"][k["name"]]
@@ -2952,7 +2984,7 @@ def main() -> int:
           f"ms (general, the first design: {score_excess['general']:.3f} ms, device "
           f"{score_excess['general_device']:.3f} ms)", flush=True)
     kmeans["score_buckets"], kmeans["score_excess_ms"] = buckets, score_excess
-    for row in kernels[-5]["shapes"]:
+    for row in by_name["flash_attention_kernel"]["shapes"]:
         print(f"flash_attention_kernel {row['shape']} [{row['variant']}]: ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
               f"({row['library_call']}) library_mask_ms={row['library_mask_ms']:.4f} "
@@ -2963,13 +2995,16 @@ def main() -> int:
               f"visible_pairs={row['visible_pairs']} max_abs_err={row['max_abs_err']:.3g} "
               f"({row['share_of_limit']:.3g} of the limit)",
               flush=True)
-    print(f"flash_attention_general {general['shape']}: ms={general['ms']:.4f} "
-          f"device_ms={general['device_ms']:.4f} plain_ms={general['plain_ms']:.4f} "
-          f"library_ms={general['library_ms']:.4f} (device {general['library_device_ms']:.4f}; "
-          f"{general['library_call']}) bound_ms={general['bound_ms']:.5f} "
-          f"({general['bound_by']}) max_abs_err={general['max_abs_err']:.3g} "
-          f"({general['share_of_limit']:.3g} of the limit)", flush=True)
-    for entry in kernels[-3:-1]:
+    for row in bert4rec_rows:
+        print(f"flash_attention_{row['variant']} {row['shape']}: launches={row['launches']} "
+              f"ms={row['ms']:.4f} (turns {'/'.join(f'{t:.4f}' for t in row['ms_turns'])}) "
+              f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (device {row['library_device_ms']:.4f}; "
+              f"{row['library_call']}) bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
+              f"bytes {row['bytes_bound_ms']:.5f}, operations {row['ops_bound_ms']:.5f}) "
+              f"max_abs_err={row['max_abs_err']:.3g} ({row['share_of_limit']:.3g} of the limit)",
+              flush=True)
+    for entry in (by_name["flash_attention_decode"], by_name["flash_attention_combine"]):
         for row in entry["shapes"]:
             print(f"{entry['name']} {row['shape']}: ms={row['ms']:.4f} "
                   f"device_ms={row['device_ms']:.4f} "

@@ -1,12 +1,15 @@
 // flash_attention: forward attention with an online softmax, causal and
-// sliding-window masks, GQA.  Two of the port's three attention kernels:
-// the general kernel `flash_attention_kernel` and the decode variant
-// `flash_decode_kernel` with its `flash_combine_kernel` (below); the
-// prefill variant is csrc/flash_attention_sm90.cu.  The launcher in
+// sliding-window masks, GQA.  Three of the port's four attention kernels:
+// the general kernel `flash_attention_kernel`, the resident variant
+// `flash_resident_kernel` and the decode variant `flash_decode_kernel`
+// with its `flash_combine_kernel` (below); the prefill variant is
+// csrc/flash_attention_sm90.cu.  The launcher in
 // kernels/flash_attention/kernel.py picks one by dtype and shape:
 //   - decode: Lq·(H/Hkv) <= 8 and D·itemsize a multiple of 16 bytes
 //     (fp32 or bf16);
 //   - sm90 prefill: bf16 with D in {64, 128, 256} otherwise;
+//   - resident: fp32, not causal, no window, D a multiple of 4 up to 64,
+//     and K and V of one (batch, KV head) within shared memory;
 //   - general: everything else (fp32 at long Lq, other D).
 //
 // Replaces the Pallas kernel `flash_attention_kernel` (body `_kernel`) of
@@ -318,6 +321,357 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return launch_t<__nv_bfloat16>(q, k, v, o, b, h, hkv, lq, lk, d, st,
                                    causal, has_window, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------
+// The resident variant: fp32, not causal, no window (BERT4Rec's
+// bidirectional encoder: Lq = Lk = 200, D = 32, B·H = 65,536 a slice).
+//
+// What held the general kernel back there: its blocks of 16 query rows
+// restage all keys and values of the head, 13 blocks a head at Lq = 200,
+// its scores and P·V run on the fp32 CUDA cores, and its P·V broadcasts
+// every probability with a shuffle per key and row.
+//
+// Layout.  One block of FR_WARPS warps per (batch, KV head, query chunk);
+// the launcher makes the chunk the whole of Lq unless B·Hkv is too small
+// to fill the card.  K and V of the head are copied once into shared
+// memory with 16-byte cp.async copies, as fp32 rows of DP = D rounded up
+// to 32 (zeros past D; zero rows up to a multiple of 8 keys), each row's
+// 16-byte pieces XOR-swizzled within groups of 8 (piece c of row r sits
+// at c ^ (r & 7)), so that the fragment loads below hit 32 distinct banks
+// at offsets each lane computes once.  The warps then walk the
+// block's query rows (every query head of the group) in tiles of
+// FR_ROWS = 16; a warp's Q tile lives in registers as mma fragments.
+//
+// Arithmetic: TF32 tensor cores (mma.sync.m16n8k8) in the 3xTF32 split,
+// the softmax in fp32.  Each fp32 operand x is split into x_hi =
+// tf32(x) (round to nearest, ties away) and x_lo = x - x_hi cut to TF32,
+// and a product a·b is taken as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with
+// fp32 sums: the dropped a_lo·b_lo (2^-22 of |a·b|) and the cut of the lo
+// parts (below 2^-21) keep the error near that of fp32 FMA.  Scores: Q (pre-multiplied by
+// scale·log2 e) times K^T, 8 keys an mma, FR_KEYS = 32 keys a chunk.
+// Softmax: online over the chunks, as the other kernels, in base 2: the
+// running max m of each row (an xor shuffle over the row's 4 lanes), the
+// sum l (per lane, summed once at the end), p = exp2(s - m) (one MUFU
+// ex2.approx, relative error about 2^-22); keys past Lk get p = 0.  P·V: the mma's score fragment is the A fragment of the
+// next mma when the k index kk of P·V runs over the 8 keys in the order
+// (0, 2, 4, 6, 1, 3, 5, 7): lane (g, t) holds p of keys 2t and 2t + 1 of
+// rows g and g + 8, which are A's (g, t), (g, t + 4), (g + 8, t),
+// (g + 8, t + 4) under that order; V's rows are read in the same order.
+// So P never leaves the registers.  The end divides by max(l, 1e-30),
+// as the file's contract says.
+//
+// What bounds it on an H100: the operations (4·D per (query, key) pair)
+// over the bytes (q, k, v and o once), at BERT4Rec's call 5.0 ms on the
+// fp32 CUDA cores (67 TFLOP/s) against 2.0 ms; the three TF32 products
+// run on the tensor cores (495 TFLOP/s dense) instead.
+// ---------------------------------------------------------------------
+
+#define FR_WARPS 4
+#define FR_THREADS (FR_WARPS * 32)
+#define FR_ROWS 16            // query rows of a warp's tile: the mma's M
+#define FR_KEYS 32            // keys of a chunk: 4 mma tiles of 8
+#define FR_MAX_SMEM 232448    // an H100 block's opt-in shared memory
+#define FR_LOG2E 1.4426950408889634f
+
+struct FrParams {
+  int h, groups, lq, lk, d, q_chunk;
+  int64_t sq[3], sk[3], sv[3], so[3];  // strides in elements: batch, head, position
+  float scale_log2;                    // scale · log2(e)
+  int64_t bh0;                         // the first (batch, KV head) of this launch
+};
+
+// Piece c (16 bytes) of row r: swizzled within its group of 8 pieces.
+__device__ __forceinline__ int fr_swz(int r, int c) { return (c & ~7) | ((c ^ r) & 7); }
+
+// Element (r, col) of a swizzled [rows][dp] array.
+__device__ __forceinline__ int fr_at(int r, int col, int dp) {
+  return r * dp + fr_swz(r, col >> 2) * 4 + (col & 3);
+}
+
+// One 16-byte copy into shared memory; zeros where `full` is false (the
+// source is then not read, but stays a valid address).
+__device__ __forceinline__ void fr_cp16(float* dst, const float* src, bool full) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = full ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void fr_cp_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: what cvt.rna.tf32.f32 gives for finite x, in two integer
+// operations at the full rate (the conversion runs at a quarter of it).
+__device__ __forceinline__ uint32_t fr_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The 3xTF32 split of x: hi = tf32(x), lo = x - hi (exact in fp32, at most
+// 2^-11 of |x|) cut to TF32 by dropping its low 13 bits: that moves lo by
+// less than 2^-21 of |x|, and costs one operation.
+__device__ __forceinline__ void fr_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = fr_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a·b: one m16n8k8 TF32 product on the tensor cores, fp32 sums.
+__device__ __forceinline__ void fr_mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b in the 3xTF32 split, the small terms first.
+__device__ __forceinline__ void fr_mma3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                        float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  fr_split(b0, b0h, b0l);
+  fr_split(b1, b1h, b1l);
+  fr_mma(c, a_lo, b0h, b1h);
+  fr_mma(c, a_hi, b0l, b1l);
+  fr_mma(c, a_hi, b0h, b1h);
+}
+
+// 2^x in one MUFU operation (ex2.approx: relative error about 2^-22;
+// results below the smallest normal float are 0).
+__device__ __forceinline__ float fr_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K and V as [lk rounded up to 8][dp] fp32 each.
+static size_t fr_smem_bytes(int64_t lk, int dp) {
+  return sizeof(float) * (size_t)2 * ((lk + 7) / 8 * 8) * dp;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(FR_THREADS)
+flash_resident_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, FrParams p) {
+  constexpr int DP = NC * 32;  // D padded to a multiple of 32 with zeros
+  constexpr int NCH = DP / 4;  // 16-byte pieces of a padded row
+  constexpr int KS = DP / 8;   // k steps of the scores' mma over D
+  constexpr int NT = DP / 8;   // n tiles of P·V's mma over D
+  constexpr int CT = FR_KEYS / 8;  // n tiles of the scores' mma over a chunk
+  extern __shared__ __align__(16) float fr_smem[];
+  const int lk = p.lk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the mma's group and thread in group
+  const int lk8 = (lk + 7) / 8 * 8;   // rows past Lk hold zeros
+  float* ks = fr_smem;                // [lk8][DP]
+  float* vs = ks + (size_t)lk8 * DP;  // [lk8][DP]
+
+  const int hkv = p.h / p.groups;
+  const int64_t bh = p.bh0 + blockIdx.y;
+  const int64_t b = bh / hkv;
+  const int hk = (int)(bh % hkv);
+  const float* kb = k + b * p.sk[0] + hk * p.sk[1];
+  const float* vb = v + b * p.sv[0] + hk * p.sv[1];
+  const int dch = p.d / 4;  // pieces of a row that hold data
+
+  for (int idx = threadIdx.x; idx < lk8 * NCH; idx += FR_THREADS) {
+    const int r = idx / NCH, c = idx % NCH;
+    const bool full = c < dch && r < lk;
+    const int off = r * DP + fr_swz(r, c) * 4;
+    fr_cp16(ks + off, kb + (full ? r : 0) * p.sk[2] + (full ? c : 0) * 4, full);
+    fr_cp16(vs + off, vb + (full ? r : 0) * p.sv[2] + (full ? c : 0) * 4, full);
+  }
+
+  // The lane's fragment offsets within a tile of 8 key rows: every tile
+  // starts at a multiple of 8, so its rows' swizzle is fixed by the lane.
+  // K: row g, columns 8s + t and + 4; V: rows 2t and 2t + 1, column 8j + g.
+  int koff[KS][2], voff[NT][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) koff[s][h] = fr_at(g, 8 * s + t + 4 * h, DP);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) voff[j][h] = fr_at(2 * t + h, 8 * j + g, DP);
+  fr_cp_wait_all();
+  __syncthreads();
+
+  // This block's query positions [p0, p1) of every query head of the group.
+  const int p0 = blockIdx.x * p.q_chunk;
+  const int p1 = min(p.lq, p0 + p.q_chunk);
+  const int tiles_per_head = (p1 - p0 + FR_ROWS - 1) / FR_ROWS;
+  for (int tile = warp; tile < p.groups * tiles_per_head; tile += FR_WARPS) {
+    const int hq = hk * p.groups + tile / tiles_per_head;
+    const int r0 = p0 + (tile % tiles_per_head) * FR_ROWS;
+    const float* qb = q + b * p.sq[0] + (int64_t)hq * p.sq[1];
+
+    // Q's A fragments, times scale·log2 e: rows g and g + 8, columns
+    // 8s + t and 8s + t + 4 (zeros past D and past the chunk's rows).
+    uint32_t qh[KS][4], ql[KS][4];
+    {
+      const bool live0 = r0 + g < p1, live1 = r0 + g + 8 < p1;
+      const float* q0 = qb + (int64_t)(live0 ? r0 + g : r0) * p.sq[2];
+      const float* q1 = qb + (int64_t)(live1 ? r0 + g + 8 : r0) * p.sq[2];
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const int c0 = 8 * s + t, c1 = c0 + 4;
+        const float x[4] = {live0 && c0 < p.d ? __ldg(q0 + c0) : 0.0f,
+                            live1 && c0 < p.d ? __ldg(q1 + c0) : 0.0f,
+                            live0 && c1 < p.d ? __ldg(q0 + c1) : 0.0f,
+                            live1 && c1 < p.d ? __ldg(q1 + c1) : 0.0f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fr_split(x[e] * p.scale_log2, qh[s][e], ql[s][e]);
+      }
+    }
+
+    // Rows g (index 0) and g + 8 (index 1): running max, sum, and the
+    // output's C fragments (n tile j: columns 8j + 2t, 8j + 2t + 1).
+    float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.0f, 0.0f}, acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+    for (int j0 = 0; j0 < lk; j0 += FR_KEYS) {
+      // Scores of the chunk: n tile c holds keys j0 + 8c + 2t (+ 1).
+      float s[CT][4];
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[c][e] = 0.0f;
+        if (j0 + 8 * c >= lk) continue;  // uniform across the warp
+        const float* kt = ks + (j0 + 8 * c) * DP;
+#pragma unroll
+        for (int st = 0; st < KS; ++st)
+          fr_mma3(s[c], qh[st], ql[st], kt[koff[st][0]], kt[koff[st][1]]);
+      }
+
+      // Online softmax over the chunk, in base 2; s becomes p.
+      if (j0 + FR_KEYS > lk) {  // the last chunk: keys past Lk (uniform)
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + 8 * c + 2 * t + (e & 1) >= lk) s[c][e] = FA_NEG_INF;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = FA_NEG_INF;
+#pragma unroll
+        for (int c = 0; c < CT; ++c) tmax = fmaxf(tmax, fmaxf(s[c][2 * r], s[c][2 * r + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(FA_FULL, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(FA_FULL, tmax, 2));
+        const float m_new = fmaxf(m[r], tmax);
+        const float alpha = fr_exp2(m[r] - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[c][2 * r + e];
+            x = fr_exp2(x - m_new);  // 0 past Lk: x is NEG_INF there
+            sum += x;
+          }
+        l[r] = l[r] * alpha + sum;
+        m[r] = m_new;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[j][2 * r] *= alpha;
+          acc[j][2 * r + 1] *= alpha;
+        }
+      }
+
+      // P·V: A = the score fragment of n tile c in the key order
+      // (0, 2, 4, 6, 1, 3, 5, 7); V's rows j0 + 8c + 2t and + 1 (rows past
+      // Lk hold zeros, and their p is 0).
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        if (j0 + 8 * c >= lk) continue;  // uniform across the warp
+        uint32_t ph[4], pl[4];
+        fr_split(s[c][0], ph[0], pl[0]);
+        fr_split(s[c][2], ph[1], pl[1]);
+        fr_split(s[c][1], ph[2], pl[2]);
+        fr_split(s[c][3], ph[3], pl[3]);
+        const float* vt = vs + (j0 + 8 * c) * DP;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) fr_mma3(acc[j], ph, pl, vt[voff[j][0]], vt[voff[j][1]]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(FA_FULL, lr, 1);
+      lr += __shfl_xor_sync(FA_FULL, lr, 2);
+      const int row = r0 + g + 8 * r;
+      if (row >= p1) continue;
+      const float denom = fmaxf(lr, 1e-30f);
+      float* orow = o + b * p.so[0] + (int64_t)hq * p.so[1] + (int64_t)row * p.so[2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < p.d)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[j][2 * r] / denom, acc[j][2 * r + 1] / denom);
+      }
+    }
+  }
+}
+
+template <int NC>
+static int resident_launch_nc(const float* q, const float* k, const float* v, float* o,
+                              int64_t b, int64_t hkv, FrParams p, cudaStream_t stream) {
+  const size_t smem = fr_smem_bytes(p.lk, NC * 32);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_resident_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned chunks = (unsigned)((p.lq + p.q_chunk - 1) / p.q_chunk);
+  // B·Hkv in launches of at most FA_MAX_GRID_Y (gridDim.y's limit), on one
+  // stream: no host sync between them.
+  for (p.bh0 = 0; p.bh0 < b * hkv; p.bh0 += FA_MAX_GRID_Y) {
+    const int64_t rows = b * hkv - p.bh0 < FA_MAX_GRID_Y ? b * hkv - p.bh0 : FA_MAX_GRID_Y;
+    flash_resident_kernel<NC><<<dim3(chunks, (unsigned)rows), FR_THREADS, smem, stream>>>(
+        q, k, v, o, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// The resident variant.  a: 19 int64, packed once per input geometry by
+// kernel.py: b, h, hkv, lq, lk, d, q_chunk (query positions a block), the
+// 12 strides of q, k, v and o (each batch, head, position).  fp32 only;
+// the launcher in kernel.py has checked 16-byte aligned bases and strides.
+extern "C" int flash_resident_launch(const void* q, const void* k, const void* v, void* o,
+                                     const int64_t* a, float scale, void* stream) {
+  const int64_t b = a[0], h = a[1], hkv = a[2], lq = a[3], lk = a[4], d = a[5];
+  const int64_t q_chunk = a[6];
+  if (d < 1 || d > 64 || d % 4 != 0 || hkv < 1 || h % hkv != 0 || lk < 1 || q_chunk < 1 ||
+      lq > 2147483647 || fr_smem_bytes(lk, (int)((d + 31) / 32 * 32)) > FR_MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  if (lq <= 0 || b * h <= 0) return 0;
+  FrParams p;
+  p.h = (int)h;
+  p.groups = (int)(h / hkv);
+  p.lq = (int)lq;
+  p.lk = (int)lk;
+  p.d = (int)d;
+  p.q_chunk = (int)(q_chunk < lq ? q_chunk : lq);
+  for (int i = 0; i < 3; ++i) {
+    p.sq[i] = a[7 + i];
+    p.sk[i] = a[10 + i];
+    p.sv[i] = a[13 + i];
+    p.so[i] = a[16 + i];
+  }
+  p.scale_log2 = scale * FR_LOG2E;
+  p.bh0 = 0;
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  float* of = (float*)o;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 32) return resident_launch_nc<1>(qf, kf, vf, of, b, hkv, p, s);
+  return resident_launch_nc<2>(qf, kf, vf, of, b, hkv, p, s);
 }
 
 // ---------------------------------------------------------------------

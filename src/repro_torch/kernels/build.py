@@ -3,8 +3,8 @@
 Sources live in ``src/repro_torch/csrc/``: ``fold.cu`` (the multi-stage
 fold of the device engine), ``intersect.cu`` (the intersect trio),
 ``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means),
-``flash_attention.cu`` (the general and the split-K decode attention
-kernels of the LM serving path, with the decode's combine) and
+``flash_attention.cu`` (the general, the resident and the split-K decode
+attention kernels, with the decode's combine) and
 ``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel).
 Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 its own shared library under ``build/repro_torch/`` at the repository
@@ -73,6 +73,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _I, _P),
         "flash_decode_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
         "flash_combine_launch": (_P, _P, _P, ctypes.POINTER(_L), _P),
+        "flash_resident_launch": (_P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
     },
     "flash_attention_sm90": {
         "flash_attention_sm90_launch": (
@@ -88,7 +89,8 @@ _SIGNATURES = {
 # launcher counts each call as ``flash_attention_kernel`` and each launch
 # of the variant it took: ``flash_attention_sm90`` (bf16 tensor-core
 # prefill), ``flash_attention_decode`` and ``flash_attention_combine``
-# (split-K decode, two launches a call) or ``flash_attention_general``.
+# (split-K decode, two launches a call), ``flash_attention_resident`` (K and
+# V of a head in shared memory) or ``flash_attention_general``.
 LAUNCHES: Dict[str, int] = {
     "segment_fold": 0,
     "intersect_members_kernel": 0,
@@ -101,6 +103,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_sm90": 0,
     "flash_attention_decode": 0,
     "flash_attention_combine": 0,
+    "flash_attention_resident": 0,
     "flash_attention_general": 0,
 }
 

@@ -14,12 +14,17 @@ by dtype and shape (:func:`flash_route`), with no fallback:
   split, fp32 arithmetic) then the combine (:func:`combine_cuda`).
 - ``"sm90"``: bf16 with D in :data:`SM90_HEAD_DIMS` otherwise.  The
   tensor-core prefill kernel (wgmma, TMA); P is rounded to bf16 for P·V.
+- ``"resident"``: fp32, not causal, no window, D a multiple of 4 up to
+  :data:`RESIDENT_MAX_HEAD_DIM`, and K and V of one (batch, KV head) within
+  :data:`RESIDENT_SMEM_BYTES` of shared memory (:func:`resident_smem_bytes`;
+  BERT4Rec's encoder call).  One block per (batch, KV head, query chunk)
+  holds K and V whole (:func:`resident_q_chunk` sizes the chunk).
 - ``"general"``: everything else (fp32 at longer Lq, other head dims):
   the fp32-arithmetic kernel of the first port.
 
-The decode and sm90 variants read with 16-byte loads or TMA, so they
-raise ``ValueError`` when a base pointer or a stride (of a dimension
-longer than 1) is not a multiple of 16 bytes.  Every launch runs on
+The decode, sm90 and resident variants read with 16-byte loads, cp.async
+or TMA, so they raise ``ValueError`` when a base pointer or a stride (of a
+dimension longer than 1) is not a multiple of 16 bytes.  Every launch runs on
 ``torch.cuda.current_stream()`` and raises when it reports a CUDA error.
 Each call adds one to ``LAUNCHES["flash_attention_kernel"]`` and one to
 the counter of each kernel it launched.  Any B·H goes: the kernels take
@@ -38,8 +43,9 @@ import torch
 
 from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
-__all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "SM90_HEAD_DIMS", "combine_cuda",
-           "decode_partials_cuda", "decode_plan", "flash_attention_cuda", "flash_route",
+__all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "RESIDENT_MAX_HEAD_DIM", "RESIDENT_SMEM_BYTES",
+           "SM90_HEAD_DIMS", "combine_cuda", "decode_partials_cuda", "decode_plan",
+           "flash_attention_cuda", "flash_route", "resident_q_chunk", "resident_smem_bytes",
            "sm_count"]
 
 MAX_HEAD_DIM = 256
@@ -51,19 +57,51 @@ SM90_HEAD_DIMS = (64, 128, 256)
 # of DECODE_CHUNK_STEP and at least that.
 DECODE_BLOCKS_PER_SM = 4
 DECODE_CHUNK_STEP = 32
+# The resident variant (csrc/flash_attention.cu, ``FR_*``): query rows a
+# warp's tile, the widest D (a warp keeps its Q tile in registers), and an
+# H100 block's opt-in shared memory (227 KB).
+RESIDENT_TILE_ROWS = 16
+RESIDENT_MAX_HEAD_DIM = 64
+RESIDENT_SMEM_BYTES = 232448
+# The resident variant cuts Lq into chunks only where B·Hkv blocks would
+# not give RESIDENT_BLOCKS_PER_SM blocks an SM, and never below
+# RESIDENT_MIN_CHUNK query positions a block.
+RESIDENT_BLOCKS_PER_SM = 2
+RESIDENT_MIN_CHUNK = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _INT32_MAX = 2**31 - 1
 
 
-def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, d: int) -> str:
+def resident_smem_bytes(lk: int, d: int) -> int:
+    """Shared memory of one block of the resident variant: K and V of the
+    head as fp32 rows of D rounded up to 32, Lk rounded up to 8 rows."""
+    return 4 * 2 * (-(-lk // 8) * 8) * (-(-d // 32) * 32)
+
+
+def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, causal: bool,
+                window: Optional[int]) -> str:
     """The variant that :func:`flash_attention_cuda` launches for these
-    inputs: ``"decode"``, ``"sm90"`` or ``"general"``."""
+    inputs: ``"decode"``, ``"sm90"``, ``"resident"`` or ``"general"``."""
     if lq * (h // hkv) <= DECODE_MAX_ROWS and (d * _ITEMSIZE[dtype]) % 16 == 0:
         return "decode"
     if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
         return "sm90"
+    if (dtype == torch.float32 and not causal and window is None and d % 4 == 0
+            and d <= RESIDENT_MAX_HEAD_DIM and resident_smem_bytes(lk, d) <= RESIDENT_SMEM_BYTES):
+        return "resident"
     return "general"
+
+
+def resident_q_chunk(lq: int, bhkv: int, sms: int) -> int:
+    """Query positions one block of the resident variant takes: all of Lq
+    when the ``bhkv`` (batch, KV head) blocks give
+    ``RESIDENT_BLOCKS_PER_SM`` blocks on each of ``sms`` SMs, else Lq cut
+    into as many chunks as that needs, each a whole number of warp tiles
+    and at least ``RESIDENT_MIN_CHUNK`` positions."""
+    want = max(1, -(-RESIDENT_BLOCKS_PER_SM * sms // max(bhkv, 1)))
+    rows = max(RESIDENT_MIN_CHUNK, -(-lq // want))
+    return -(-rows // RESIDENT_TILE_ROWS) * RESIDENT_TILE_ROWS
 
 
 def decode_plan(lq: int, lk: int, window: Optional[int], bhkv: int,
@@ -138,7 +176,7 @@ class _Launch:
         hkv, lk = k.shape[1], k.shape[2]
         self.dims = (b, h, hkv, lq, lk, d)
         self.empty = lq == 0 or b * h == 0
-        self.route = flash_route(q.dtype, h, hkv, lq, d)
+        self.route = flash_route(q.dtype, h, hkv, lq, lk, d, causal, window)
         out_stride = torch.empty_like(q, device="meta").stride()
         self.mask = (int(causal), int(window is not None), int(window or 0))
         self.scale = 1.0 / d**0.5
@@ -156,6 +194,10 @@ class _Launch:
                                             self.dtype_code)
             self.combine_args = _int64s((b, h, hkv, lq, d, self.plan[3], *out_stride[:3],
                                          self.dtype_code))
+        if self.route == "resident":
+            self.q_chunk = resident_q_chunk(lq, b * hkv,
+                                            sm_count(q.device.index) if not self.empty else 1)
+            self.resident_args = _int64s((b, h, hkv, lq, lk, d, self.q_chunk, *self.strides))
         if self.route != "general":
             for shape, stride in ((q.shape, q.stride()), (k.shape, k.stride()),
                                   (v.shape, v.stride()), (q.shape, out_stride)):
@@ -250,21 +292,27 @@ def flash_attention_cuda(
     v: torch.Tensor,
     causal: bool = True,
     window: Optional[int] = None,
+    variant: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, H, Lq, D) attention in q's dtype; the contract of
     :func:`repro_torch.kernels.flash_attention.ref.attention_ref` for
     inputs in which every query row sees at least one key (Lk >= Lq when
     causal, window >= 1), through the variant :func:`flash_route` names.
-    What depends only on the inputs' geometry is checked and computed at
-    its first call and kept (``_Launch``)."""
+    ``variant="general"`` forces the general kernel, which takes every
+    input (to time it beside the routed variant); any other ``variant``
+    must be the routed one.  What depends only on the inputs' geometry is
+    checked and computed at its first call and kept (``_Launch``)."""
     name = "flash_attention_kernel"
     launch = _launch_of(q, k, v, causal, window, name)
+    route = launch.route if variant is None else variant
+    if route not in (launch.route, "general"):
+        raise ValueError(f"{name}: these inputs take the {launch.route} variant, not {variant}")
     out = torch.empty_like(q)
     if launch.empty:
         return out
     b, h, hkv, lq, lk, d = launch.dims
     stream = stream_of(q.device)
-    if launch.route == "decode":
+    if route == "decode":
         # One fp32 scratch for the partials: (max, sum) first, then acc.
         launch.check_bases("flash_attention_decode", q, k, v)
         scratch = torch.empty(launch.scratch_numel, dtype=torch.float32, device=q.device)
@@ -272,13 +320,20 @@ def flash_attention_cuda(
         acc_ptr = ml_ptr + 4 * launch.ml_numel
         _decode(ml_ptr, acc_ptr, q, k, v, launch.decode_args, launch.scale, stream)
         _combine(ml_ptr, acc_ptr, out, launch.combine_args, stream)
-    elif launch.route == "sm90":
+    elif route == "sm90":
         launch.check_bases("flash_attention_sm90", q, k, v, out)
         status = lib("flash_attention_sm90").flash_attention_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
             launch.strides, *launch.mask, launch.scale, stream)
         check(status, "flash_attention_sm90")
         LAUNCHES["flash_attention_sm90"] += 1
+    elif route == "resident":
+        launch.check_bases("flash_attention_resident", q, k, v, out)
+        status = lib("flash_attention").flash_resident_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), launch.resident_args,
+            launch.scale, stream)
+        check(status, "flash_attention_resident")
+        LAUNCHES["flash_attention_resident"] += 1
     else:
         status = lib("flash_attention").flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,

@@ -5,7 +5,7 @@
 Encoder-only.  Each block: RMS-norm, non-causal multi-head attention (2
 heads of 32, RoPE θ = 10⁴) through
 :func:`repro_torch.models.layers.attention` — on the card the CUDA
-``flash_attention`` kernel (its ``general`` variant at float32, D = 32)
+``flash_attention`` kernel (its ``resident`` variant at float32, D = 32)
 — then an ungated GELU MLP (tanh GELU, as ``jax.nn.gelu``).  Padding is
 masked by zeroing values, not scores, as in the JAX package: the inputs
 and each residual update are multiplied by the mask.  The JAX package

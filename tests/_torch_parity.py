@@ -85,7 +85,11 @@ def make_rows(rng, b, ls, ll, universe, holes=False):
 # key at H/Hkv = 16.  The MoE archs' shapes (their global layers' window
 # 2**30): qwen3-moe-30b-a3b's decode (group 8 at D = 128, the decode
 # variant's largest group) and prefill (sm90, group 8), and
-# arctic-480b's decode group of 7.
+# arctic-480b's decode group of 7.  The resident variant (float32, not
+# causal, no window): BERT4Rec's shape (Lq = Lk = 200, D = 32) at a few
+# (batch, head) pairs, GQA 2 at D = 64 (its widest) with a ragged query
+# tile and key chunk, D = 20 (zero-padded to 32), a single key; and, on
+# the general variant, D = 128 and keys too many for shared memory.
 FLASH_CASES = [
     (2, 4, 4, 1, 300, 64, True, None), (1, 2, 2, 128, 128, 64, True, None),
     (2, 4, 2, 37, 100, 128, True, 8), (1, 8, 2, 1, 2064, 256, True, 1024),
@@ -101,15 +105,19 @@ FLASH_CASES = [
     (1, 16, 1, 1, 1, 64, True, None), (1, 4, 2, 70, 130, 64, False, 32),
     (2, 32, 4, 1, 2064, 128, True, 2**30), (1, 56, 8, 1, 2064, 128, True, 2**30),
     (1, 32, 4, 300, 300, 128, True, 2**30),
+    (3, 2, 2, 200, 200, 32, False, None), (2, 4, 2, 37, 300, 64, False, None),
+    (1, 8, 8, 100, 130, 128, False, None), (1, 2, 2, 33, 45, 20, False, None),
+    (2, 2, 2, 16, 1, 32, False, None), (1, 2, 2, 64, 1000, 32, False, None),
 ]
 # The counter of each attention variant's kernels (kernel.flash_route picks
 # one a call; decode launches its split kernel and its combine), and what a
 # call of each variant adds to them.
 FLASH_VARIANTS = ("flash_attention_sm90", "flash_attention_decode", "flash_attention_combine",
-                  "flash_attention_general")
+                  "flash_attention_resident", "flash_attention_general")
 VARIANT_LAUNCHES = {
     "decode": {"flash_attention_decode": 1, "flash_attention_combine": 1},
     "sm90": {"flash_attention_sm90": 1},
+    "resident": {"flash_attention_resident": 1},
     "general": {"flash_attention_general": 1},
 }
 # (rtol, atol) of the kernel's output against the plain version computed

@@ -28,9 +28,11 @@ tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``, plus
 which variant it took (``kernel.flash_route``).  The decode variant's two
 kernels are also held one by one against their plain versions, and the
 launcher must refuse a misaligned base or stride for the variants that
-read with 16-byte loads or TMA.  Each variant also runs past gridDim.y's
-65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and 131,072,
-BERT4Rec's call among them), which its launcher cuts into launches.
+read with 16-byte loads, cp.async or TMA.  Each variant also runs past
+gridDim.y's 65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and
+131,072, BERT4Rec's call among them), which its launcher cuts into
+launches; at BERT4Rec's call the resident variant and the general kernel
+forced on the same inputs are both held to ``FLASH_TOL``.
 
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
@@ -528,7 +530,7 @@ def test_flash_attention_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, 
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=lq + lk + d,
                            model_layout=lk % 2 == 0)
-    route = FK.flash_route(dtype, h, hkv, lq, d)
+    route = FK.flash_route(dtype, h, hkv, lq, lk, d, causal, window)
     before = dict(B.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -544,8 +546,8 @@ def test_flash_attention_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window",
-                         [c for c in FLASH_CASES if FK.flash_route(torch.bfloat16, c[1], c[2], c[3],
-                                                                   c[5]) == "decode"])
+                         [c for c in FLASH_CASES
+                          if FK.flash_route(torch.bfloat16, *c[1:]) == "decode"])
 def test_flash_decode_kernels_equal_their_plain_versions(cuda_device, dtype, b, h, hkv, lq, lk, d,
                                                          causal, window):
     """The split kernel's partials against ``decode_partials_ref`` (fp32
@@ -580,8 +582,8 @@ def _offset_view(shape, dtype, device, offset):
                                               (128, 8, 4, 256, torch.bfloat16)],
                          ids=["decode_bf16", "decode_f32", "sm90"])
 def test_flash_attention_refuses_misaligned_bases_and_strides(cuda_device, lq, h, hkv, d, dtype):
-    route = FK.flash_route(dtype, h, hkv, lq, d)
     lk = 200
+    route = FK.flash_route(dtype, h, hkv, lq, lk, d, True, None)
     q = torch.zeros((1, h, lq, d), dtype=dtype, device=cuda_device)
     k = torch.zeros((1, hkv, lk, d), dtype=dtype, device=cuda_device)
     before = dict(B.LAUNCHES)
@@ -606,12 +608,16 @@ def test_flash_attention_window_of_one_is_the_value_of_the_own_key(cuda_device):
 # Past gridDim.y's 65,535: (variant, dtype, B, H, Hkv, Lq, Lk, D, causal).
 # Every variant at B·H = 65,536 and 131,072 (the decode variant's grid
 # rows are B·Hkv, sm90's B·Hkv when it pairs the two heads of a group):
-# general at BERT4Rec's shape (fp32, D = 32, 200 positions, not causal),
-# decode at bf16 D = 128, sm90 at bf16 D = 64 with 64 positions, unpaired
-# and paired.
+# resident at BERT4Rec's shape (fp32, D = 32, 200 positions, not causal)
+# and at B·H = 65,542 (a launch of 65,535 pairs and one of 7), general at
+# the same shape made causal, decode at bf16 D = 128, sm90 at bf16 D = 64
+# with 64 positions, unpaired and paired.
 BIG_BH_CASES = [
-    ("general", torch.float32, 32768, 2, 2, 200, 200, 32, False),
-    ("general", torch.float32, 65536, 2, 2, 200, 200, 32, False),
+    ("general", torch.float32, 32768, 2, 2, 200, 200, 32, True),
+    ("general", torch.float32, 65536, 2, 2, 200, 200, 32, True),
+    ("resident", torch.float32, 32768, 2, 2, 200, 200, 32, False),
+    ("resident", torch.float32, 32771, 2, 2, 200, 200, 32, False),
+    ("resident", torch.float32, 65536, 2, 2, 200, 200, 32, False),
     ("decode", torch.bfloat16, 65536, 1, 1, 1, 100, 128, True),
     ("decode", torch.bfloat16, 65536, 2, 2, 1, 100, 128, True),
     ("sm90", torch.bfloat16, 65536, 1, 1, 64, 64, 64, True),
@@ -625,7 +631,8 @@ def _check_flash_call(q, k, v, causal, variant):
     counters) held to ``FLASH_TOL`` of the plain version in float32 (over
     chunks of query rows, ``attention_ref_chunked``), plus
     ``p_rounding_term`` on sm90."""
-    assert FK.flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], q.shape[3]) == variant
+    assert FK.flash_route(q.dtype, q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                          causal, None) == variant
     before = dict(B.LAUNCHES)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -650,11 +657,50 @@ def test_flash_attention_past_65535_batch_heads(cuda_device, variant, dtype, b, 
 def test_flash_attention_at_bert4recs_call(cuda_device):
     """BERT4Rec's encoder call at a serving slice of 32,768 rows: q, k, v
     (32768, 2, 200, 32) float32 as the model hands them, (B, H, L, D) views
-    of (B, L, H, D) buffers, bidirectional."""
+    of (B, L, H, D) buffers, bidirectional: the resident variant, and the
+    general kernel forced on the same inputs, each within ``FLASH_TOL``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = flash_inputs(cuda_device, torch.float32, 32768, 2, 2, 200, 200, 32, seed=4,
                            model_layout=True)
-    _check_flash_call(q, k, v, False, "general")
+    _check_flash_call(q, k, v, False, "resident")
+    before = B.LAUNCHES["flash_attention_general"]
+    got = FK.flash_attention_cuda(q, k, v, causal=False, variant="general")
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["flash_attention_general"] == before + 1
+    flash_close(got, attention_ref_chunked(q.float(), k.float(), v.float(), False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32768, 32771], ids=["bh65536", "bh65542"])
+def test_flash_attention_resident_equals_plain_at_bert4recs_call(cuda_device, b):
+    """The resident variant within ``FLASH_TOL`` of its plain version at
+    BERT4Rec's call in the model's layout, at a bulk slice's B·H = 65,536
+    and at 65,542, past one launch's 65,535 (batch, head) pairs; a second
+    call gives the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, torch.float32, b, 2, 2, 200, 200, 32, seed=b,
+                           model_layout=True)
+    before = dict(B.LAUNCHES)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    launched = {n: B.LAUNCHES[n] - before[n] for n in FLASH_VARIANTS}
+    assert launched == {n: VARIANT_LAUNCHES["resident"].get(n, 0) for n in FLASH_VARIANTS}
+    assert got.stride() == q.stride()
+    flash_close(got, attention_ref_chunked(q.float(), k.float(), v.float(), False))
+    assert torch.equal(flash_attention(q, k, v, causal=False), got)
+
+
+@pytest.mark.cuda
+def test_flash_attention_resident_refuses_misaligned_bases_and_strides(cuda_device):
+    q = torch.zeros((2, 2, 200, 32), dtype=torch.float32, device=cuda_device)
+    assert FK.flash_route(q.dtype, 2, 2, 200, 200, 32, False, None) == "resident"
+    before = dict(B.LAUNCHES)
+    with pytest.raises(ValueError, match="resident variant needs 16-byte aligned"):
+        flash_attention(_offset_view(q.shape, q.dtype, cuda_device, 1), q, q, causal=False)
+    wide = torch.zeros((2, 2, 200, 33), dtype=q.dtype, device=cuda_device)[..., :32]
+    with pytest.raises(ValueError, match="resident variant needs 16-byte aligned"):
+        flash_attention(q, wide, q, causal=False)
+    assert B.LAUNCHES == before  # refused before any launch, no fallback
 
 
 # (tokens, d_model, d_expert, experts, top_k, capacity factor): the SMOKE
@@ -753,7 +799,8 @@ def test_mesh_decode_on_the_card_equals_its_plain_version(cuda_device, dims, b, 
         sh.set_mesh(None)
     assert 0 < visible < dims[0] * dims[1]
     assert launches == {"flash_attention_decode": visible, "flash_attention_combine": 1,
-                        "flash_attention_sm90": 0, "flash_attention_general": 0}
+                        "flash_attention_sm90": 0, "flash_attention_resident": 0,
+                        "flash_attention_general": 0}
     for name, out in (("card", got), ("plain", plain)):
         keys, values = L.cache_read(caches[name], dtype)
         want = attention_ref(q.float().transpose(1, 2).to(out.device),

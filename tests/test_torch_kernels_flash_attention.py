@@ -11,10 +11,16 @@ stays at 256 keys or fewer: the Pallas kernel runs interpreted.
 The CUDA launcher's variants are checked here where the CPU can: which
 variant each input takes (``flash_route``), the decode variant's split
 plan and its plain split and merge (``decode_partials_ref``,
-``combine_ref``) against ``attention_ref``, and the sm90 variant's bf16
+``combine_ref``) against ``attention_ref``, the sm90 variant's bf16
 limit (``FLASH_TOL`` plus ``P_ROUNDING`` times the plain attention of
 |v|, ``tests/_torch_parity.py``) against an emulation of its arithmetic
-over ``FLASH_CASES`` (the 2048-token cases on their last 64 query rows).
+over ``FLASH_CASES`` (the 2048-token cases on their last 64 query rows),
+and the resident variant's arithmetic (TF32 tensor-core products in the
+3xTF32 split, an online softmax in base 2 over chunks of 32 keys) against
+``attention_ref`` within the fp32 ``FLASH_TOL``, with one TF32 product or
+a missing rescale caught beyond it.  BERT4Rec's call (fp32, not causal,
+Lq = Lk = 200, D = 32) is among the plain version's cases against the
+reference and its Pallas kernel.
 """
 
 import numpy as np
@@ -42,6 +48,7 @@ REF_CASES = [
     (1, 2, 2, 20, 60, 16, False, 5),  # window without causality
     (1, 2, 2, 64, 64, 16, True, 1),  # window of one key
     (1, 2, 2, 64, 64, 16, True, 2**30),  # a global layer's window
+    (2, 2, 2, 200, 200, 32, False, None),  # BERT4Rec's call: the resident variant
 ]
 # The Pallas kernel needs Lq and Lk to be multiples of min(128, L).
 PALLAS_CASES = [
@@ -50,6 +57,7 @@ PALLAS_CASES = [
     (2, 2, 2, 1, 256, 32, True, None),
     (1, 4, 2, 128, 128, 32, True, 32),
     (1, 1, 1, 64, 64, 16, False, None),
+    (2, 2, 2, 200, 200, 32, False, None),  # BERT4Rec's call, in one 200-row tile
 ]
 
 
@@ -85,8 +93,11 @@ def test_plain_matches_pallas_kernel(b, h, hkv, lq, lk, d, causal, window):
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                           causal=causal, window=window)
     g = h // hkv
+    # tiles of min(128, L), or the whole length where 128 does not divide it
+    tiles = {f"tile_{n}": 128 if length % min(128, length) == 0 else length
+             for n, length in (("q", lq), ("k", lk))}
     want = np.asarray(jax_flash_attention(q, _repeat(k, g), _repeat(v, g), causal=causal,
-                                          window=window, force_kernel=True))
+                                          window=window, force_kernel=True, **tiles))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -134,22 +145,61 @@ def _cpu_case(b, h, hkv, lq, lk, d, dtype, seed, rows_kept=None):
 
 def _route(case, dtype):
     b, h, hkv, lq, lk, d, causal, window = case
-    return FK.flash_route(dtype, h, hkv, lq, d)
+    return FK.flash_route(dtype, h, hkv, lq, lk, d, causal, window)
 
 
 def test_flash_route_picks_each_variant_by_dtype_and_shape():
     lm = [(8, 8, 4, 2048, 2048, 256), (8, 8, 4, 1, 2064, 256)]
-    assert [FK.flash_route(torch.bfloat16, h, hkv, lq, d) for _, h, hkv, lq, _, d in lm] == [
-        "sm90", "decode"]
-    assert FK.flash_route(torch.float32, 8, 4, 2048, 256) == "general"
-    assert FK.flash_route(torch.float32, 8, 4, 1, 256) == "decode"
-    assert FK.flash_route(torch.bfloat16, 2, 2, 40, 80) == "general"  # D outside SM90_HEAD_DIMS
-    assert FK.flash_route(torch.bfloat16, 8, 1, 1, 64) == "decode"  # 8 rows: the limit
-    assert FK.flash_route(torch.bfloat16, 3, 1, 3, 64) == "sm90"  # 9 rows
-    assert FK.flash_route(torch.float32, 3, 1, 3, 64) == "general"
-    assert FK.flash_route(torch.bfloat16, 2, 2, 1, 4) == "general"  # 8 bytes a row: no 16-byte loads
+    assert [FK.flash_route(torch.bfloat16, h, hkv, lq, lk, d, True, None)
+            for _, h, hkv, lq, lk, d in lm] == ["sm90", "decode"]
+    assert FK.flash_route(torch.float32, 8, 4, 2048, 2048, 256, True, None) == "general"
+    assert FK.flash_route(torch.float32, 8, 4, 1, 2048, 256, True, None) == "decode"
+    # D outside SM90_HEAD_DIMS
+    assert FK.flash_route(torch.bfloat16, 2, 2, 40, 40, 80, True, None) == "general"
+    assert FK.flash_route(torch.bfloat16, 8, 1, 1, 64, 64, True, None) == "decode"  # 8 rows
+    assert FK.flash_route(torch.bfloat16, 3, 1, 3, 64, 64, True, None) == "sm90"  # 9 rows
+    assert FK.flash_route(torch.float32, 3, 1, 3, 64, 64, True, None) == "general"
+    # 8 bytes a row: no 16-byte loads
+    assert FK.flash_route(torch.bfloat16, 2, 2, 1, 4, 4, True, None) == "general"
     routes = {_route(c, t) for c in FLASH_CASES for t in (torch.float32, torch.bfloat16)}
-    assert routes == {"decode", "sm90", "general"}
+    assert routes == {"decode", "sm90", "resident", "general"}
+
+
+# (dtype, H, Hkv, Lq, Lk, D, causal, window) -> the variant: BERT4Rec's
+# call takes the resident variant; a causal, windowed, bf16, too long or
+# too wide call, or a D that is no multiple of 4, keeps the general one.
+ROUTE_CASES = [
+    ((torch.float32, 2, 2, 200, 200, 32, False, None), "resident"),  # BERT4Rec's call
+    ((torch.float32, 4, 2, 37, 300, 64, False, None), "resident"),  # GQA 2
+    ((torch.float32, 2, 2, 100, 130, 64, False, None), "resident"),  # the widest D
+    ((torch.float32, 2, 2, 20, 904, 32, False, None), "resident"),  # the most keys at D <= 32
+    ((torch.float32, 2, 2, 20, 905, 32, False, None), "general"),  # K and V past 227 KB
+    ((torch.float32, 2, 2, 200, 200, 32, True, None), "general"),  # causal
+    ((torch.float32, 2, 2, 200, 200, 32, False, 64), "general"),  # a window
+    ((torch.bfloat16, 2, 2, 200, 200, 32, False, None), "general"),  # bf16
+    ((torch.float32, 2, 2, 200, 200, 30, False, None), "general"),  # D not a multiple of 4
+    ((torch.float32, 2, 2, 200, 200, 80, False, None), "general"),  # D past 64
+    ((torch.float32, 2, 2, 1, 200, 32, False, None), "decode"),  # two rows a group
+]
+
+
+@pytest.mark.parametrize("args,want", ROUTE_CASES, ids=[str(c[0][1:]) for c in ROUTE_CASES])
+def test_flash_route_sends_bert4recs_call_to_the_resident_variant(args, want):
+    assert FK.flash_route(*args) == want
+    if want == "resident":
+        assert FK.resident_smem_bytes(args[4], args[5]) <= FK.RESIDENT_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lq,bhkv,want", [(200, 65536, 208), (200, 264, 208), (200, 100, 80),
+                                          (2048, 2, 64), (50, 1, 64), (1000, 8, 64),
+                                          (1000, 66, 256)])
+def test_resident_q_chunk_fills_the_card_in_whole_warp_tiles(lq, bhkv, want):
+    chunk = FK.resident_q_chunk(lq, bhkv, SMS)
+    assert chunk == want
+    assert chunk % FK.RESIDENT_TILE_ROWS == 0 and chunk >= FK.RESIDENT_MIN_CHUNK
+    blocks = bhkv * -(-lq // chunk)
+    assert blocks >= FK.RESIDENT_BLOCKS_PER_SM * SMS or chunk == FK.RESIDENT_MIN_CHUNK \
+        or chunk >= lq
 
 
 @pytest.mark.parametrize("lq,lk,window,bhkv", [
@@ -216,3 +266,90 @@ def test_sm90_bf16_limit_holds_the_emulation_and_catches_faults(case):
                            extra)[1] > 1.0
     if window is not None and window < lk:
         assert flash_error(_emulate_sm90(q, k, v, causal, None), want, extra)[1] > 1.0
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to TF32 (10 mantissa bits), to
+    nearest with ties away from zero, kept as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """x cut to TF32 by dropping its low 13 bits (toward zero)."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, spec, single=False):
+    """``einsum(spec, a, b)`` as the resident variant's tensor cores take
+    it: each operand split into hi = tf32(x) (to nearest) and lo = x - hi
+    cut to TF32, the product a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (exact
+    products, summed in float64, then float32); ``single`` keeps a_hi·b_hi
+    only (one TF32 product, a fault the limit must catch)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_cut(a - a_hi), _tf32_cut(b - b_hi)
+    terms = [(a_hi, b_hi)] if single else [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    return sum(torch.einsum(spec, x.double(), y.double()) for x, y in terms).float()
+
+
+def _emulate_resident(q, k, v, fault=None):
+    """The resident variant's arithmetic on the CPU: q pre-multiplied by
+    scale·log2 e in float32, the scores and P·V in the 3xTF32 split
+    (``_tf32_product``), an online softmax in float32 over chunks of
+    ``FK_KEYS`` keys in base 2 (running max m, sum l, accumulator rescaled
+    by exp2(m - m_new) at each chunk), the end divided by max(l, 1e-30).
+    ``fault``: ``"single_tf32"`` takes one TF32 product instead of three,
+    ``"no_rescale"`` leaves the accumulator and sum unscaled."""
+    h, d = q.shape[1], q.shape[3]
+    lk, g = k.shape[2], h // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    scale_log2 = torch.tensor((1.0 / d**0.5) * 1.4426950408889634, dtype=torch.float32)
+    single = fault == "single_tf32"
+    s = _tf32_product(q.float() * scale_log2, kf, "bhqd,bhkd->bhqk", single)
+    m = torch.full(q.shape[:3] + (1,), NEG_INF)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for j0 in range(0, lk, FK_KEYS):
+        part = s[..., j0:j0 + FK_KEYS]
+        m_new = torch.maximum(m, part.amax(dim=3, keepdim=True))
+        alpha = torch.exp2(m - m_new) if fault != "no_rescale" else torch.ones_like(m)
+        p = torch.exp2(part - m_new)
+        l = l * alpha + p.sum(dim=3, keepdim=True)
+        acc = acc * alpha + _tf32_product(p, vf[:, :, j0:j0 + FK_KEYS], "bhqk,bhkd->bhqd",
+                                          single)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+FK_KEYS = 32  # csrc/flash_attention.cu FR_KEYS: the resident variant's key chunk
+
+
+def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
+    step = 2.0**-10  # TF32's unit in the last place at 1
+    x = torch.tensor([1.0, 1.0 + step / 2, -(1.0 + step / 2), 1.0 + step / 2 - 2.0**-20,
+                      1.0 + 3 * step / 2, 3.0e-5])
+    want = torch.tensor([1.0, 1.0 + step, -(1.0 + step), 1.0, 1.0 + 2 * step,
+                         float(np.float32(3.0e-5))])
+    got = _tf32(x)
+    assert torch.equal(got[:5], want[:5])
+    assert abs(float(got[5]) - 3.0e-5) <= 3.0e-5 * 2.0**-11
+    hi = _tf32(x)
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0**-11  # lo: at most half a TF32 unit
+    residue = (x - hi - _tf32_cut(x - hi)).abs() / x.abs()  # what the split leaves out
+    assert float(residue.max()) < 2.0**-21
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if _route(c, torch.float32) == "resident"],
+                         ids=str)
+def test_resident_3xtf32_split_is_within_flash_tol_and_one_tf32_product_is_not(case):
+    """The split, not the kernel, meets the fp32 limit: the emulation of
+    the resident variant's arithmetic lies within ``FLASH_TOL`` of the
+    plain version, while one TF32 product (or a missing rescale) lands
+    beyond it."""
+    b, h, hkv, lq, lk, d, causal, window = case
+    q, k, v = _cpu_case(b, h, hkv, lq, lk, d, torch.float32, seed=lq + lk + d)
+    want = attention_ref(q, k, v, causal=False)
+    flash_close(_emulate_resident(q, k, v), want)
+    assert flash_error(_emulate_resident(q, k, v, fault="single_tf32"), want)[1] > 1.0
+    if lk > FK_KEYS:  # more than one chunk: the rescale matters
+        assert flash_error(_emulate_resident(q, k, v, fault="no_rescale"), want)[1] > 1.0
