@@ -292,26 +292,21 @@ def flash_attention_cuda(
     v: torch.Tensor,
     causal: bool = True,
     window: Optional[int] = None,
-    variant: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, H, Lq, D) attention in q's dtype; the contract of
     :func:`repro_torch.kernels.flash_attention.ref.attention_ref` for
     inputs in which every query row sees at least one key (Lk >= Lq when
     causal, window >= 1), through the variant :func:`flash_route` names.
-    ``variant="general"`` forces the general kernel, which takes every
-    input (to time it beside the routed variant); any other ``variant``
-    must be the routed one.  What depends only on the inputs' geometry is
-    checked and computed at its first call and kept (``_Launch``)."""
+    What depends only on the inputs' geometry is checked and computed at
+    its first call and kept (``_Launch``)."""
     name = "flash_attention_kernel"
     launch = _launch_of(q, k, v, causal, window, name)
-    route = launch.route if variant is None else variant
-    if route not in (launch.route, "general"):
-        raise ValueError(f"{name}: these inputs take the {launch.route} variant, not {variant}")
     out = torch.empty_like(q)
     if launch.empty:
         return out
     b, h, hkv, lq, lk, d = launch.dims
     stream = stream_of(q.device)
+    route = launch.route
     if route == "decode":
         # One fp32 scratch for the partials: (max, sum) first, then acc.
         launch.check_bases("flash_attention_decode", q, k, v)
@@ -335,10 +330,27 @@ def flash_attention_cuda(
         check(status, "flash_attention_resident")
         LAUNCHES["flash_attention_resident"] += 1
     else:
-        status = lib("flash_attention").flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
-            launch.strides, *launch.mask, launch.scale, launch.dtype_code, stream)
-        check(status, "flash_attention_general")
-        LAUNCHES["flash_attention_general"] += 1
+        _general(q, k, v, out, launch, stream)
     LAUNCHES[name] += 1
+    return out
+
+
+def _general(q, k, v, out, launch: _Launch, stream: int) -> None:
+    """The general kernel, which takes every input: the route of every
+    call no other variant takes."""
+    b, h, hkv, lq, lk, d = launch.dims
+    status = lib("flash_attention").flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
+        launch.strides, *launch.mask, launch.scale, launch.dtype_code, stream)
+    check(status, "flash_attention_general")
+    LAUNCHES["flash_attention_general"] += 1
+
+
+def _general_forced(q, k, v, causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention_cuda` through the general kernel whatever the
+    route, to time and check it beside the variant the route names."""
+    launch = _launch_of(q, k, v, causal, window, "flash_attention_general")
+    out = torch.empty_like(q)
+    if not launch.empty:
+        _general(q, k, v, out, launch, stream_of(q.device))
     return out

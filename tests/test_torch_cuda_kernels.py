@@ -664,7 +664,7 @@ def test_flash_attention_at_bert4recs_call(cuda_device):
                            model_layout=True)
     _check_flash_call(q, k, v, False, "resident")
     before = B.LAUNCHES["flash_attention_general"]
-    got = FK.flash_attention_cuda(q, k, v, causal=False, variant="general")
+    got = FK._general_forced(q, k, v, causal=False)
     torch.cuda.synchronize()
     assert B.LAUNCHES["flash_attention_general"] == before + 1
     flash_close(got, attention_ref_chunked(q.float(), k.float(), v.float(), False))

@@ -1,9 +1,11 @@
 """Time the search fold and the δ⁺ scoring kernel of this tree against
 another tree's, and ablated copies of the other tree's, at the main
-path's shapes on one GPU.
+path's shapes on one GPU; and the resident attention variant against
+ablated copies of itself at BERT4Rec's call.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 tools/kernel_ab.py build/parent     # on the GPU
+    python3 tools/kernel_ab.py                  # the attention alone
 
 The other tree's ``src/repro_torch`` is copied to
 ``build/kernel_ab/src/repro_torch_ab`` with its imports renamed, so both
@@ -27,7 +29,17 @@ taken out (a text substitution; a variant whose text is not in the
 source is reported as not applicable), timed the same way to split the
 kernel's time between its parts.  Each unablated fold is checked against
 the plain version bit for bit, each unablated scoring within the scores
-tolerance.  Results go to ``chiprun_out/kernel_ab.json``.
+tolerance.
+
+The attention's ablations are of this tree's ``flash_attention.cu``
+(``design`` is the unchanged source, built the same way).  The input is
+BERT4Rec's call on a bulk slice: q, k, v (32768, 2, 200, 32) float32 in
+the model's layout, not causal.  Each build's ``flash_resident_launch``
+is held to ``FLASH_TOL`` of the plain version, then timed with CUDA
+events in ``ATTENTION_TURNS`` turns, every build once a turn, the order
+reversed every other turn; ptxas's registers and spills of its kernel
+are kept.  Results go to ``chiprun_out/kernel_ab.json`` with the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -64,7 +76,34 @@ ABLATIONS = [
     # the gathers alone: every row reads the ranks of one of 256 rows (L2)
     ("cluster_score", "gathers_only", [("const int32_t* row = ell + d * l;",
                                         "const int32_t* row = ell + (d & 255) * l;")]),
+    # The resident attention kernel, one part of its design undone each.
+    ("flash_attention", "design", []),
+    # hi's TF32 rounding on the conversion unit (a quarter of the full rate)
+    ("flash_attention", "cvt_rounding",
+     [("  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+       "  uint32_t r;\n"
+       "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n"
+       "  return r;")]),
+    # lo rounded to nearest as hi is (two more operations a split)
+    ("flash_attention", "rounded_lo",
+     [("  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;",
+       "  lo = fr_tf32(x - __uint_as_float(hi));")]),
+    # the keys past Lk masked in every chunk, not only the last
+    ("flash_attention", "mask_every_chunk",
+     [("  if (j0 + FR_KEYS > lk) {  // the last chunk: keys past Lk (uniform)",
+       "  {  // every chunk")]),
+    # the library's exp2f in place of one MUFU ex2.approx
+    ("flash_attention", "precise_exp2",
+     [("  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = exp2f(x);")]),
+    # the products kept in program order
+    ("flash_attention", "volatile_mma",
+     [("  asm(\n      \"mma.sync", "  asm volatile(\n      \"mma.sync")]),
+    # 8 warps a block (2 blocks an SM) instead of 4 (4 blocks an SM)
+    ("flash_attention", "eight_warps", [("#define FR_WARPS 4", "#define FR_WARPS 8")]),
 ]
+# BERT4Rec's attention call on a bulk slice: B, H, Hkv, Lq, Lk, D.
+ATTENTION_SHAPE = (32768, 2, 2, 200, 200, 32)
+ATTENTION_TURNS = 8
 
 
 def other_package(tree: Path) -> str:
@@ -78,12 +117,16 @@ def other_package(tree: Path) -> str:
     return "repro_torch_ab"
 
 
-def build_ablations(build_mod):
-    """{(stem, variant): loaded library with the other tree's signatures}."""
+def build_ablations(build_mod, stems, logs=None):
+    """{(stem, variant): loaded library with ``build_mod``'s signatures} for
+    the ablations of ``stems``; each nvcc log goes to ``logs`` if given."""
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
 
     out, procs = {}, []
+    WORK.mkdir(parents=True, exist_ok=True)
     for stem, variant, subs in ABLATIONS:
+        if stem not in stems:
+            continue
         src = (build_mod.CSRC / f"{stem}.cu").read_text()
         if not all(old in src for old, _new in subs):
             out[(stem, variant)] = None
@@ -100,6 +143,8 @@ def build_ablations(build_mod):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {stem}_{variant}.cu failed:\n{log}")
+        if logs is not None:
+            logs[(stem, variant)] = log
         lib = ctypes.CDLL(str(so))
         for fn_name, argtypes in build_mod._SIGNATURES[stem].items():
             getattr(lib, fn_name).argtypes = list(argtypes)
@@ -142,13 +187,9 @@ def timings(torch, fn, kernel_key: str) -> dict:
     return {"eager_ms": S.time_ms(fn), "graph_ms": device, "profile": prof}
 
 
-def main(argv) -> int:
-    import torch
-
-    if len(argv) != 1 or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+def search_ab(torch, tree: Path, report: dict) -> None:
+    """The fold and the scoring kernel of this tree against ``tree``'s and
+    its ablated copies (``report["fold"]``, ``report["cluster_scores"]``)."""
     import chip_smoke as S
     from repro_torch.core import torch_ops as T
     from repro_torch.core.batched_query import plan_segment_pairs
@@ -160,16 +201,14 @@ def main(argv) -> int:
     from repro_torch.kernels.intersect.ref import segment_fold_ref
     from repro_torch.launch import search
 
-    name = other_package(Path(argv[0]).resolve())
+    name = other_package(tree)
     other_build = __import__(f"{name}.kernels.build", fromlist=["x"])
     other_fold = __import__(f"{name}.kernels.intersect.kernel", fromlist=["x"]).segment_fold_cuda
     other_scores = __import__(f"{name}.kernels.cluster_score.kernel",
                               fromlist=["x"]).cluster_scores_cuda
-    report = {"card": S.card_line(), "other_tree": argv[0]}
-    print(report["card"], flush=True)
     other_build.build_libraries()
     base_libs = dict(other_build._libs)
-    ablated = build_ablations(other_build)
+    ablated = build_ablations(other_build, ("fold", "cluster_score"))
 
     def with_lib(stem, lib, fn):
         other_build._libs[stem] = lib or base_libs[stem]
@@ -229,6 +268,74 @@ def main(argv) -> int:
     other_build._libs["cluster_score"] = base_libs["cluster_score"]
     report["cluster_scores"] = row
     print("cluster_scores: " + json.dumps(row), flush=True)
+
+
+def attention_ab(torch) -> dict:
+    """The resident attention kernel and its ablated copies at BERT4Rec's
+    call: {variant: its row}, each held to ``FLASH_TOL`` and timed in turns."""
+    import chip_smoke as S
+    from _torch_parity import attention_ref_chunked, flash_close, flash_inputs
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    logs = {}
+    built = {variant: lib for (_stem, variant), lib in
+             build_ablations(B, ("flash_attention",), logs).items()}
+    missing = [variant for variant, lib in built.items() if lib is None]
+    if missing:
+        raise RuntimeError(f"ablations whose text is not in flash_attention.cu: {missing}")
+    dev = torch.device("cuda", 0)
+    b, h, hkv, lq, lk, d = ATTENTION_SHAPE
+    q, k, v = flash_inputs(dev, torch.float32, b, h, hkv, lq, lk, d, seed=4, model_layout=True)
+    want = attention_ref_chunked(q.float(), k.float(), v.float(), False)
+    launch = FK._launch_of(q, k, v, False, None, "kernel_ab")
+    if launch.route != "resident":
+        raise AssertionError(f"BERT4Rec's call takes the {launch.route} variant")
+    out = torch.empty_like(q)
+
+    def call(lib):  # on the current stream: a graph capture's, when there is one
+        B.check(lib.flash_resident_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), launch.resident_args, launch.scale,
+                                          B.stream_of(dev)), "flash_attention_resident")
+
+    rows = {}
+    for variant, lib in built.items():
+        call(lib)
+        err, share = flash_close(out, want)
+        lines = logs[("flash_attention", variant)].splitlines()
+        at = next(i for i, ln in enumerate(lines) if "flash_resident_kernelILi1" in ln)
+        rows[variant] = {"ptxas": [ln.split(":", 1)[-1].strip() for ln in lines[at + 1:at + 4]
+                                   if "Used" in ln or "spill" in ln],
+                         "max_abs_err": err, "share_of_limit": share, "ms": []}
+    for turn in range(ATTENTION_TURNS):
+        for variant in (list(built) if turn % 2 == 0 else list(built)[::-1]):
+            rows[variant]["ms"].append(S.time_ms(lambda lib=built[variant]: call(lib), reps=10))
+    for variant, row in rows.items():
+        row["median_ms"] = float(np.median(row["ms"]))
+        row["min_ms"], row["max_ms"] = min(row["ms"]), max(row["ms"])
+        row["graph_ms"] = S.graph_ms(lambda lib=built[variant]: call(lib), reps=10)
+        print(f"{variant}: median {row['median_ms']:.4f} ms (min {row['min_ms']:.4f}, max "
+              f"{row['max_ms']:.4f}, graph {row['graph_ms']:.4f}) {' | '.join(row['ptxas'])}; "
+              f"max |err| {row['max_abs_err']:.3g} ({row['share_of_limit']:.3g} of FLASH_TOL)",
+              flush=True)
+    return {"shape": ATTENTION_SHAPE, "turns": ATTENTION_TURNS, "rows": rows}
+
+
+def main(argv) -> int:
+    import torch
+
+    if len(argv) > 1 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]
+    import chip_smoke as S
+
+    report = {"card": S.card_line()}
+    print(report["card"], flush=True)
+    if argv:
+        report["other_tree"] = argv[0]
+        search_ab(torch, Path(argv[0]).resolve(), report)
+    report["attention"] = attention_ab(torch)
     out = ROOT / "chiprun_out" / "kernel_ab.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
