@@ -24,7 +24,7 @@
    engine bit for bit, one fold launch a batch — with every launch
    counter set to 0 just before and the search kernels' counters read
    just after (the fold's arguments of each batch are recorded, for its
-   timing in step 11);
+   timing in step 12);
 5. drives the serving tier over the same fit through the launcher's
    functions (``serve_sharded``, ``replay_sealed``, ``replay_async``,
    ``replay_chaos``), on ``TIER_SHARDS`` shard slots of the card: both
@@ -108,7 +108,36 @@
    the limit; a trace of four decode steps under the mesh, the splits of
    each shard and the combine's total, and the dropped MoE slots under
    both capacity rules;
-10. drives the recsys serving path right after the LM phases: first a
+10. trains right after the LM phases (``TRAIN_PHASES``, on the emptied
+   card), after holding the attention's three backward kernels
+   (``csrc/flash_attention_bwd.cu``: ``flash_bwd_prep``,
+   ``flash_bwd_dkdv``, ``flash_bwd_dq``) against the plain backward
+   (``attention_bwd_ref``) at ``_torch_parity.FLASH_BWD_CASES`` and the
+   training shapes (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global
+   layer at 4,096 tokens in bf16, BERT4Rec's call at 32,768 rows in fp32,
+   past one launch chunk) within ``FLASH_BWD_TOL``, one launch of each a
+   call, with two faulty controls (the window dropped, the group sum
+   dropped) that must land beyond it.  Each phase goes through
+   ``launch/train.py``'s own ``train_setup`` and ``launch.steps.
+   train_step`` at the published widths with seeded random weights:
+   gemma3-4b at full depth (``train_4k``'s overrides, 2 microbatches of
+   one 4,096-token sequence, bf16 weights, fp32 masters and moments),
+   dien, mind and dcn-v2 at ``train_batch``'s 65,536 rows, bert4rec at
+   16,384.  The first step's loss and every gradient leaf through the
+   kernels are held to the same step through the plain attention on the
+   card (``TRAIN_GRAD_RTOL``; a faulty control — the backward without the
+   local layers' window, or BERT4Rec's made causal — beyond it), a recsys
+   arch's also to the port on the CPU on its first rows; then the steps,
+   counters set to 0 just before and read just after (the backward
+   kernels once a layer a microbatch, the sm90 forward twice under the
+   block remat), the last one traced (device time by part, idle), and
+   the loss on the first batch must fall.  Then the checkpoint restart on
+   dcn-v2 through the ``Trainer`` (restored state and next batch
+   bit-equal; resumed losses within ``CKPT_LOSS_RTOL`` of the
+   uninterrupted run's).  After the search path (step 4) it runs the
+   sanitizer on the warm fold (``analysis/sanitize.py``: clean, and a
+   planted ``.item()`` and ``torch.nonzero`` caught);
+11. drives the recsys serving path right after the training: first a
    ``FilteredRetriever`` (``serve/retrieval.py``, its defaults) over the
    ``retrieval_cand`` cell's ``N_ITEMS`` items with attributes drawn as
    the example search service draws them, each filter of ``FILTERS`` and
@@ -131,7 +160,7 @@
    its plain route's scores against the kernel route's, and each
    filter's survivors scored by the model: the top 10 equal to the
    unfiltered top 10 on the exact set (near-ties apart);
-11. times each kernel against its plain version at the main path's
+12. times each kernel against its plain version at the main path's
    shapes (the attention call at each phase's shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
    single call; the decode variant's split kernel and combine one by
@@ -149,7 +178,11 @@
    and prints one JSON line listing every kernel with its variant (the
    ``general`` kernel with its launches on the main path: none since the
    resident variant took BERT4Rec's call);
-12. prints ``{"ok": true, "device": {...}}`` as its last line.
+   The backward kernels are timed at the training shapes, each alone
+   (eager and as a graph replay) against its plain part and its bound,
+   beside the whole backward and ``scaled_dot_product_attention``'s
+   backward;
+13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
 GPU, or without the rest of the repository beside it, it exits non-zero
@@ -158,6 +191,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -358,6 +392,11 @@ SOURCES = {
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
     "flash_attention_general": (
         "src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:95"),
+    # The backward replaces no Pallas kernel: XLA's gradient of the jnp
+    # attention the JAX package trains through.
+    **{name: ("src/repro_torch/csrc/flash_attention_bwd.cu",
+              "none (XLA's gradient of src/repro/models/layers.py:97 attention)")
+       for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")},
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -2808,6 +2847,771 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
     return out, launches, rows
 
 
+# ----------------------------------------------------------------------
+# Training: the attention's backward kernels, the train steps, the
+# checkpoint restart and the sanitizer (TRAIN_PHASES)
+# ----------------------------------------------------------------------
+
+# The backward's training shapes: (label, dtype, B, H, Hkv, Lq, Lk, D,
+# causal, window).  gemma3-4b's local and global layer at one 4,096-token
+# sequence (train_4k, one microbatch), BERT4Rec's encoder call at 32,768
+# rows of 200 positions (its train_batch in slices: B·H = 65,536 passes
+# one launch chunk of 65,535).
+BWD_TRAIN_SHAPES = (
+    ("gemma3-4b train_4k, local layer (window 1024)", "bfloat16", 1, 8, 4, 4096, 4096, 256,
+     True, 1024),
+    ("gemma3-4b train_4k, global layer", "bfloat16", 1, 8, 4, 4096, 4096, 256, True, None),
+    ("bert4rec train_batch slice of 32,768 rows", "float32", 32768, 2, 2, 200, 200, 32, False,
+     None),
+)
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+# Flops a visible (row, key) pair and head, per unit of D, that each kernel
+# does (products of length D, two flops a multiply-add): prep S; dkdv S,
+# dP, dV, dK; dq S, dP, dQ.  The minimal backward does S, dP, dV, dK, dQ:
+# 10·D (its bound, BWD_MIN_FLOPS).
+BWD_FLOPS = {"flash_bwd_prep": 2, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}
+BWD_MIN_FLOPS = 10
+class TrainPhase(NamedTuple):
+    """A train phase: the arch, its train cell, rows a step, sequential
+    microbatches, steps (the first warms up, the last is traced), the
+    learning rate (one warmup step: a few steps must move the loss; the
+    launcher's default warms up over 100), the rows of the first step's
+    route comparison (None: the whole batch) and a depth cut (None: full
+    depth)."""
+
+    arch: str
+    cell: str
+    batch: int
+    microbatches: int
+    steps: int
+    lr: float
+    route_rows: Optional[int]
+    layers: Optional[int]
+
+
+# gemma3-4b at full width and depth: 2 microbatches of one 4,096-token
+# sequence (train_4k's 256 x 4,096 in 8 cut to 2 x 4,096 in 2: the card
+# holds 62 GB of state; at lr 3e-4 its second step's loss rose to 20.9
+# before falling, so 1e-4); dien and dcn-v2 at train_batch's 65,536 rows;
+# mind at 32,768 (its in-batch (B, B) logits take 17.2 GB at 65,536 rows
+# and their softmax's gradient as much again: the step ran out of the
+# card's 80 GB); bert4rec at 16,384 (its sampled-softmax logits take
+# 6.7 GB and their gradient as much again), its route comparison on the
+# first 4,096 rows (the plain attention's score tensors at 16,384 rows,
+# 5.2 GB each, did not fit beside the step).
+TRAIN_PHASES = (
+    TrainPhase("gemma3-4b", "train_4k", 2, 2, 4, 1e-4, None, None),
+    TrainPhase("dien", "train_batch", 65536, 1, 4, 3e-4, None, None),
+    TrainPhase("mind", "train_batch", 32768, 1, 4, 3e-4, None, None),
+    TrainPhase("dcn-v2", "train_batch", 65536, 1, 4, 3e-4, None, None),
+    TrainPhase("bert4rec", "train_batch", 16384, 1, 4, 3e-4, 4096, None),
+)
+TRAIN_SEED = 0
+# One warmup step (TrainPhase.lr).
+TRAIN_WARMUP = 1
+# The first step's loss and gradients through the kernels against the same
+# step through the plain attention (float32) on the card.  A leaf is
+# compared by its relative max error, max |a - b| / max |b|, as
+# LOGIT_RTOL compares logits.  bf16 model (gemma3-4b): both routes round
+# every activation, every weight gradient and every attention output and
+# gradient to bf16 (a step is 2**-8 to 2**-7 of the value), the kernels'
+# fp32 sums and the sm90 forward's bf16 P differ from the plain route's,
+# and 34 layers carry the flipped roundings on through the backward;
+# TRAIN_GRAD_RTOL allows that and no more, and the run's faulty control
+# (the backward with the local layers' window dropped) must land beyond
+# it.  float32 models: the plain route differs by float32 sum order only.
+TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}
+TRAIN_LOSS_RTOL = {"bfloat16": 2e-3, "float32": 1e-5}
+# A recsys step's loss and gradients on the card against the port on the
+# CPU, on the first CPU_TRAIN_ROWS rows: float32 sums in other orders (and
+# the embedding gradients' atomics on the card): an element within
+# TRAIN_GRAD_RTOL["float32"] of (its magnitude + the gradient tree's
+# largest), the CPU parity tests' metric.
+CPU_TRAIN_ROWS = 256
+# The checkpoint restart on dcn-v2 (train_batch, 4 steps, a checkpoint
+# every 2): the continued run's losses against the uninterrupted run's.
+# Embedding gradients are sums by atomics on the card, in an order that
+# changes from run to run, so the restart is held to CKPT_LOSS_RTOL, not
+# bit for bit (the run reports which).
+CKPT_STEPS, CKPT_EVERY = 4, 2
+CKPT_LOSS_RTOL = 1e-5
+
+
+def plain_bwd_parts(torch, q, k, v, out, dout, causal, window, part="all", lse=None,
+                    delta=None):
+    """The plain backward (``ref.py``: ``attention_bwd_ref`` or one of its
+    parts) on the card in float32, over chunks of the batch whose score
+    tensors stay within ``SCORE_BYTES`` (BERT4Rec's call would take 10.5 GB
+    at once)."""
+    from _torch_parity import SCORE_BYTES
+    from repro_torch.kernels.flash_attention import ref as R
+
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    rows = max(1, SCORE_BYTES // (4 * h * lq * lk))
+    f = [t.float() if t is not None else None for t in (q, k, v, out, dout)]
+    outs = []
+    for c0 in range(0, b, rows):
+        c1 = min(b, c0 + rows)
+        qc, kc, vc, oc, gc = (t[c0:c1] if t is not None else None for t in f)
+        if part == "prep":
+            outs.append(R.bwd_prep_ref(qc, kc, oc, gc, causal, window))
+            continue
+        if part == "all":
+            outs.append(R.attention_bwd_ref(qc, kc, vc, oc, gc, causal, window))
+            continue
+        lc, dc = lse[c0 * h:c1 * h], delta[c0 * h:c1 * h]
+        fn = R.bwd_dkdv_ref if part == "dkdv" else R.bwd_dq_ref
+        res = fn(qc, kc, vc, gc, lc, dc, causal, window)
+        outs.append(res if isinstance(res, tuple) else (res,))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window, seed):
+    """q, k, v (model layout where Lk is even), the forward's output
+    through its route, and a standard-normal output gradient."""
+    from _torch_parity import flash_inputs
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q, k, v = flash_inputs(dev, dtype, b, h, hkv, lq, lk, d, seed=seed, model_layout=lk % 2 == 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    return q, k, v, FK.flash_attention_cuda(q, k, v, causal=causal, window=window), dout
+
+
+def check_flash_bwd_cases(torch, dev) -> dict:
+    """The backward kernels against the plain backward on the card at
+    ``FLASH_BWD_CASES`` (fp32 and bf16) and the training shapes: the whole
+    backward (one launch of each kernel a call) against
+    ``attention_bwd_ref``, and each kernel alone against its own plain
+    part — ``flash_bwd_prep``'s lse and delta against ``bwd_prep_ref``,
+    ``flash_bwd_dkdv``'s dK, dV and ``flash_bwd_dq``'s dQ against
+    ``bwd_dkdv_ref`` and ``bwd_dq_ref`` fed the same lse and delta — each
+    within ``FLASH_BWD_TOL``; then the faulty controls, which must land
+    beyond it: the window dropped (the backward of a local layer computed
+    as if it were global) and the group sum dropped (dK and dV from the
+    first query head of each group only).  Returns per dtype the largest
+    error and share of the limit of the whole backward and of each
+    kernel (``kernels``)."""
+    from _torch_parity import FLASH_BWD_CASES, flash_bwd_close, flash_bwd_error
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    t0 = time.perf_counter()
+    worst = {dt: {"max_abs_err": 0.0, "share": 0.0, "cases": 0,
+                  "kernels": {name: {"max_abs_err": 0.0, "share": 0.0} for name in BWD_KERNELS}}
+             for dt in ("float32", "bfloat16")}
+    cases = [(f"case {c}", dt, *c) for c in FLASH_BWD_CASES for dt in ("float32", "bfloat16")]
+    cases += [(label, dt, b, h, hkv, lq, lk, d, causal, window)
+              for label, dt, b, h, hkv, lq, lk, d, causal, window in BWD_TRAIN_SHAPES]
+    controls = {}
+    for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        q, k, v, out, dout = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window,
+                                        seed=500 + n)
+        before = {name: B.LAUNCHES[name] for name in BWD_KERNELS}
+        got = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window)
+        torch.cuda.synchronize()
+        launched = {name: B.LAUNCHES[name] - before[name] for name in BWD_KERNELS}
+        if launched != dict.fromkeys(BWD_KERNELS, 1):
+            raise AssertionError(f"backward {label}: launches {launched}")
+        want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+            try:
+                err, share = flash_bwd_close(name, g, w)
+            except AssertionError as exc:
+                raise AssertionError(f"backward {label} ({dt}): {exc}") from exc
+            worst[dt]["max_abs_err"] = max(worst[dt]["max_abs_err"], err)
+            worst[dt]["share"] = max(worst[dt]["share"], share)
+        worst[dt]["cases"] += 1
+        # Each kernel alone against its own plain part.
+        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+        dk, dv = FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window)
+        dq = FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window)
+        parts = {
+            "flash_bwd_prep": zip(("lse", "delta"), (lse, delta),
+                                  plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                  "prep")),
+            "flash_bwd_dkdv": zip(("dk", "dv"), (dk, dv),
+                                  plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                  "dkdv", lse, delta)),
+            "flash_bwd_dq": zip(("dq",), (dq,),
+                                plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq",
+                                                lse, delta)),
+        }
+        for kname, outs in parts.items():
+            mine = worst[dt]["kernels"][kname]
+            for name, g, w in outs:
+                try:
+                    err, share = flash_bwd_close(name, g, w)
+                except AssertionError as exc:
+                    raise AssertionError(f"{kname} {label} ({dt}): {exc}") from exc
+                mine["max_abs_err"] = max(mine["max_abs_err"], err)
+                mine["share"] = max(mine["share"], share)
+        del lse, delta, dk, dv, dq, parts
+        if label.startswith("gemma3-4b") and window is not None:
+            bad = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, None)
+            controls["window dropped"] = max(flash_bwd_error(g, w)[1]
+                                             for g, w in zip(bad, want, strict=True))
+        if label.startswith("gemma3-4b") and window is None:
+            g = h // hkv
+            q0, o0, d0 = q[:, ::g], out[:, ::g], dout[:, ::g]
+            lse0, delta0 = FK.bwd_prep_cuda(q0, k, o0, d0, causal, window, v=v)
+            bad = FK.bwd_dkdv_cuda(q0, k, v, d0, lse0, delta0, causal, window)
+            controls["group sum dropped"] = max(flash_bwd_error(g_, w)[1]
+                                                for g_, w in zip(bad, want[1:], strict=True))
+        del q, k, v, out, dout, got, want
+    for name, share in controls.items():
+        print(f"attention backward control ({name}): {share:.3g} of the limit", flush=True)
+        if share <= 1.0:
+            raise AssertionError(f"the backward's control ({name}) was not caught: {share:.3g}")
+    worst["controls"] = controls
+    print("attention backward: " + ", ".join(
+        f"{dt} {w['cases']} cases max |err| {w['max_abs_err']:.3g} ({w['share']:.3g} of the "
+        f"limit; each kernel alone: " + ", ".join(
+            f"{n} {e['max_abs_err']:.3g} ({e['share']:.3g})" for n, e in w["kernels"].items())
+        + ")" for dt, w in worst.items() if dt != "controls")
+        + f" in {time.perf_counter() - t0:.1f}s", flush=True)
+    return worst
+
+
+def sdpa_backward(torch, q, k, v, dout, causal, window):
+    """``scaled_dot_product_attention``'s backward on the same inputs (K
+    and V repeated over the group inside the graph, so the group sum is
+    its own): a callable computing (dq, dk, dv), the library yardstick."""
+    import torch.nn.functional as F
+
+    g = q.shape[1] // k.shape[1]
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    kr = ks.repeat_interleave(g, dim=1) if g > 1 else ks
+    vr = vs.repeat_interleave(g, dim=1) if g > 1 else vs
+    lq, lk = q.shape[2], k.shape[2]
+    if window is not None:
+        i = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+        j = torch.arange(lk, device=q.device)[None, :]
+        out = F.scaled_dot_product_attention(qs, kr, vr, attn_mask=(j <= i) & (j > i - window))
+    else:
+        out = F.scaled_dot_product_attention(qs, kr, vr, is_causal=causal and lq == lk)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True)
+
+
+def flash_bwd_rows(torch, dev, launches, checked) -> list:
+    """The three backward kernels at the training shapes
+    (``BWD_TRAIN_SHAPES``): each alone, eager and as a graph replay,
+    against its plain version (its part of ``attention_bwd_ref``) and its
+    bound (its own flops, ``BWD_FLOPS``·D a visible pair and head, at the
+    unit of the inputs' dtype: 989 TFLOP/s bf16, 67 fp32; or its bytes);
+    the whole backward beside them (bound 10·D a pair and head), with the
+    backward of ``scaled_dot_product_attention`` on the same inputs.
+    Returns the three kernels' entries."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    rows = {name: [] for name in BWD_KERNELS}
+    for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(BWD_TRAIN_SHAPES):
+        dtype = getattr(torch, dt)
+        item = 2 if dt == "bfloat16" else 4
+        peak = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
+        q, k, v, out, dout = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window,
+                                        seed=700 + n)
+        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+        pairs = visible_pairs(lq, lk, causal, window) * b * h
+        big = pairs > 4 * PLAIN_ONCE_PAIRS
+        reps = 1 if big else 3
+        qb, kb = item * q.numel(), item * k.numel()
+        stat = 4 * 2 * b * h * lq  # lse and delta
+        nbytes = {"flash_bwd_prep": 2 * qb + kb + qb + stat,  # q, k, o, dO; lse, delta
+                  "flash_bwd_dkdv": 2 * qb + 2 * kb + stat + 2 * kb,  # q, k, v, dO, lse, delta; dk, dv
+                  "flash_bwd_dq": 2 * qb + 2 * kb + stat + qb}  # ...; dq
+        calls = {
+            "flash_bwd_prep": (lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v),
+                               lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                       "prep")),
+            "flash_bwd_dkdv": (lambda: FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window),
+                               lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                       "dkdv", lse, delta)),
+            "flash_bwd_dq": (lambda: FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window),
+                             lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                     "dq", lse, delta)),
+        }
+        library = sdpa_backward(torch, q, k, v, dout, causal, window)
+        want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
+        lib_share = max(float((g.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                        for g, w in zip(library(), want, strict=True))
+        if lib_share > LIBRARY_TOL:
+            raise AssertionError(f"SDPA's backward yardstick at {label}: {lib_share:.3g}")
+        library_ms = time_ms(library, reps=5, warmup=2)
+        whole = lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window)  # noqa: E731
+        whole_ms, whole_device = time_ms(whole, reps=5), graph_ms(whole, reps=5)
+        whole_plain = time_ms(lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window),
+                              reps=reps, warmup=1)
+        whole_ops = BWD_MIN_FLOPS * d * pairs
+        whole_bytes = item * (3 * q.numel() + 2 * k.numel()) + item * (q.numel() + 2 * k.numel())
+        whole_bound = max(whole_ops / peak, whole_bytes / MEM_BYTES_PER_S) * 1e3
+        print(f"attention backward {label}: q ({b}, {h}, {lq}, {d}) over ({b}, {hkv}, {lk}, {d}) "
+              f"{dt}, {pairs} visible pair-heads: all three kernels {whole_ms:.4f} ms (graph "
+              f"{whole_device:.4f}), plain {whole_plain:.4f}, SDPA's backward {library_ms:.4f} "
+              f"(rel. max err {lib_share:.2g}); bound {whole_bound:.5f} ms "
+              f"({BWD_MIN_FLOPS}·D flops a pair-head at {peak / 1e12:.0f} TFLOP/s; bytes "
+              f"{whole_bytes / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
+        for name, (kernel, plain) in calls.items():
+            ops = BWD_FLOPS[name] * d * pairs
+            bytes_ms, ops_ms = nbytes[name] / MEM_BYTES_PER_S * 1e3, ops / peak * 1e3
+            row = {
+                "shape": f"{label}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) {dt}",
+                "ms": time_ms(kernel, reps=5), "device_ms": graph_ms(kernel, reps=5),
+                "plain_ms": time_ms(plain, reps=reps, warmup=1), "ops": ops,
+                "bytes": nbytes[name], "visible_pair_heads": pairs,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None, "sdpa_backward_ms": library_ms,
+                "whole_backward_ms": whole_ms, "whole_backward_device_ms": whole_device,
+                "whole_backward_plain_ms": whole_plain, "whole_backward_bound_ms": whole_bound,
+                "max_abs_err": checked[dt]["kernels"][name]["max_abs_err"],
+            }
+            rows[name].append(row)
+            print(f"{name} {row['shape']}: ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+                  f"({row['bound_by']}; {BWD_FLOPS[name]}·D flops a pair-head, bytes "
+                  f"{bytes_ms:.5f})", flush=True)
+        del q, k, v, out, dout, lse, delta, library, want
+        torch.cuda.empty_cache()
+    return [kernel_entry(name, launches, rows[name], variant="backward") for name in BWD_KERNELS]
+
+
+class FaultyBackward:
+    """A faulty control of the train phases: ``layers.attention`` through
+    the kernel's forward, with the backward kernels called on another mask:
+    ``"window dropped"`` (no window: a local layer's backward computed as a
+    global one's) or ``"made causal"`` (BERT4Rec's bidirectional call)."""
+
+    def __init__(self, torch, fault: str):
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        self.fault = fault
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal, window):
+                out = FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                ctx.save_for_backward(q, k, v, out)
+                ctx.mask = (causal, None) if fault == "window dropped" else (True, window)
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                q, k, v, out = ctx.saved_tensors
+                return (*FK.flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), *ctx.mask),
+                        None, None)
+
+        self.fn = Fn
+
+    def __call__(self, q, k, v, causal=True, window=None):
+        out = self.fn.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+                            window)
+        return out.transpose(1, 2)
+
+
+def _grads_of(torch, model, batches, loss_fn, attention=None):
+    """The loss (mean over the microbatches) and the model's gradients
+    (summed over them), no update; with ``attention`` in place of
+    ``layers.attention``."""
+    from repro_torch.models import layers as L
+
+    for p in model.parameters():
+        p.grad = None
+
+    def run():
+        losses = []
+        for mb in batches:
+            loss = loss_fn(model, mb)
+            loss.backward()
+            losses.append(float(loss.detach()))
+        return sum(losses) / len(losses)
+
+    loss = run() if attention is None else with_attention(L, attention, run)
+    torch.cuda.synchronize()
+    return loss
+
+
+def _host_grads(model) -> dict:
+    """The model's gradients copied to the host, by parameter name (a
+    gemma3-4b copy takes 7.8 GB of host memory)."""
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def _rel_errs(torch, dev, got: dict, want: dict) -> dict:
+    """Per leaf max |a - b| / max |b| of ``got`` against ``want`` (host
+    tensors by name), each leaf compared on the card."""
+    out = {}
+    for name, w in want.items():
+        a, b = got[name].to(dev).float(), w.to(dev).float()
+        out[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return out
+
+
+def train_phase(torch, dev, phase: TrainPhase) -> tuple:
+    """One train phase through ``launch/train.py``'s own ``train_setup``
+    and ``launch.steps.train_step``: seeded random weights at full width;
+    the first step's loss and gradients through the kernels against the
+    same step through the plain attention on the card (TRAIN_GRAD_RTOL;
+    the faulty control beyond it), for a recsys arch also a slice of
+    rows against the port on the CPU; then ``phase.steps`` steps with the
+    counters set to 0 just before and read just after (launches as
+    designed), the last one traced; the loss on the first batch must fall
+    over the steps.  Returns its report and the kernels' launches."""
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TL
+
+    argv = ["--arch", phase.arch, "--config", "full", "--cell", phase.cell,
+            "--batch", str(phase.batch), "--microbatches", str(phase.microbatches),
+            "--steps", str(phase.steps), "--device", str(dev)]
+    argv += ["--layers", str(phase.layers)] if phase.layers else []
+    setup = TL.train_setup(TL.build_parser().parse_args(argv))
+    # The cell's AdamW warms up over 100 steps; a few steps must move the loss.
+    setup.opt_cfg = dataclasses.replace(setup.opt_cfg, lr=phase.lr, warmup_steps=TRAIN_WARMUP,
+                                        total_steps=phase.steps)
+    cfg = setup.cfg
+    lm = setup.spec.family == "lm"
+    t0 = time.perf_counter()
+    model = setup.init_model_fn(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    model.requires_grad_(True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dtype = str(cfg.adtype).removeprefix("torch.")
+    micro = setup.microbatches
+    batches = [serve.to_device(setup.pipeline.batch(PipelineState(s)), dev)
+               for s in range(phase.steps)]
+    first = [S.microbatch(batches[0], i, micro) for i in range(micro)]
+    route = first if phase.route_rows is None else [
+        {k: v[:phase.route_rows] for k, v in batches[0].items()}]
+    n_attn = cfg.n_layers if lm else (cfg.n_blocks if phase.arch == "bert4rec" else 0)
+    report = {"arch": phase.arch, "cell": phase.cell, "rows": phase.batch, "microbatches": micro,
+              "layers": cfg.n_layers if lm else None, "dtype": dtype, "init_s": init_s,
+              "params": cfg.n_params()}
+    print(f"train {phase.arch} [{phase.cell}: {phase.batch} rows in {micro} microbatch(es)"
+          f"{', ' + str(cfg.n_layers) + ' layers' if lm else ''}, {dtype}]: "
+          f"{cfg.n_params() / 1e9:.3f} B parameters, init {init_s:.1f}s", flush=True)
+
+    # The first step's gradients, kernel route against the plain route.
+    if lm or phase.arch == "bert4rec":
+        B.reset_launch_counts()
+        loss_k = _grads_of(torch, model, route, setup.loss_fn)
+        first_launches = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+        if first_launches != dict.fromkeys(BWD_KERNELS, n_attn * len(route)):
+            raise AssertionError(f"{phase.arch}: first step's backward launches "
+                                 f"{first_launches}, want {n_attn * len(route)} each")
+        kernel_grads = _host_grads(model)
+        loss_p = _grads_of(torch, model, route, setup.loss_fn, plain_route_attention)
+        plain_grads = _host_grads(model)
+        control = FaultyBackward(torch, "window dropped" if lm else "made causal")
+        loss_c = _grads_of(torch, model, route, setup.loss_fn, control)
+        ctrl_errs = _rel_errs(torch, dev, _host_grads(model), plain_grads)
+        for p in model.parameters():
+            p.grad = None
+        errs = _rel_errs(torch, dev, kernel_grads, plain_grads)
+        del kernel_grads, plain_grads
+        worst = max(errs, key=errs.get)
+        ctrl_worst = max(ctrl_errs, key=ctrl_errs.get)
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        report["first_step"] = {
+            "rows": sum(next(iter(mb.values())).shape[0] for mb in route),
+            "loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_err": loss_err,
+            "grad_rel_err_max": errs[worst], "grad_worst_leaf": worst,
+            "grad_rel_err_median": float(np.median(list(errs.values()))),
+            "control": control.fault, "control_loss": loss_c,
+            "control_grad_rel_err_max": ctrl_errs[ctrl_worst], "control_worst_leaf": ctrl_worst,
+            "limit": TRAIN_GRAD_RTOL[dtype],
+        }
+        print(f"  first step: loss {loss_k:.6f} (plain route {loss_p:.6f}, rel. {loss_err:.3g}); "
+              f"gradients' relative max error per leaf: max {errs[worst]:.4g} ({worst}), median "
+              f"{report['first_step']['grad_rel_err_median']:.4g}, limit "
+              f"{TRAIN_GRAD_RTOL[dtype]}; control ({report['first_step']['control']}) "
+              f"{ctrl_errs[ctrl_worst]:.4g} ({ctrl_worst})", flush=True)
+        if not loss_err <= TRAIN_LOSS_RTOL[dtype]:
+            raise AssertionError(f"{phase.arch}: first loss {loss_k} vs plain {loss_p}")
+        if not errs[worst] <= TRAIN_GRAD_RTOL[dtype]:
+            raise AssertionError(f"{phase.arch}: gradient {worst} off the plain route's by "
+                                 f"{errs[worst]:.4g} > {TRAIN_GRAD_RTOL[dtype]}")
+        if not ctrl_errs[ctrl_worst] > TRAIN_GRAD_RTOL[dtype]:
+            raise AssertionError(f"{phase.arch}: the faulty control was not caught "
+                                 f"({ctrl_errs[ctrl_worst]:.4g})")
+    if not lm:
+        report["cpu_slice"] = recsys_cpu_slice(torch, model, setup, batches[0])
+
+    # The train steps, through the kernels.
+    opt = S.train_state(model, setup.opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B.reset_launch_counts()
+    losses, step_s = [], []
+    for s in range(phase.steps - 1):
+        t0 = time.perf_counter()
+        losses.append(float(S.train_step(model, opt, batches[s], micro, setup.loss_fn)))
+        step_s.append(time.perf_counter() - t0)
+    trace = train_trace(torch, model, opt, batches[-1], micro, setup.loss_fn)
+    losses.append(trace.pop("loss"))
+    torch.cuda.synchronize()
+    launches = {n: B.LAUNCHES[n] for n in (*BWD_KERNELS, "flash_attention_sm90",
+                                           "flash_attention_resident", "flash_attention_kernel")}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    design = {n: n_attn * micro * phase.steps for n in BWD_KERNELS}
+    if lm:  # the forward and its replay under the block remat
+        design["flash_attention_sm90"] = 2 * n_attn * micro * phase.steps
+    elif n_attn:
+        design["flash_attention_resident"] = n_attn * phase.steps
+    got = {n: launches[n] for n in design}
+    if got != design:
+        raise AssertionError(f"{phase.arch}: train launches {got}, designed {design}")
+    with torch.no_grad():
+        after = sum(float(setup.loss_fn(model, mb)) for mb in first) / micro
+    before = losses[0]  # the first step's loss: the first batch at the initial weights
+    if not (all(np.isfinite(losses)) and np.isfinite(after) and after < before):
+        raise AssertionError(f"{phase.arch}: losses {losses}, first batch {before} -> {after}")
+    tokens = phase.batch * (setup.pipeline.seq_len if lm else 1)
+    steady = float(np.median(step_s[1:])) if len(step_s) > 1 else step_s[0]
+    report.update({
+        "losses": losses, "first_batch_loss_before": before, "first_batch_loss_after": after,
+        "step_s": step_s, "step_s_median": steady, "rows_or_tokens_per_s": tokens / steady,
+        "peak_gib": peak, "launches": launches, "launches_design": design, **trace,
+    })
+    if lm:
+        # 6·N·T, N counting the embedding table once: tied (gemma3-4b), it
+        # is the head's product; its lookup adds no flops.
+        flops = 6 * cfg.n_params() * tokens
+        report["model_flops_share"] = flops / steady / BF16_OPS_PER_S
+    print(f"  steps: losses {[round(x, 5) for x in losses]}; first batch {before:.5f} -> "
+          f"{after:.5f}; step {steady:.3f} s ({tokens / steady:,.0f} "
+          f"{'tokens' if lm else 'rows'}/s), peak {peak:.2f} GiB"
+          + (f", model FLOPs {report['model_flops_share']:.1%} of 989 TFLOP/s" if lm else "")
+          + f"; launches {launches}", flush=True)
+    del opt, model, batches, first
+    return report, {n: launches[n] for n in BWD_KERNELS}
+
+
+def recsys_cpu_slice(torch, model, setup, batch) -> dict:
+    """A recsys model's loss and gradients on its first ``CPU_TRAIN_ROWS``
+    rows on the card against its copy on the CPU (the same state dict)."""
+    rows = {k: v[:CPU_TRAIN_ROWS] for k, v in batch.items()}
+    host = type(model)(model.cfg, "cpu")
+    host.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    host.requires_grad_(True)
+    for p in model.parameters():
+        p.grad = None
+    loss = setup.loss_fn(model, rows)
+    loss.backward()
+    host_loss = setup.loss_fn(host, {k: v.cpu() for k, v in rows.items()})
+    host_loss.backward()
+    card = dict(model.named_parameters())
+    scale = max(float(p.grad.abs().max()) for p in host.parameters())
+    worst = 0.0
+    for name, p in host.named_parameters():
+        err = (card[name].grad.float().cpu() - p.grad).abs() / (p.grad.abs() + scale)
+        worst = max(worst, float(err.max()))
+    for p in model.parameters():
+        p.grad = None
+    lerr = abs(float(loss.detach()) - float(host_loss.detach())) / abs(float(host_loss.detach()))
+    print(f"  {CPU_TRAIN_ROWS} rows against the CPU port: loss rel. {lerr:.3g}, gradients "
+          f"{worst:.3g} (limit {TRAIN_GRAD_RTOL['float32']})", flush=True)
+    if lerr > TRAIN_LOSS_RTOL["float32"] or worst > TRAIN_GRAD_RTOL["float32"]:
+        raise AssertionError(f"{model.cfg.name}: the card's step disagrees with the CPU port's "
+                             f"(loss {lerr:.3g}, gradients {worst:.3g})")
+    return {"rows": CPU_TRAIN_ROWS, "loss_rel_err": lerr, "grad_err": worst}
+
+
+def train_trace(torch, model, opt, batch, micro, loss_fn) -> dict:
+    """One train step under ``torch.profiler``, with CUDA events recorded on
+    the stream around each microbatch's forward pass and around the
+    optimizer: the step's host-clock s; its device time by part — the
+    stream's ms between those events (kernels and the gaps between them):
+    the forward passes, the backward passes (from a forward's end to the
+    next forward or the optimizer; the block remat's replayed forward
+    included), of which the attention backward's kernels (their own
+    profiler events), and the optimizer; the kernels' total, the device's
+    idle share, and the step's loss."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as S
+
+    marks = []
+
+    def marked(fn, label):
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            marks.append((label, start, end))
+            return out
+        return wrapped
+
+    original = S.adamw_update
+    S.adamw_update = marked(original, "optimizer")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss = float(S.train_step(model, opt, batch, micro, marked(loss_fn, "forward")))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        S.adamw_update = original
+    parts = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for (label, start, end), nxt in zip(marks, marks[1:] + [None]):
+        parts[label] += start.elapsed_time(end)
+        if label == "forward" and nxt is not None:
+            parts["backward"] += end.elapsed_time(nxt[1])
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    out = {"loss": loss, "traced_step_s": wall_s, "forward_ms": parts["forward"],
+           "backward_ms": parts["backward"], "optimizer_ms": parts["optimizer"]}
+    if device_us <= 0.0:
+        print("  train trace: the profiler saw no device time (not measured)", flush=True)
+        out.update({"device_ms": None, "attention_backward_ms": None, "idle_share": None})
+        return out
+    out.update({"device_ms": device_us / 1e3,
+                "attention_backward_ms": sum(e.time_range.elapsed_us() for e in kernels
+                                             if "flash_bwd" in e.name) / 1e3,
+                "idle_share": 1.0 - device_us / 1e6 / wall_s})
+    out["other_backward_ms"] = out["backward_ms"] - out["attention_backward_ms"]
+    print(f"  traced step: {wall_s:.3f} s; stream ms: forward {out['forward_ms']:.1f}, backward "
+          f"{out['backward_ms']:.1f} (attention backward kernels {out['attention_backward_ms']:.1f}, "
+          f"the rest {out['other_backward_ms']:.1f}, remat replay included), optimizer "
+          f"{out['optimizer_ms']:.1f}; device kernels {out['device_ms']:.1f} ms, idle "
+          f"{out['idle_share']:.1%}", flush=True)
+    return out
+
+
+def checkpoint_phase(torch, dev) -> dict:
+    """Checkpoint and restart on the card through ``launch/train.py``'s
+    ``train_setup``/``make_trainer`` and the ``Trainer``: dcn-v2 at
+    ``train_batch``, ``CKPT_STEPS`` steps with a checkpoint every
+    ``CKPT_EVERY``; the state at the first checkpoint kept at its save, then
+    restored from disk (params, moments, step: bit-equal) with the next
+    batch (bit-equal to the one the run fed); the later checkpoint
+    removed, a new trainer resumes, and its losses must match the
+    uninterrupted run's (``CKPT_LOSS_RTOL``; bit for bit is reported)."""
+    import shutil
+
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.launch import train as TL
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    args = TL.build_parser().parse_args(
+        ["--arch", "dcn-v2", "--config", "full", "--cell", "train_batch", "--steps",
+         str(CKPT_STEPS), "--ckpt-dir", str(ckdir), "--device", str(dev)])
+    setup = TL.train_setup(args)
+    setup.trainer_cfg = dataclasses.replace(setup.trainer_cfg, ckpt_every=CKPT_EVERY,
+                                            log_every=10**9)
+    shutil.rmtree(setup.trainer_cfg.ckpt_dir, ignore_errors=True)
+    fed = []
+    real_batch = setup.pipeline.batch
+
+    def recording(state, shard=0):
+        out = real_batch(state, shard)
+        fed.append((state.step, out))
+        return out
+
+    setup.pipeline.batch = recording
+    t0 = time.perf_counter()
+    first = TL.make_trainer(setup)
+    saved = {}
+
+    def keep(step, loss):
+        if step + 1 == CKPT_EVERY:  # just saved
+            saved.update(first.state_of(first.opt, step + 1))
+            saved["params"] = {k: v.detach().cpu().clone() for k, v in first.opt.params.items()}
+            saved["opt"] = {"mu": {k: v.cpu().clone() for k, v in first.opt.opt["mu"].items()},
+                            "nu": {k: v.cpu().clone() for k, v in first.opt.opt["nu"].items()},
+                            "step": first.opt.opt["step"].cpu().clone()}
+
+    first.run(on_step=keep)
+    full = [loss for _, loss, _ in first.history]
+    mgr = CheckpointManager(setup.trainer_cfg.ckpt_dir)
+    step, restored = mgr.restore(first.state_of(first.opt, 0), CKPT_EVERY)
+    bit_equal = {
+        "params": all(torch.equal(restored["params"][k].cpu(), v)
+                      for k, v in saved["params"].items()),
+        "moments": all(torch.equal(restored["opt"][m][k].cpu(), v)
+                       for m in ("mu", "nu") for k, v in saved["opt"][m].items()),
+        "step": torch.equal(restored["opt"]["step"].cpu(), saved["opt"]["step"]),
+        "pipeline_step": int(restored["pipeline_step"]) == int(saved["pipeline_step"])
+        == CKPT_EVERY}
+    nxt = real_batch(PipelineState(int(restored["pipeline_step"])))
+    fed_next = dict(fed)[CKPT_EVERY]
+    batch_equal = all(np.array_equal(nxt[k], fed_next[k]) for k in fed_next)
+    del restored, saved
+    shutil.rmtree(Path(setup.trainer_cfg.ckpt_dir) / f"ckpt_{CKPT_STEPS:08d}")
+    second = TL.make_trainer(setup)
+    second.run()
+    resumed = [loss for _, loss, _ in second.history]
+    steps_resumed = [s for s, _, _ in second.history]
+    wall_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[CKPT_EVERY:], strict=True))
+    out = {"arch": "dcn-v2", "rows": setup.pipeline.batch_per_shard, "steps": CKPT_STEPS,
+           "ckpt_every": CKPT_EVERY, "restored_bit_equal": bit_equal,
+           "next_batch_bit_equal": batch_equal, "losses_full": full, "losses_resumed": resumed,
+           "steps_resumed": steps_resumed, "loss_rel_err": rel,
+           "losses_bit_equal": resumed == full[CKPT_EVERY:], "wall_s": wall_s,
+           "state_mib": sum(p.numel() * 4 * 3 for p in first.opt.params.values()) / 2**20}
+    print(f"checkpoint restart (dcn-v2, {out['rows']} rows, {out['state_mib']:.0f} MiB of "
+          f"params and moments): restored bit-equal {bit_equal}, next batch bit-equal "
+          f"{batch_equal}; resumed steps {steps_resumed} losses {resumed} vs "
+          f"{full[CKPT_EVERY:]} (rel. {rel:.3g}, bit for bit {out['losses_bit_equal']}) in "
+          f"{wall_s:.1f}s", flush=True)
+    shutil.rmtree(setup.trainer_cfg.ckpt_dir, ignore_errors=True)
+    if not (all(bit_equal.values()) and batch_equal and steps_resumed == list(range(CKPT_EVERY, CKPT_STEPS))
+            and rel <= CKPT_LOSS_RTOL):
+        raise AssertionError(f"checkpoint restart failed: {out}")
+    return out
+
+
+def sanitizer_phase(torch, svc, cq) -> dict:
+    """The sanitizer on the warm fold of the search service: a warm batch
+    inside ``no_implicit_transfers`` (``set_sync_debug_mode("error")`` and
+    the sentinel) is clean and equal; a planted ``.item()`` in the fold's
+    path raises (the sentinel), and so does a planted ``torch.nonzero``
+    (a sync inside an operator, which only the CUDA guard sees)."""
+    from repro_torch.analysis.sanitize import ImplicitTransferError, no_implicit_transfers
+    from repro_torch.core import device_engine
+
+    want, _ = svc.serve_counts_device(cq)  # warm
+    with no_implicit_transfers():
+        counts, _ = svc.serve_counts_device(cq)
+    if not np.array_equal(counts, want):
+        raise AssertionError("the sanitized warm fold changed the counts")
+    real = device_engine.device_fold
+    caught = {}
+    plants = {"item": lambda out: out[0].sum().item(),
+              "nonzero": lambda out: torch.nonzero(out[0])}
+    for name, plant in plants.items():
+        def leaky(*args, plant=plant, **kwargs):
+            out = real(*args, **kwargs)
+            plant(out)
+            return out
+
+        device_engine.device_fold = leaky
+        try:
+            with no_implicit_transfers():
+                svc.serve_counts_device(cq)
+            caught[name] = None
+        except (ImplicitTransferError, RuntimeError) as exc:
+            caught[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+        finally:
+            device_engine.device_fold = real
+    print(f"sanitizer on the warm fold ({len(cq)} queries): clean and equal; planted "
+          f"{caught}", flush=True)
+    if any(v is None for v in caught.values()):
+        raise AssertionError(f"a planted sync was not caught: {caught}")
+    return {"queries": len(cq), "clean": True, "caught": caught}
+
+
 def kernel_entry(name, launches, rows, variant):
     source, replaces = SOURCES[name]
     main = rows[0]
@@ -2869,6 +3673,26 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"attention launches over the LM phases: {launches}", flush=True)
 
+    # Training: the backward kernels' checks, then each train phase on an
+    # empty card (gemma3-4b's state takes 62 GB), then the checkpoint
+    # restart; each phase reads the counters around its own steps.
+    bwd_errs = check_flash_bwd_cases(torch, dev)
+    train = {}
+    for phase in TRAIN_PHASES:
+        t0 = time.perf_counter()
+        train[phase.arch], phase_launches = train_phase(torch, dev, phase)
+        train[phase.arch]["wall_s"] = time.perf_counter() - t0
+        print(f"train phase {phase.arch}: {train[phase.arch]['wall_s']:.1f}s", flush=True)
+        for n, c in phase_launches.items():
+            launches[n] = launches.get(n, 0) + c
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train["checkpoint"] = checkpoint_phase(torch, dev)
+    print(f"checkpoint phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"backward launches over the train phases: "
+          f"{ {n: launches[n] for n in BWD_KERNELS} }", flush=True)
+
     # The recsys serving path: the filtered retrieval's host fit, then each
     # arch's phase (which reads only the attention counters and scores the
     # filters' survivors).
@@ -2925,6 +3749,12 @@ def main() -> int:
         print(f"  {name}: median t_plan_s={e['t_plan_s_median']:.6f} "
               f"t_lower_s={e['t_lower_s_median']:.6f} t_fold_s={e['t_fold_s_median']:.6f}")
 
+    # The sanitizer on the warm fold, before the tier shards the service.
+    t0 = time.perf_counter()
+    sanitize = sanitizer_phase(torch, svc, next(iter(logs.values())).queries[:256])
+    sanitize["wall_s"] = time.perf_counter() - t0
+    print(f"sanitizer phase: {sanitize['wall_s']:.1f}s", flush=True)
+
     # The serving tier over the same fit: sharded engine, replays, chaos.
     t0 = time.perf_counter()
     tier = serving_tier(torch, svc, logs, corpus, N_QUERIES)
@@ -2957,6 +3787,9 @@ def main() -> int:
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
     kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
+    t0 = time.perf_counter()
+    kernels += flash_bwd_rows(torch, dev, launches, bwd_errs)
+    print(f"backward kernels timed in {time.perf_counter() - t0:.1f}s", flush=True)
     for row in bert4rec_rows:  # the resident variant, then the general kernel
         entry = kernel_entry(f"flash_attention_{row['variant']}", launches, [row],
                              variant=row["variant"])
@@ -3035,8 +3868,8 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
-        "mesh_lm": mesh_lm, "recsys": recsys,
-        "flash_cases": flash_errs, "ptxas": B.PTXAS, "kernels": kernels,
+        "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "sanitize": sanitize,
+        "flash_cases": flash_errs, "flash_bwd_cases": bwd_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))
     print(json.dumps({"kernels": [

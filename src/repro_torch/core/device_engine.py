@@ -407,6 +407,10 @@ def device_fold(
     )
 
 
+# The kernel library behind the fold (``analysis.sanitize.jit_cache_size``).
+device_fold.kernel_sources = ("fold",)
+
+
 # ----------------------------------------------------------------------
 # Shape-grid prewarm: the serving loop's startup hooks
 # ----------------------------------------------------------------------

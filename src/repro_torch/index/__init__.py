@@ -4,6 +4,7 @@
 * ``intersect`` — intersection algorithms + exact work accounting
 * ``lookup``    — the bucketed Lookup algorithm of Sanders & Transier
 * ``batched``   — pow2 length buckets of the batched planner
+* ``compress``  — posting-list compression (paper Appendix A)
 """
 
 from repro_torch.index.build import InvertedIndex, build_index, permute_docs

@@ -5,7 +5,8 @@ fold of the device engine), ``intersect.cu`` (the intersect trio),
 ``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means),
 ``flash_attention.cu`` (the general, the resident and the split-K decode
 attention kernels, with the decode's combine) and
-``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel).
+``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel) and
+``flash_attention_bwd.cu`` (the attention's backward: prep, dK/dV, dQ).
 Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 its own shared library under ``build/repro_torch/`` at the repository
 root, named by a hash of the source and the compiler flags, so an edited
@@ -35,8 +36,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["LAUNCHES", "SOURCES", "build_libraries", "check", "lib", "reset_launch_counts",
-           "stream_of"]
+__all__ = ["LAUNCHES", "SOURCES", "build_libraries", "check", "is_loaded", "lib",
+           "reset_launch_counts", "stream_of"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -45,7 +46,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90")
+SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90",
+           "flash_attention_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +81,11 @@ _SIGNATURES = {
         "flash_attention_sm90_launch": (
             _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _P),
     },
+    "flash_attention_bwd": {
+        "flash_bwd_prep_launch": (_P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_bwd_dkdv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+    },
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
@@ -90,7 +97,9 @@ _SIGNATURES = {
 # of the variant it took: ``flash_attention_sm90`` (bf16 tensor-core
 # prefill), ``flash_attention_decode`` and ``flash_attention_combine``
 # (split-K decode, two launches a call), ``flash_attention_resident`` (K and
-# V of a head in shared memory) or ``flash_attention_general``.
+# V of a head in shared memory) or ``flash_attention_general``.  The
+# backward (``kernel.flash_attention_bwd_cuda``) launches ``flash_bwd_prep``,
+# ``flash_bwd_dkdv`` and ``flash_bwd_dq`` once each a call.
 LAUNCHES: Dict[str, int] = {
     "segment_fold": 0,
     "intersect_members_kernel": 0,
@@ -105,6 +114,9 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_combine": 0,
     "flash_attention_resident": 0,
     "flash_attention_general": 0,
+    "flash_bwd_prep": 0,
+    "flash_bwd_dkdv": 0,
+    "flash_bwd_dq": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -178,6 +190,12 @@ def build_libraries() -> Dict[str, Path]:
                 fn.restype = ctypes.c_int
             _libs[stem] = loaded
         return paths
+
+
+def is_loaded(stem: str) -> bool:
+    """Whether this process has built (or found) and loaded the library
+    of ``csrc/<stem>.cu``."""
+    return stem in _libs
 
 
 def lib(stem: str) -> ctypes.CDLL:

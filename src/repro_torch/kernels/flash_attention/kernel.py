@@ -1,5 +1,6 @@
 """Launcher of the attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_sm90.cu``).
+``csrc/flash_attention_sm90.cu``) and of the backward's three
+(``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_cuda`).
 
 The libraries are built, loaded and counted by
 :mod:`repro_torch.kernels.build`.  :func:`flash_attention_cuda` checks
@@ -45,6 +46,7 @@ from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
 __all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "RESIDENT_MAX_HEAD_DIM", "RESIDENT_SMEM_BYTES",
            "SM90_HEAD_DIMS", "combine_cuda", "decode_partials_cuda", "decode_plan",
+           "bwd_dkdv_cuda", "bwd_dq_cuda", "bwd_prep_cuda", "flash_attention_bwd_cuda",
            "flash_attention_cuda", "flash_route", "resident_q_chunk", "resident_smem_bytes",
            "sm_count"]
 
@@ -354,3 +356,94 @@ def _general_forced(q, k, v, causal: bool = True, window: Optional[int] = None) 
     if not launch.empty:
         _general(q, k, v, out, launch, stream_of(q.device))
     return out
+
+
+
+class _BwdLaunch:
+    """The backward's scalar arguments for one call: shapes, masks, dtype
+    and the strides of q, k, v, out, dout and the three gradients."""
+
+    def __init__(self, q, k, v, out, dout, dq, dk, dv, causal, window):
+        b, h, lq, d = q.shape
+        hkv, lk = k.shape[1], k.shape[2]
+        self.empty = lq == 0 or b * h == 0
+        self.args = _int64s((b, h, hkv, lq, lk, d, int(causal), int(window is not None),
+                             int(window or 0), _DTYPE_CODES[q.dtype],
+                             *(t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv)
+                               for i in range(3))))
+        self.scale = 1.0 / d**0.5
+        self.stream = stream_of(q.device)
+
+
+def _bwd_checked(q, k, v, out, dout, causal, window, name):
+    _check_inputs(q, k, v, causal, window, name)
+    for t in (out, dout):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: out and dout must be like q {tuple(q.shape)}")
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"{name}: the last dimension must be dense (stride 1)")
+
+
+def bwd_prep_cuda(q, k, out, dout, causal: bool = True, window: Optional[int] = None, v=None):
+    """``flash_bwd_prep``: (lse, delta), float32 (B·H, Lq): each row's
+    log-sum-exp over its visible scaled scores and rowsum(dO ∘ O)."""
+    v = k if v is None else v
+    _bwd_checked(q, k, v, out, dout, causal, window, "flash_bwd_prep")
+    b, h, lq, _ = q.shape
+    lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    launch = _BwdLaunch(q, k, v, out, dout, q, k, v, causal, window)
+    if not launch.empty:
+        check(lib("flash_attention_bwd").flash_bwd_prep_launch(
+            q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), launch.args, launch.scale, launch.stream), "flash_bwd_prep")
+        LAUNCHES["flash_bwd_prep"] += 1
+    return lse, delta
+
+
+def bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal: bool = True, window: Optional[int] = None):
+    """``flash_bwd_dkdv``: (dk, dv) like k and v, the group's query heads
+    summed, from :func:`bwd_prep_cuda`'s lse and delta."""
+    _bwd_checked(q, k, v, dout, dout, causal, window, "flash_bwd_dkdv")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch = _BwdLaunch(q, k, v, dout, dout, q, dk, dv, causal, window)
+    if launch.empty:
+        return dk.zero_(), dv.zero_()
+    check(lib("flash_attention_bwd").flash_bwd_dkdv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), launch.args, launch.scale,
+        launch.stream), "flash_bwd_dkdv")
+    LAUNCHES["flash_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool = True, window: Optional[int] = None):
+    """``flash_bwd_dq``: dq like q, from :func:`bwd_prep_cuda`'s lse and
+    delta."""
+    _bwd_checked(q, k, v, dout, dout, causal, window, "flash_bwd_dq")
+    dq = torch.empty_like(q)
+    launch = _BwdLaunch(q, k, v, dout, dout, dq, k, v, causal, window)
+    if not launch.empty:
+        check(lib("flash_attention_bwd").flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), launch.args, launch.scale, launch.stream),
+            "flash_bwd_dq")
+        LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True,
+                             window: Optional[int] = None):
+    """(dq, dk, dv), the gradient of :func:`flash_attention_cuda` (any
+    variant: they compute one function) at output ``out`` for the output
+    gradient ``dout``, through the three kernels of
+    ``csrc/flash_attention_bwd.cu``: ``flash_bwd_prep`` (each row's
+    log-sum-exp and rowsum(dO ∘ O) into float32 scratch (B·H, Lq)),
+    ``flash_bwd_dkdv`` (dK and dV, the group's heads summed) and
+    ``flash_bwd_dq``, one launch each.  The same inputs as the forward
+    (every row must see a key); ``out`` and ``dout`` (B, H, Lq, D) in q's
+    dtype on q's device, last dimension dense.  Gradients come in
+    ``torch.empty_like`` of q, k and v (their layouts)."""
+    lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+    dk, dv = bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window)
+    return bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv

@@ -1,10 +1,19 @@
 """Public flash-attention wrapper: the (B, H, L, D) API of
-``repro.kernels.flash_attention.ops``, GQA-aware.
+``repro.kernels.flash_attention.ops``, GQA-aware, with its gradient.
 
 A tensor that lies on the CPU takes the plain PyTorch version of
 :mod:`repro_torch.kernels.flash_attention.ref`; a CUDA tensor launches the
 hand-written kernel of :mod:`repro_torch.kernels.flash_attention.kernel`
 or raises.  Nothing falls back from the card to the plain version.
+
+When grad mode is on and q, k or v requires a gradient,
+:func:`flash_attention` runs as a ``torch.autograd.Function``: its forward
+is the call above (the variant ``kernel.flash_route`` picks on the card),
+and it saves q, k, v and the output; its backward is
+:func:`flash_attention_bwd`, the three kernels of
+``csrc/flash_attention_bwd.cu`` on the card and ``ref.attention_bwd_ref``
+on the CPU.  The JAX package differentiates its jnp attention with XLA;
+its Pallas kernel has no backward.
 """
 
 from __future__ import annotations
@@ -14,11 +23,13 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (combine_cuda, decode_partials_cuda,
-                                                        decode_plan, flash_attention_cuda,
-                                                        sm_count)
-from repro_torch.kernels.flash_attention.ref import attention_ref, combine_ref, decode_partials_ref
+                                                        decode_plan, flash_attention_bwd_cuda,
+                                                        flash_attention_cuda, sm_count)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_ref,
+                                                     combine_ref, decode_partials_ref)
 
-__all__ = ["flash_attention", "flash_decode_combine", "flash_decode_partials"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_decode_combine",
+           "flash_decode_partials"]
 
 
 def flash_attention(
@@ -32,10 +43,47 @@ def flash_attention(
 ) -> torch.Tensor:
     """``tile_q`` and ``tile_k`` keep the JAX signature; neither version
     reads them (the CUDA kernel picks its own tiles and masks ragged
-    edges, so no length needs to be a tile multiple)."""
+    edges, so no length needs to be a tile multiple).  Differentiable
+    (the module's docstring)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal, window):
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
+                        window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at output ``out`` for the
+    output gradient ``dout``: the backward kernels on the card, the plain
+    recompute on the CPU."""
+    if q.is_cuda:
+        if dout.stride(3) != 1 and dout.shape[3] > 1:
+            dout = dout.contiguous()
+        return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal, window=window)
+    return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The attention with its hand-written backward: the forward saves q,
+    k, v and its output, the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_decode_partials(q: torch.Tensor, k: torch.Tensor,

@@ -13,6 +13,12 @@ v, as the JAX oracle does.
 ``decode_partials_ref`` and ``combine_ref`` are the plain versions of the
 two kernels of the decode variant (split-K over the keys, then the merge
 of the splits), which ``chip_smoke.py`` times and checks one by one.
+
+``attention_bwd_ref`` is the plain version of the backward
+(``csrc/flash_attention_bwd.cu``): the gradient of ``attention_ref`` with
+respect to q, k and v by FlashAttention-2's recompute, in float32, built
+from the plain versions of its three kernels (``bwd_prep_ref``,
+``bwd_dkdv_ref``, ``bwd_dq_ref``).
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "attention_ref", "combine_ref", "decode_partials_ref"]
+__all__ = ["NEG_INF", "attention_bwd_ref", "attention_ref", "bwd_dkdv_ref", "bwd_dq_ref",
+           "bwd_prep_ref", "combine_ref", "decode_partials_ref"]
 
 NEG_INF = -1e30
 
@@ -102,3 +109,90 @@ def combine_ref(ml, acc, b, h, hkv, lq, dtype):
     total = (w * ml[..., 1]).sum(dim=1)
     out = (w[..., None] * acc).sum(dim=1) / total.clamp_min(1e-30)[..., None]
     return out.reshape(b, h, lq, d).to(dtype)
+
+
+def _visible(lq: int, lk: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """(Lq, Lk) bool: key j visible to query row i (the forward's masks)."""
+    off = lk - lq
+    i = torch.arange(lq, device=device)[:, None]
+    j = torch.arange(lk, device=device)[None, :]
+    mask = torch.ones((lq, lk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= j <= i + off
+    if window is not None:
+        mask &= j > i + off - window
+    return mask
+
+
+def _grouped(x: torch.Tensor) -> torch.Tensor:
+    """k or v (B, Hkv, Lk, D) as float32 (B, Hkv, 1, Lk, D), broadcast over
+    the group's query heads."""
+    return x.float()[:, :, None]
+
+
+def _scores(q, k, causal, window):
+    """float32 scores (B, Hkv, G, Lq, Lk) times 1/sqrt(D) and the mask."""
+    b, h, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, hkv, g, lq, d)
+    s = torch.einsum("bkgqd,bkgjd->bkgqj", qg, _grouped(k)) * (1.0 / d**0.5)
+    return s, _visible(lq, lk, causal, window, q.device)
+
+
+def bwd_prep_ref(q, k, out, dout, causal=True, window=None):
+    """Plain version of ``flash_bwd_prep_kernel``: per (batch·head, row)
+    the log-sum-exp of the row's visible scaled scores and
+    ``delta = rowsum(dO ∘ O)``, both float32 (B·H, Lq)."""
+    b, h, lq, _ = q.shape
+    s, mask = _scores(q, k, causal, window)
+    lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    return lse.reshape(b * h, lq), delta.reshape(b * h, lq)
+
+
+def _p_ds(q, k, v, dout, lse, delta, causal, window):
+    """P (masked to 0) and dS = P ∘ (dO·Vᵀ − delta), (B, Hkv, G, Lq, Lk)."""
+    b, h, lq, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    s, mask = _scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hkv, g, lq, 1)), 0.0)
+    dp = torch.einsum("bkgqd,bkgjd->bkgqj", dout.float().reshape(b, hkv, g, lq, d),
+                      _grouped(v))
+    return p, p * (dp - delta.reshape(b, hkv, g, lq, 1))
+
+
+def bwd_dkdv_ref(q, k, v, dout, lse, delta, causal=True, window=None):
+    """Plain version of ``flash_bwd_dkdv_kernel``: dK = Σ_group dSᵀ·Q / √D
+    and dV = Σ_group Pᵀ·dO, in k's and v's dtypes."""
+    b, h, lq, d = q.shape
+    hkv = k.shape[1]
+    p, ds = _p_ds(q, k, v, dout, lse, delta, causal, window)
+    qg = q.float().reshape(b, hkv, h // hkv, lq, d)
+    dog = dout.float().reshape(b, hkv, h // hkv, lq, d)
+    dk = torch.einsum("bkgqj,bkgqd->bkjd", ds, qg) * (1.0 / d**0.5)
+    dv = torch.einsum("bkgqj,bkgqd->bkjd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_dq_ref(q, k, v, dout, lse, delta, causal=True, window=None):
+    """Plain version of ``flash_bwd_dq_kernel``: dQ = dS·K / √D, in q's
+    dtype."""
+    b, h, lq, d = q.shape
+    _, ds = _p_ds(q, k, v, dout, lse, delta, causal, window)
+    dq = torch.einsum("bkgqj,bkjd->bkgqd", ds, k.float()) * (1.0 / d**0.5)
+    return dq.reshape(b, h, lq, d).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, out, dout, causal=True, window=None):
+    """(dq, dk, dv): the gradient of ``attention_ref(q, k, v, causal,
+    window)`` whose output was ``out``, for the output gradient ``dout``,
+    recomputed in float32 (FlashAttention-2: the log-sum-exp of each row,
+    ``delta = rowsum(dO ∘ O)``, then P and dS), in the inputs' dtypes.
+    The group's query heads are summed into each KV head's dK and dV.
+    Every row must see a key, as the kernels require (a row that sees none
+    gets zero gradients here, not those of the forward's uniform average)."""
+    lse, delta = bwd_prep_ref(q, k, out, dout, causal, window)
+    dk, dv = bwd_dkdv_ref(q, k, v, dout, lse, delta, causal, window)
+    return bwd_dq_ref(q, k, v, dout, lse, delta, causal, window), dk, dv

@@ -20,7 +20,7 @@ How the port differs:
     call, which computes the same and takes twice the memory;
   * attention, cached or not, computes through
     :func:`repro_torch.kernels.flash_attention.ops.flash_attention` (the
-    CUDA kernel on the card).  The (B, L, H, D) tensors go in as
+    CUDA kernel on the card; in training, its hand-written backward).  The (B, L, H, D) tensors go in as
     (B, H, L, D) views, so nothing is transposed in memory;
   * the KV cache is updated in place, and its ``length`` is a Python int,
     so slicing the valid prefix needs no device sync;
@@ -74,7 +74,8 @@ __all__ = [
 ]
 
 def frozen_param(shape, dtype, device) -> nn.Parameter:
-    """A serving weight: no gradient is taken through it."""
+    """A weight, frozen for serving (no gradient is taken through it);
+    ``model.requires_grad_(True)`` makes a model's weights trainable."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
 
 

@@ -1,12 +1,13 @@
 """RecSys architectures on PyTorch: DIEN, MIND, DCN-v2, BERT4Rec — the
-port of ``repro.models.recsys`` (serving path).
+port of ``repro.models.recsys``.
 
 Shared substrate in ``embedding.py`` (tables, gathers, MLP towers).  Every
 model module has a config dataclass, an ``nn.Module`` with ``forward``
 (the CTR logit or score, (B,)) and ``score_candidates`` (the
 ``retrieval_cand`` head: the user representation against N candidate
-embeddings as one product, (B, N)), and ``init(cfg, generator, device)``.
-``loss_fn`` (training) is not ported yet.  The SeCluD pre-filter over
+embeddings as one product, (B, N)), and ``init(cfg, generator, device)``,
+and ``loss_fn(model, batch)``, the reference's training loss (the model
+made trainable with ``requires_grad_(True)``).  The SeCluD pre-filter over
 candidate attributes lives in :mod:`repro_torch.serve.retrieval`.
 """
 

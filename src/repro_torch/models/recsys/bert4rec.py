@@ -1,6 +1,6 @@
 """BERT4Rec — bidirectional transformer for sequential recommendation
 (Sun et al., arXiv:1904.06690), the port of
-``repro.models.recsys.bert4rec`` (serving path).
+``repro.models.recsys.bert4rec`` (serving and training).
 
 Encoder-only.  Each block: RMS-norm, non-causal multi-head attention (2
 heads of 32, RoPE θ = 10⁴) through
@@ -11,6 +11,10 @@ masked by zeroing values, not scores, as in the JAX package: the inputs
 and each residual update are multiplied by the mask.  The JAX package
 stacks the blocks for ``lax.scan``; here each block is a module.  The
 user is the last position's hidden state.
+
+Training (:func:`loss_fn`): the reference's Cloze masking derived from
+the ids, a sampled softmax over 512 shared negatives, the attention's
+gradient through the hand-written backward on the card.
 
 Config: embed_dim=64, 2 blocks, 2 heads, seq_len=200.
 """
@@ -27,9 +31,11 @@ from repro_torch.core.device_engine import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.recsys.embedding import embedding_init, lookup
 
-__all__ = ["BERT4Rec", "BERT4RecConfig", "EncoderBlock", "init"]
+__all__ = ["BERT4Rec", "BERT4RecConfig", "EncoderBlock", "init", "loss_fn"]
 
 ROPE_THETA = 10_000.0
+# Shared negatives of the sampled softmax (the reference's ``n_neg``).
+N_NEGATIVES = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +123,42 @@ class BERT4Rec(nn.Module):
                          cand_ids: torch.Tensor) -> torch.Tensor:
         """(B, N): the user · candidate embeddings."""
         return self.user(batch) @ lookup(self.item_embed, cand_ids, self.cfg.adtype).T
+
+
+def _int32_wrapped(x: torch.Tensor) -> torch.Tensor:
+    """int64 values as the int32 arithmetic of the reference computes them:
+    reduced mod 2**32 into [-2**31, 2**31) (two's complement wrap)."""
+    x = torch.remainder(x, 2**32)
+    return torch.where(x >= 2**31, x - 2**32, x)
+
+
+def loss_fn(model: BERT4Rec, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cloze training with deterministic in-batch masking derived from the
+    ids (stateless, as the reference: ``(id · 48271 + 97) mod 1000 <
+    mask_prob · 1000`` on valid positions, the masked ids replaced by
+    [MASK] = 1), then a sampled softmax of each masked position's hidden
+    state over its own item and ``N_NEGATIVES`` shared negatives
+    ``(id · 40503 + 7) mod vocab`` of the first flattened ids; the mean
+    over masked positions.  The id arithmetic wraps as the reference's
+    int32 does."""
+    cfg = model.cfg
+    ids, mask = batch["hist_ids"].long(), batch["hist_mask"]
+    b, t = ids.shape
+    h = torch.remainder(_int32_wrapped(ids * 48271 + 97), 1000)
+    cloze = (h < int(cfg.mask_prob * 1000)) & (mask > 0)
+    masked_ids = torch.where(cloze, torch.ones_like(ids), ids)  # [MASK] = 1
+    hidden = model.encode(masked_ids, mask)  # (B, T, e)
+    flat_h = hidden.reshape(b * t, -1)
+    flat_ids = ids.reshape(b * t)
+    flat_cloze = cloze.reshape(b * t)
+    neg_ids = torch.remainder(_int32_wrapped(flat_ids[:N_NEGATIVES] * 40503 + 7), cfg.vocab)
+    neg = lookup(model.item_embed, neg_ids, cfg.adtype)  # (n_neg, e)
+    pos = lookup(model.item_embed, flat_ids, cfg.adtype)  # (BT, e)
+    gold = torch.einsum("ne,ne->n", flat_h, pos).float()  # (BT,)
+    neg_logits = (flat_h @ neg.T).float()  # (BT, n_neg)
+    lse = torch.logsumexp(torch.cat([gold[:, None], neg_logits], dim=-1), dim=-1)
+    per_tok = (lse - gold) * flat_cloze.float()
+    return per_tok.sum() / torch.clamp(flat_cloze.float().sum(), min=1.0)
 
 
 def init(cfg: BERT4RecConfig, generator: torch.Generator, device=None) -> BERT4Rec:

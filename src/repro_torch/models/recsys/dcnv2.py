@@ -1,5 +1,6 @@
 """DCN-v2 — Deep & Cross Network v2 (Wang et al., arXiv:2008.13535), the
-port of ``repro.models.recsys.dcnv2`` (serving path).
+port of ``repro.models.recsys.dcnv2`` (serving, and training by
+:func:`loss_fn`).
 
 Explicit feature crosses  x_{l+1} = x₀ ⊙ (W_l x_l + b_l) + x_l  (full-rank
 W) in parallel with a deep MLP tower, concatenated into the CTR logit.
@@ -19,9 +20,10 @@ from torch import nn
 
 from repro_torch.core.device_engine import resolve_device
 from repro_torch.models.layers import Dense, frozen_param
-from repro_torch.models.recsys.embedding import MLPTower, embedding_init, lookup
+from repro_torch.models.recsys.embedding import (MLPTower, bce_with_logits, embedding_init,
+                                                 lookup)
 
-__all__ = ["DCNv2", "DCNv2Config", "init"]
+__all__ = ["DCNv2", "DCNv2Config", "init", "loss_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +122,9 @@ def init(cfg: DCNv2Config, generator: torch.Generator, device=None) -> DCNv2:
         if isinstance(module, Dense):
             module.reset(generator)
     return model
+
+
+def loss_fn(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The CTR loss: the stable binary cross-entropy of the logit
+    (float32) against ``label``."""
+    return bce_with_logits(model(batch).float(), batch["label"].float())

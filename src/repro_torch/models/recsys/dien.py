@@ -1,5 +1,6 @@
 """DIEN — Deep Interest Evolution Network (Zhou et al., arXiv:1809.03672),
-the port of ``repro.models.recsys.dien`` (serving path).
+the port of ``repro.models.recsys.dien`` (serving, and training by
+:func:`loss_fn`).
 
 Two-stage sequential CTR model:
   1. *Interest extraction*: a GRU over the user-behaviour sequence.
@@ -21,9 +22,10 @@ from torch import nn
 
 from repro_torch.core.device_engine import resolve_device
 from repro_torch.models.layers import Dense, frozen_param
-from repro_torch.models.recsys.embedding import MLPTower, embedding_init, lookup
+from repro_torch.models.recsys.embedding import (MLPTower, bce_with_logits, embedding_init,
+                                                 lookup)
 
-__all__ = ["DIEN", "DIENConfig", "init"]
+__all__ = ["DIEN", "DIENConfig", "init", "loss_fn"]
 
 NEG_INF = -1e30
 
@@ -165,3 +167,9 @@ def init(cfg: DIENConfig, generator: torch.Generator, device=None) -> DIEN:
         if isinstance(module, (GRUGate, Dense)):
             module.reset(generator)
     return model
+
+
+def loss_fn(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The CTR loss: the stable binary cross-entropy of the logit
+    (float32) against ``label``."""
+    return bce_with_logits(model(batch).float(), batch["label"].float())

@@ -19,7 +19,8 @@ from torch import nn
 
 from repro_torch.models.layers import Dense
 
-__all__ = ["MLPTower", "bag_lookup", "embedding_init", "lookup", "mlp_tower", "mlp_tower_init"]
+__all__ = ["MLPTower", "bag_lookup", "bce_with_logits", "embedding_init", "lookup", "mlp_tower",
+           "mlp_tower_init"]
 
 
 def embedding_init(generator: torch.Generator, vocab: int, dim: int, device) -> torch.Tensor:
@@ -75,3 +76,9 @@ def mlp_tower_init(generator: torch.Generator, dims: Sequence[int], device,
 
 def mlp_tower(tower: MLPTower, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
     return tower(x, final_act)
+
+
+def bce_with_logits(logit: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The stable binary cross-entropy of the reference's CTR losses,
+    averaged: ``max(z, 0) - z·y + log1p(exp(-|z|))``."""
+    return torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-logit.abs())))

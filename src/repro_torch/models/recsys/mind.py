@@ -1,6 +1,6 @@
 """MIND — Multi-Interest Network with Dynamic routing (Li et al.,
-arXiv:1904.08030), the port of ``repro.models.recsys.mind`` (serving
-path).
+arXiv:1904.08030), the port of ``repro.models.recsys.mind`` (serving, and
+training by :func:`loss_fn`).
 
 Behaviour-to-Interest (B2I) capsule routing: the user's history item
 embeddings are routed into ``n_interests`` interest capsules over
@@ -26,7 +26,7 @@ from repro_torch.core.device_engine import resolve_device
 from repro_torch.models.layers import frozen_param
 from repro_torch.models.recsys.embedding import MLPTower, embedding_init, lookup
 
-__all__ = ["MIND", "MINDConfig", "init"]
+__all__ = ["MIND", "MINDConfig", "init", "loss_fn"]
 
 NEG_INF = -1e30
 
@@ -116,3 +116,18 @@ def init(cfg: MINDConfig, generator: torch.Generator, device=None) -> MIND:
     for layer in model.mlp.layers:
         layer.reset(generator)
     return model
+
+
+def loss_fn(model: MIND, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The reference's training loss: the label-aware user vector of each
+    row against every row's target, an in-batch softmax (B, B) in float32
+    with the positives on the diagonal, averaged."""
+    dt = model.cfg.adtype
+    caps = model.user_interests(batch)
+    tgt = lookup(model.item_embed, batch["target_id"], dt)
+    att = torch.softmax(
+        model.cfg.label_pow * torch.einsum("bke,be->bk", caps, tgt).float(), dim=-1).to(dt)
+    user = torch.einsum("bk,bke->be", att, caps)  # (B, e)
+    logits = (user @ tgt.T).float()  # (B, B)
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.mean(lse - torch.diagonal(logits))

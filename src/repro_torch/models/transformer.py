@@ -11,7 +11,19 @@ with window ``2**30`` as in the JAX ``_block``).  :func:`init` draws from
 the same distributions as the JAX ``init``, from an explicit
 ``torch.Generator``, but not the same numbers;
 :func:`repro_torch.models.convert.params_from_numpy` carries a JAX
-parameter tree across.  ``loss_fn`` (training) is not ported yet.
+parameter tree across.
+
+Training: ``model.requires_grad_(True)`` makes the weights trainable
+(they are frozen for serving), and :func:`loss_fn` is the reference's
+next-token cross-entropy over sequence chunks of ``loss_chunk`` positions
+(the (B, S, V) logits never exist: each chunk's logits are recomputed in
+the backward, ``torch.utils.checkpoint``), plus the MoE aux loss.  With
+``remat`` other than ``"none"`` each block is checkpointed whole
+(``"dots"`` too: the reference saves its dot products there); the
+reference's nested per-query-chunk remat of the attention is not needed,
+since the attention kernel keeps no score tensor.  Attention's gradient
+is the backward of :func:`repro_torch.kernels.flash_attention.ops.
+flash_attention` (hand-written kernels on the card).
 """
 
 from __future__ import annotations
@@ -21,12 +33,13 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device_engine import resolve_device
 from repro_torch.models import layers as L
 
 __all__ = ["LM", "Block", "LMConfig", "MoESpec", "decode_step", "forward", "init",
-           "init_cache", "prefill"]
+           "init_cache", "loss_fn", "prefill"]
 
 # The window a global layer runs with (the JAX ``_block``).
 GLOBAL_WINDOW = 2**30
@@ -197,11 +210,49 @@ def forward(model: LM, tokens: torch.Tensor, positions: Optional[torch.Tensor] =
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = model.embed_tokens(tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = model.cfg.remat != "none" and torch.is_grad_enabled()
     for blk in model.blocks:
-        x, a = blk(x, positions)
+        if remat:
+            x, a = checkpoint(blk, x, positions, use_reentrant=False)
+        else:
+            x, a = blk(x, positions)
         if a is not None:
             aux = aux + a
     return L.rms_norm(x, model.final_norm), aux
+
+
+def _chunk_loss(hc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """Σ (logsumexp − gold logit) over one chunk: hc (B, chunk, d), tc
+    (B, chunk); the logits (B, chunk, V) in float32."""
+    logits = (hc @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return (lse - gold).sum()
+
+
+def loss_fn(model: LM, batch) -> torch.Tensor:
+    """Next-token CE with sequence-chunked logits (never materializes
+    (B, S, V)), MoE aux loss folded in: a float32 0-dim tensor.  ``batch``
+    holds ``tokens`` and ``targets`` (B, S).  Positions past the last
+    whole chunk are left out, as in the reference."""
+    cfg = model.cfg
+    tokens, targets = batch["tokens"], batch["targets"]
+    h, aux = forward(model, tokens)
+    head = model.head()  # (d, V)
+    b, s, _ = h.shape
+    chunk = min(cfg.loss_chunk, s)
+    n_chunks = s // chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        hc, tc = h[:, c * chunk:(c + 1) * chunk], targets[:, c * chunk:(c + 1) * chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_loss, hc, head, tc, use_reentrant=False)
+        else:
+            total = total + _chunk_loss(hc, head, tc)
+    loss = total / (b * n_chunks * chunk)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> L.KVCache:

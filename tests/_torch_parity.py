@@ -146,6 +146,72 @@ def p_rounding_term(q, k, v, causal, window):
                                               window)
 
 
+# (B, H, Hkv, Lq, Lk, D, causal, window) of the attention backward's checks
+# against ``attention_bwd_ref`` on the card (csrc/flash_attention_bwd.cu:
+# tiles of 16 query rows and 32 keys): ragged lengths that are not tile
+# multiples (Lq 37, 33, 45, 50, 70, Lk 77, 100, 130), groups 1, 2, 7 and 8,
+# D 32, 64, 128 and 256, Lk > Lq, causal with windows 1, 16, 1024 (wider
+# than Lk) and none, not causal with and without a window, one query row,
+# and a few rows of BERT4Rec's call (Lq = Lk = 200, D = 32).  The training
+# shapes (gemma3-4b's local and global layer at 4,096 tokens, BERT4Rec's
+# 32,768 rows: B·H past one launch chunk) are ``chip_smoke.py``'s.
+FLASH_BWD_CASES = [
+    (2, 2, 2, 37, 37, 32, True, None), (1, 4, 2, 50, 77, 64, True, 16),
+    (1, 7, 1, 33, 33, 128, True, None), (1, 8, 1, 45, 100, 256, True, 1024),
+    (2, 8, 1, 20, 70, 64, False, None), (1, 4, 4, 64, 64, 256, True, 1),
+    (2, 2, 2, 1, 50, 128, True, None), (3, 2, 2, 200, 200, 32, False, None),
+    (1, 4, 2, 70, 130, 64, False, 32), (1, 16, 2, 40, 40, 32, True, 8),
+]
+# The backward's limits against ``attention_bwd_ref`` (the same recompute
+# in float32 from the same inputs, TF32 off).  float32: the forward's
+# ``FLASH_TOL``, per element.  bfloat16: the kernels compute in fp32 and
+# round each gradient to bf16 once, and round neither P nor dS, so an
+# element lies within half a bf16 step of the gradient's largest
+# magnitude m (half a step at m is 2**(floor(log2 m) - 8)) plus the fp32
+# limit of the same element; ``flash_bwd_error`` applies both.
+FLASH_BWD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-4, 2e-4)}
+
+
+def half_bf16_step(m: float) -> float:
+    """Half a bf16 step at magnitude m: 2**(floor(log2 m) - 8) (0 at 0)."""
+    import math
+
+    return 0.0 if m <= 0 else 2.0 ** (math.floor(math.log2(m)) - 8)
+
+
+def flash_bwd_error(got, want) -> tuple[float, float]:
+    """The largest |got - want| of a gradient of the backward kernels
+    against the plain version (float32), and the largest share of its
+    limit (``FLASH_BWD_TOL``: ``atol + rtol·|want|``, plus for bf16 half a
+    bf16 step of max|want|); raises when the shapes differ or ``got`` is
+    not finite."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0.0, 0.0
+    rtol, atol = FLASH_BWD_TOL[str(got.dtype).removeprefix("torch.")]
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite gradient")
+    err = (got - want).abs()
+    limit = atol + rtol * want.abs()
+    if bf16:
+        limit = limit + half_bf16_step(float(want.abs().max()))
+    return float(err.max()), float((err / limit).max())
+
+
+def flash_bwd_close(name: str, got, want) -> tuple[float, float]:
+    """``flash_bwd_error``, raising when an element lies outside its limit."""
+    err, share = flash_bwd_error(got, want)
+    if share > 1.0:
+        raise AssertionError(f"{name} disagrees with the plain backward (max |err| {err}, "
+                             f"{share:.3g} of the limit)")
+    return err, share
+
+
 # The largest (B, H, rows, keys) float32 score tensor that
 # ``attention_ref_chunked`` lets the plain version form at once.
 SCORE_BYTES = 2**30

@@ -34,6 +34,11 @@ gridDim.y's 65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and
 launches; at BERT4Rec's call the resident variant and the general kernel
 forced on the same inputs are both held to ``FLASH_TOL``.
 
+The attention's backward (``csrc/flash_attention_bwd.cu``: prep, dK/dV,
+dQ) is held against ``attention_bwd_ref`` at ``FLASH_BWD_CASES`` within
+``FLASH_BWD_TOL`` (``flash_bwd_close``), through the autograd function of
+``ops.flash_attention`` (one launch of each of its three kernels a call).
+
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
 """
@@ -44,8 +49,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_CASES, FLASH_VARIANTS, FOLD_CASES, VARIANT_LAUNCHES,
-                           attention_ref_chunked, flash_close, flash_inputs, fold_emulation,
+from _torch_parity import (FLASH_BWD_CASES, FLASH_CASES, FLASH_VARIANTS, FOLD_CASES,
+                           VARIANT_LAUNCHES, attention_ref_chunked, flash_bwd_close, flash_close,
+                           flash_inputs, fold_emulation,
                            make_rows, p_rounding_term, staged_scores_emulation,
                            synthetic_fold_case)
 from repro_torch.kernels import build as B
@@ -54,7 +60,8 @@ from repro_torch.kernels.cluster_score import ops as cops
 from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref, combine_ref, decode_partials_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_ref, combine_ref,
+                                                     decode_partials_ref)
 from repro_torch.kernels.intersect import kernel as K
 from repro_torch.kernels.intersect import ops, ref
 from repro_torch.kernels.intersect.ref import PAD
@@ -521,6 +528,31 @@ def test_cluster_scores_is_deterministic(cuda_device):
     for variant in ("staged", "general"):
         assert torch.equal(CK.cluster_scores_cuda(ell, p, tables, variant=variant),
                            CK.cluster_scores_cuda(ell, p, tables, variant=variant))
+
+
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window", FLASH_BWD_CASES)
+def test_flash_attention_backward_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, causal,
+                                               window):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        cuda_device, dtype, b, h, hkv, lq, lk, d, seed=3 * lq + lk + d, model_layout=lk % 2 == 0))
+    gen = torch.Generator(device=cuda_device).manual_seed(lq * lk)
+    dout = torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == dict.fromkeys(BWD_KERNELS, 1)
+    want = attention_bwd_ref(q.detach().float(), k.detach().float(), v.detach().float(),
+                             out.detach().float(), dout.float(), causal, window)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v), strict=True):
+        assert g.dtype == dtype and g.shape == x.shape
+        flash_bwd_close(name, g, w)
 
 
 @pytest.mark.cuda

@@ -40,6 +40,14 @@ events in ``ATTENTION_TURNS`` turns, every build once a turn, the order
 reversed every other turn; ptxas's registers and spills of its kernel
 are kept.  Results go to ``chiprun_out/kernel_ab.json`` with the card's
 name and power limit.
+
+    python3 tools/kernel_ab.py --train <tree>   # on the GPU
+
+runs ``chip_smoke.py``'s first train phase (gemma3-4b, ``TRAIN_PHASES[0]``)
+whole in the other tree and in this one, one process a turn (other, this,
+this, other), each on an empty card, and writes the steps' host-clock s,
+peak GiB, the traced step's stream ms by part and device ms, and the
+losses to ``chiprun_out/kernel_ab_train.json``.
 """
 
 from __future__ import annotations
@@ -321,10 +329,45 @@ def attention_ab(torch) -> dict:
     return {"shape": ATTENTION_SHAPE, "turns": ATTENTION_TURNS, "rows": rows}
 
 
+# What ``train_ab`` keeps of a train phase's report.
+TRAIN_KEYS = ("step_s", "step_s_median", "peak_gib", "forward_ms", "backward_ms",
+              "attention_backward_ms", "optimizer_ms", "device_ms", "idle_share", "losses")
+# One train phase of the tree it runs in (the working directory).
+TRAIN_CHILD = f"""
+import json, sys
+sys.path[:0] = ["src", ".", "tests"]
+import torch
+import chip_smoke as C
+from repro_torch.kernels import build as B
+torch.cuda.set_device(0)
+B.build_libraries()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+report, _ = C.train_phase(torch, torch.device("cuda", 0), C.TRAIN_PHASES[0])
+print("TRAIN_AB " + json.dumps({{k: report.get(k) for k in {TRAIN_KEYS!r}}}))
+"""
+
+
+def train_ab(tree: Path) -> list:
+    """``chip_smoke.py``'s first train phase in ``tree`` and in this tree,
+    one process a turn (other, this, this, other): each turn's report."""
+    runs = []
+    for name, where in (("other", tree), ("this", ROOT), ("this", ROOT), ("other", tree)):
+        proc = subprocess.run([sys.executable, "-c", TRAIN_CHILD], cwd=where, capture_output=True,
+                              text=True, timeout=600)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TRAIN_AB ")), None)
+        if proc.returncode or line is None:
+            raise RuntimeError(f"the train phase in {where} failed:\n{proc.stderr[-4000:]}")
+        runs.append({"tree": name, **json.loads(line.removeprefix("TRAIN_AB "))})
+        print(f"train {name}: " + json.dumps(runs[-1]), flush=True)
+    return runs
+
+
 def main(argv) -> int:
     import torch
 
-    if len(argv) > 1 or not torch.cuda.is_available():
+    train = argv[:1] == ["--train"]
+    if len(argv) > (2 if train else 1) or train and len(argv) < 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]
@@ -332,11 +375,15 @@ def main(argv) -> int:
 
     report = {"card": S.card_line()}
     print(report["card"], flush=True)
-    if argv:
-        report["other_tree"] = argv[0]
-        search_ab(torch, Path(argv[0]).resolve(), report)
-    report["attention"] = attention_ab(torch)
-    out = ROOT / "chiprun_out" / "kernel_ab.json"
+    if train:
+        report["other_tree"] = argv[1]
+        report["train"] = train_ab(Path(argv[1]).resolve())
+    else:
+        if argv:
+            report["other_tree"] = argv[0]
+            search_ab(torch, Path(argv[0]).resolve(), report)
+        report["attention"] = attention_ab(torch)
+    out = ROOT / "chiprun_out" / ("kernel_ab_train.json" if train else "kernel_ab.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     return 0
