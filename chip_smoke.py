@@ -109,15 +109,24 @@
    each shard and the combine's total, and the dropped MoE slots under
    both capacity rules;
 10. trains right after the LM phases (``TRAIN_PHASES``, on the emptied
-   card), after holding the attention's three backward kernels
-   (``csrc/flash_attention_bwd.cu``: ``flash_bwd_prep``,
-   ``flash_bwd_dkdv``, ``flash_bwd_dq``) against the plain backward
-   (``attention_bwd_ref``) at ``_torch_parity.FLASH_BWD_CASES`` and the
-   training shapes (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global
-   layer at 4,096 tokens in bf16, BERT4Rec's call at 32,768 rows in fp32,
-   past one launch chunk) within ``FLASH_BWD_TOL``, one launch of each a
-   call, with two faulty controls (the window dropped, the group sum
-   dropped) that must land beyond it.  Each phase goes through
+   card), after holding the attention's backward kernels against the
+   plain backward (``attention_bwd_ref``) at
+   ``_torch_parity.FLASH_BWD_CASES`` and the training shapes
+   (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global layer at 4,096
+   tokens in bf16, BERT4Rec's call at 32,768 rows in fp32, past one
+   launch chunk), each call through the route ``kernel.bwd_route`` names
+   (``BWD_ROUTE_KERNELS``, one launch of each a call): ``flash_bwd_prep``
+   (``csrc/flash_attention_bwd.cu``; delta alone where the sm90 forward
+   saved the log-sum-exp), then for bf16 at D in {64, 128, 256} the
+   tensor-core ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
+   (``csrc/flash_attention_bwd_sm90.cu``; limit ``FLASH_BWD_TOL`` plus
+   the rounding term of P and dS, ``bwd_rounding_terms``), else the
+   general ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (``FLASH_BWD_TOL``);
+   the bf16 cases also through the general backward forced; each kernel
+   alone against its plain part, the sm90 forward's log-sum-exp against
+   the plain one, and two faulty controls (the window dropped, the group
+   sum dropped) that must land beyond the sm90 limit.  Each phase goes
+   through
    ``launch/train.py``'s own ``train_setup`` and ``launch.steps.
    train_step`` at the published widths with seeded random weights:
    gemma3-4b at full depth (``train_4k``'s overrides, 2 microbatches of
@@ -179,9 +188,11 @@
    ``general`` kernel with its launches on the main path: none since the
    resident variant took BERT4Rec's call);
    The backward kernels are timed at the training shapes, each alone
-   (eager and as a graph replay) against its plain part and its bound,
-   beside the whole backward and ``scaled_dot_product_attention``'s
-   backward;
+   (eager and as a graph replay) against its plain part and its bound
+   (at gemma3-4b's the sm90 route's and the general ones forced), beside
+   the whole backward of the route and of the general kernels and
+   ``scaled_dot_product_attention``'s backward.  Each phase's wall time
+   is printed on a line of its own (``phase <name>: <s>s``);
 13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
@@ -397,6 +408,9 @@ SOURCES = {
     **{name: ("src/repro_torch/csrc/flash_attention_bwd.cu",
               "none (XLA's gradient of src/repro/models/layers.py:97 attention)")
        for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")},
+    **{name: ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+              "none (XLA's gradient of src/repro/models/layers.py:97 attention)")
+       for name in ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")},
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -2864,12 +2878,19 @@ BWD_TRAIN_SHAPES = (
     ("bert4rec train_batch slice of 32,768 rows", "float32", 32768, 2, 2, 200, 200, 32, False,
      None),
 )
-BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
+               "flash_bwd_dq_sm90")
+# The kernels one backward call launches on each route (kernel.bwd_route):
+# prep, then the bf16 tensor-core dK/dV and dQ, or the general pair.
+BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
+                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")}
 # Flops a visible (row, key) pair and head, per unit of D, that each kernel
-# does (products of length D, two flops a multiply-add): prep S; dkdv S,
-# dP, dV, dK; dq S, dP, dQ.  The minimal backward does S, dP, dV, dK, dQ:
-# 10·D (its bound, BWD_MIN_FLOPS).
-BWD_FLOPS = {"flash_bwd_prep": 2, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6}
+# does (products of length D, two flops a multiply-add): prep S (none when
+# the forward saved the log-sum-exp: delta alone, bound by its bytes);
+# dkdv S, dP, dV, dK; dq S, dP, dQ.  The minimal backward does S, dP, dV,
+# dK, dQ: 10·D (its bound, BWD_MIN_FLOPS).
+BWD_FLOPS = {"flash_bwd_prep": 2, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6,
+             "flash_bwd_dkdv_sm90": 8, "flash_bwd_dq_sm90": 6}
 BWD_MIN_FLOPS = 10
 class TrainPhase(NamedTuple):
     """A train phase: the arch, its train cell, rows a step, sequential
@@ -2969,109 +2990,174 @@ def plain_bwd_parts(torch, q, k, v, out, dout, causal, window, part="all", lse=N
 
 def bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window, seed):
     """q, k, v (model layout where Lk is even), the forward's output
-    through its route, and a standard-normal output gradient."""
+    through its route with its log-sum-exp where that route saves one
+    (``kernel.flash_attention_lse_cuda``: the sm90 variant), and a
+    standard-normal output gradient."""
     from _torch_parity import flash_inputs
     from repro_torch.kernels.flash_attention import kernel as FK
 
     q, k, v = flash_inputs(dev, dtype, b, h, hkv, lq, lk, d, seed=seed, model_layout=lk % 2 == 0)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
-    return q, k, v, FK.flash_attention_cuda(q, k, v, causal=causal, window=window), dout
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal=causal, window=window)
+    return q, k, v, out, dout, lse
+
+
+def rounding_terms(torch, q, k, v, dout, lse, delta, causal, window):
+    """``_torch_parity.bwd_rounding_terms`` (the sm90 route's extra limit)
+    over chunks of the batch, as ``plain_bwd_parts`` chunks."""
+    from _torch_parity import SCORE_BYTES, bwd_rounding_terms
+
+    b, h, lq, _ = q.shape
+    rows = max(1, SCORE_BYTES // (4 * h * lq * k.shape[2]))
+    parts = [bwd_rounding_terms(q[c0:c0 + rows], k[c0:c0 + rows], v[c0:c0 + rows],
+                                dout[c0:c0 + rows], lse[c0 * h:(c0 + rows) * h],
+                                delta[c0 * h:(c0 + rows) * h], causal, window)
+             for c0 in range(0, b, rows)]
+    return tuple(torch.cat(t) for t in zip(*parts))
 
 
 def check_flash_bwd_cases(torch, dev) -> dict:
     """The backward kernels against the plain backward on the card at
-    ``FLASH_BWD_CASES`` (fp32 and bf16) and the training shapes: the whole
-    backward (one launch of each kernel a call) against
-    ``attention_bwd_ref``, and each kernel alone against its own plain
-    part — ``flash_bwd_prep``'s lse and delta against ``bwd_prep_ref``,
-    ``flash_bwd_dkdv``'s dK, dV and ``flash_bwd_dq``'s dQ against
-    ``bwd_dkdv_ref`` and ``bwd_dq_ref`` fed the same lse and delta — each
-    within ``FLASH_BWD_TOL``; then the faulty controls, which must land
-    beyond it: the window dropped (the backward of a local layer computed
-    as if it were global) and the group sum dropped (dK and dV from the
-    first query head of each group only).  Returns per dtype the largest
-    error and share of the limit of the whole backward and of each
-    kernel (``kernels``)."""
-    from _torch_parity import FLASH_BWD_CASES, flash_bwd_close, flash_bwd_error
+    ``FLASH_BWD_CASES`` (fp32 and bf16) and the training shapes.  Each case
+    runs through its route (``kernel.bwd_route``; launches read from the
+    counters): the whole backward against ``attention_bwd_ref`` within
+    ``FLASH_BWD_TOL``, plus on the sm90 route the rounding term of P and dS
+    (``_torch_parity.bwd_rounding_terms``); each kernel alone against its
+    own plain part — prep's lse and delta against ``bwd_prep_ref`` (and, on
+    the sm90 route, its delta alone given the forward's lse), dkdv's dK, dV
+    and dq's dQ against ``bwd_dkdv_ref`` and ``bwd_dq_ref`` fed the same
+    lse and delta; the sm90 forward's lse against ``bwd_prep_ref``'s within
+    ``FLASH_BWD_TOL["float32"]``.  The bf16 cases also run the general
+    backward forced (``kernel._general_bwd_forced``), held to
+    ``FLASH_BWD_TOL`` with no rounding term, its kernels alone too.  Then
+    the faulty controls, which must land beyond the sm90 limit: the window
+    dropped (a local layer's backward computed as a global one's) and the
+    group sum dropped (dK and dV from the first query head of each group).
+    Returns per route the largest error and share of the limit of the
+    whole backward and of each kernel (``kernels``)."""
+    from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, flash_bwd_close,
+                               flash_bwd_error)
     from repro_torch.kernels import build as B
     from repro_torch.kernels.flash_attention import kernel as FK
 
     t0 = time.perf_counter()
-    worst = {dt: {"max_abs_err": 0.0, "share": 0.0, "cases": 0,
-                  "kernels": {name: {"max_abs_err": 0.0, "share": 0.0} for name in BWD_KERNELS}}
-             for dt in ("float32", "bfloat16")}
+    routes = ("float32 general", "bfloat16 sm90", "bfloat16 general (forced)")
+    worst = {r: {"max_abs_err": 0.0, "share": 0.0, "cases": 0,
+                 "kernels": {name: {"max_abs_err": 0.0, "share": 0.0}
+                             for name in (*BWD_KERNELS, "forward_lse")}}
+             for r in routes}
+
+    def hold(key, label, name, got, want, extra=None, kernel=None):
+        mine = worst[key] if kernel is None else worst[key]["kernels"][kernel]
+        try:
+            err, share = flash_bwd_close(name, got, want, extra)
+        except AssertionError as exc:
+            raise AssertionError(f"{kernel or 'backward'} {label} ({key}): {exc}") from exc
+        mine["max_abs_err"] = max(mine["max_abs_err"], err)
+        mine["share"] = max(mine["share"], share)
+
+    def counted(fn, label, want):
+        before = {name: B.LAUNCHES[name] for name in BWD_KERNELS}
+        out = fn()
+        torch.cuda.synchronize()
+        launched = {name: B.LAUNCHES[name] - before[name] for name in BWD_KERNELS}
+        if launched != {n: int(n in want) for n in BWD_KERNELS}:
+            raise AssertionError(f"backward {label}: launches {launched}, want {want}")
+        return out
+
+    def kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms):
+        """Each kernel of ``route`` against its plain part."""
+        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+        plain_lse, plain_delta = plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                 "prep")
+        hold(key, label, "lse", lse, plain_lse, kernel="flash_bwd_prep")
+        hold(key, label, "delta", delta, plain_delta, kernel="flash_bwd_prep")
+        if lse_fwd is not None:  # delta alone, given the forward's lse
+            same, delta2 = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd)
+            if same is not lse_fwd:
+                raise AssertionError("prep with the forward's lse returned another lse")
+            hold(key, label, "delta", delta2, plain_delta, kernel="flash_bwd_prep")
+        sm90 = route == "sm90"
+        dkdv = FK.bwd_dkdv_sm90_cuda if sm90 else FK.bwd_dkdv_cuda
+        dq_fn = FK.bwd_dq_sm90_cuda if sm90 else FK.bwd_dq_cuda
+        names = BWD_ROUTE_KERNELS[route]
+        dk, dv = dkdv(q, k, v, dout, lse, delta, causal, window)
+        want_k = plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dkdv", lse, delta)
+        for name, g, w, t in zip(("dk", "dv"), (dk, dv), want_k, terms[1:], strict=True):
+            hold(key, label, name, g, w, t if sm90 else None, kernel=names[1])
+        dq = dq_fn(q, k, v, dout, lse, delta, causal, window)
+        (want_q,) = plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq", lse, delta)
+        hold(key, label, "dq", dq, want_q, terms[0] if sm90 else None, kernel=names[2])
+
     cases = [(f"case {c}", dt, *c) for c in FLASH_BWD_CASES for dt in ("float32", "bfloat16")]
     cases += [(label, dt, b, h, hkv, lq, lk, d, causal, window)
               for label, dt, b, h, hkv, lq, lk, d, causal, window in BWD_TRAIN_SHAPES]
     controls = {}
     for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(cases):
         dtype = getattr(torch, dt)
-        q, k, v, out, dout = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window,
-                                        seed=500 + n)
-        before = {name: B.LAUNCHES[name] for name in BWD_KERNELS}
-        got = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window)
-        torch.cuda.synchronize()
-        launched = {name: B.LAUNCHES[name] - before[name] for name in BWD_KERNELS}
-        if launched != dict.fromkeys(BWD_KERNELS, 1):
-            raise AssertionError(f"backward {label}: launches {launched}")
+        route = FK.bwd_route(dtype, d)
+        key = "float32 general" if dt == "float32" else (
+            "bfloat16 sm90" if route == "sm90" else "bfloat16 general (forced)")
+        q, k, v, out, dout, lse_fwd = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal,
+                                                 window, seed=500 + n)
+        got = counted(lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window,
+                                                          lse=lse_fwd),
+                      label, BWD_ROUTE_KERNELS[route])
         want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
-            try:
-                err, share = flash_bwd_close(name, g, w)
-            except AssertionError as exc:
-                raise AssertionError(f"backward {label} ({dt}): {exc}") from exc
-            worst[dt]["max_abs_err"] = max(worst[dt]["max_abs_err"], err)
-            worst[dt]["share"] = max(worst[dt]["share"], share)
-        worst[dt]["cases"] += 1
-        # Each kernel alone against its own plain part.
-        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
-        dk, dv = FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window)
-        dq = FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window)
-        parts = {
-            "flash_bwd_prep": zip(("lse", "delta"), (lse, delta),
-                                  plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
-                                                  "prep")),
-            "flash_bwd_dkdv": zip(("dk", "dv"), (dk, dv),
-                                  plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
-                                                  "dkdv", lse, delta)),
-            "flash_bwd_dq": zip(("dq",), (dq,),
-                                plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq",
-                                                lse, delta)),
-        }
-        for kname, outs in parts.items():
-            mine = worst[dt]["kernels"][kname]
-            for name, g, w in outs:
-                try:
-                    err, share = flash_bwd_close(name, g, w)
-                except AssertionError as exc:
-                    raise AssertionError(f"{kname} {label} ({dt}): {exc}") from exc
-                mine["max_abs_err"] = max(mine["max_abs_err"], err)
-                mine["share"] = max(mine["share"], share)
-        del lse, delta, dk, dv, dq, parts
+        plain_lse, plain_delta = plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
+                                                 "prep")
+        terms = (rounding_terms(torch, q, k, v, dout, plain_lse, plain_delta, causal, window)
+                 if route == "sm90" else (None, None, None))
+        for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms, strict=True):
+            hold(key, label, name, g, w, t)
+        worst[key]["cases"] += 1
+        if lse_fwd is not None:  # the sm90 forward's log-sum-exp
+            rtol, atol = FLASH_BWD_TOL["float32"]
+            err = (lse_fwd - plain_lse).abs()
+            share = float((err / (atol + rtol * plain_lse.abs())).max())
+            mine = worst[key]["kernels"]["forward_lse"]
+            mine["max_abs_err"] = max(mine["max_abs_err"], float(err.max()))
+            mine["share"] = max(mine["share"], share)
+            if share > 1.0:
+                raise AssertionError(f"the sm90 forward's lse at {label}: {share:.3g} of the "
+                                     f"limit")
+        kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms)
+        if route == "sm90":  # the general backward on the same inputs
+            gkey = "bfloat16 general (forced)"
+            forced = counted(lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window),
+                             label, BWD_ROUTE_KERNELS["general"])
+            for name, g, w in zip(("dq", "dk", "dv"), forced, want, strict=True):
+                hold(gkey, label, name, g, w)
+            worst[gkey]["cases"] += 1
+            kernels_alone(gkey, label, q, k, v, out, dout, causal, window, "general", None,
+                          (None, None, None))
         if label.startswith("gemma3-4b") and window is not None:
             bad = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, None)
-            controls["window dropped"] = max(flash_bwd_error(g, w)[1]
-                                             for g, w in zip(bad, want, strict=True))
+            controls["window dropped"] = max(flash_bwd_error(g, w, t)[1]
+                                             for g, w, t in zip(bad, want, terms, strict=True))
         if label.startswith("gemma3-4b") and window is None:
             g = h // hkv
             q0, o0, d0 = q[:, ::g], out[:, ::g], dout[:, ::g]
             lse0, delta0 = FK.bwd_prep_cuda(q0, k, o0, d0, causal, window, v=v)
-            bad = FK.bwd_dkdv_cuda(q0, k, v, d0, lse0, delta0, causal, window)
-            controls["group sum dropped"] = max(flash_bwd_error(g_, w)[1]
-                                                for g_, w in zip(bad, want[1:], strict=True))
-        del q, k, v, out, dout, got, want
+            bad = FK.bwd_dkdv_sm90_cuda(q0, k, v, d0, lse0, delta0, causal, window)
+            controls["group sum dropped"] = max(
+                flash_bwd_error(g_, w, t)[1]
+                for g_, w, t in zip(bad, want[1:], terms[1:], strict=True))
+        del q, k, v, out, dout, lse_fwd, got, want, terms, plain_lse, plain_delta
+        torch.cuda.empty_cache()
     for name, share in controls.items():
-        print(f"attention backward control ({name}): {share:.3g} of the limit", flush=True)
+        print(f"attention backward control ({name}): {share:.3g} of the sm90 limit", flush=True)
         if share <= 1.0:
             raise AssertionError(f"the backward's control ({name}) was not caught: {share:.3g}")
     worst["controls"] = controls
-    print("attention backward: " + ", ".join(
-        f"{dt} {w['cases']} cases max |err| {w['max_abs_err']:.3g} ({w['share']:.3g} of the "
-        f"limit; each kernel alone: " + ", ".join(
-            f"{n} {e['max_abs_err']:.3g} ({e['share']:.3g})" for n, e in w["kernels"].items())
-        + ")" for dt, w in worst.items() if dt != "controls")
-        + f" in {time.perf_counter() - t0:.1f}s", flush=True)
+    for r in routes:
+        w = worst[r]
+        print(f"attention backward, {r}: {w['cases']} cases, max |err| {w['max_abs_err']:.3g} "
+              f"({w['share']:.3g} of the limit); each kernel alone: " + ", ".join(
+                  f"{n} {e['max_abs_err']:.3g} ({e['share']:.3g})"
+                  for n, e in w["kernels"].items() if e["share"] > 0), flush=True)
+    print(f"phase attention backward cases: {time.perf_counter() - t0:.1f}s", flush=True)
     return worst
 
 
@@ -3096,84 +3182,118 @@ def sdpa_backward(torch, q, k, v, dout, causal, window):
 
 
 def flash_bwd_rows(torch, dev, launches, checked) -> list:
-    """The three backward kernels at the training shapes
-    (``BWD_TRAIN_SHAPES``): each alone, eager and as a graph replay,
-    against its plain version (its part of ``attention_bwd_ref``) and its
-    bound (its own flops, ``BWD_FLOPS``·D a visible pair and head, at the
-    unit of the inputs' dtype: 989 TFLOP/s bf16, 67 fp32; or its bytes);
-    the whole backward beside them (bound 10·D a pair and head), with the
-    backward of ``scaled_dot_product_attention`` on the same inputs.
-    Returns the three kernels' entries."""
+    """The backward's kernels at the training shapes (``BWD_TRAIN_SHAPES``),
+    each alone, eager and as a graph replay, against its plain version (its
+    part of ``attention_bwd_ref``) and its bound (its own flops,
+    ``BWD_FLOPS``·D a visible pair and head, at the unit of the inputs'
+    dtype: 989 TFLOP/s bf16, 67 fp32; or its bytes): at gemma3-4b's
+    shapes the sm90 route's kernels (prep computing delta alone, given the
+    forward's lse) and the general kernels forced on the same inputs
+    (prep recomputing the lse); at BERT4Rec's, the general route.  Beside
+    them the whole backward of the route and the forced general one (bound
+    10·D a pair and head), ``scaled_dot_product_attention``'s backward and
+    the plain version.  Returns the kernels' entries."""
     from repro_torch.kernels.flash_attention import kernel as FK
 
     rows = {name: [] for name in BWD_KERNELS}
     for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(BWD_TRAIN_SHAPES):
         dtype = getattr(torch, dt)
+        route = FK.bwd_route(dtype, d)
         item = 2 if dt == "bfloat16" else 4
         peak = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
-        q, k, v, out, dout = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal, window,
-                                        seed=700 + n)
-        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+        q, k, v, out, dout, lse_fwd = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal,
+                                                 window, seed=700 + n)
+        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd)
         pairs = visible_pairs(lq, lk, causal, window) * b * h
         big = pairs > 4 * PLAIN_ONCE_PAIRS
         reps = 1 if big else 3
         qb, kb = item * q.numel(), item * k.numel()
-        stat = 4 * 2 * b * h * lq  # lse and delta
-        nbytes = {"flash_bwd_prep": 2 * qb + kb + qb + stat,  # q, k, o, dO; lse, delta
-                  "flash_bwd_dkdv": 2 * qb + 2 * kb + stat + 2 * kb,  # q, k, v, dO, lse, delta; dk, dv
-                  "flash_bwd_dq": 2 * qb + 2 * kb + stat + qb}  # ...; dq
-        calls = {
-            "flash_bwd_prep": (lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v),
-                               lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
-                                                       "prep")),
-            "flash_bwd_dkdv": (lambda: FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window),
-                               lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
-                                                       "dkdv", lse, delta)),
-            "flash_bwd_dq": (lambda: FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window),
-                             lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
-                                                     "dq", lse, delta)),
+        stat = 4 * b * h * lq  # lse or delta
+        # Bytes each call must move: inputs read once, outputs written once.
+        nbytes = {"prep": 2 * qb + kb + qb + 2 * stat,  # q, k, o, dO; lse, delta
+                  "prep (delta)": 2 * qb + stat,  # o, dO; delta
+                  "dkdv": 2 * qb + 2 * kb + 2 * stat + 2 * kb,  # q, k, v, dO, lse, delta; dk, dv
+                  "dq": 2 * qb + 2 * kb + 2 * stat + qb}  # ...; dq
+        plain = {
+            "prep": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "prep"),
+            "dkdv": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dkdv",
+                                            lse, delta),
+            "dq": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq", lse,
+                                          delta),
         }
+        # (kernel, its part, the call, whose row, the row's label suffix)
+        calls = [("flash_bwd_prep", "prep",
+                  lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v), "general"),
+                 ("flash_bwd_dkdv", "dkdv",
+                  lambda: FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window), "general"),
+                 ("flash_bwd_dq", "dq",
+                  lambda: FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window), "general")]
+        if route == "sm90":
+            calls = [("flash_bwd_prep", "prep (delta)",
+                      lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd),
+                      "sm90"),
+                     ("flash_bwd_dkdv_sm90", "dkdv",
+                      lambda: FK.bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window),
+                      "sm90"),
+                     ("flash_bwd_dq_sm90", "dq",
+                      lambda: FK.bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window),
+                      "sm90")] + calls
         library = sdpa_backward(torch, q, k, v, dout, causal, window)
         want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
         lib_share = max(float((g.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                         for g, w in zip(library(), want, strict=True))
         if lib_share > LIBRARY_TOL:
             raise AssertionError(f"SDPA's backward yardstick at {label}: {lib_share:.3g}")
+        del want
         library_ms = time_ms(library, reps=5, warmup=2)
-        whole = lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window)  # noqa: E731
+        whole = lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window,  # noqa: E731
+                                                    lse=lse_fwd)
+        general = lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window)  # noqa: E731
         whole_ms, whole_device = time_ms(whole, reps=5), graph_ms(whole, reps=5)
+        if route == "sm90":
+            general_ms, general_device = time_ms(general, reps=3), graph_ms(general, reps=3)
+        else:
+            general_ms, general_device = whole_ms, whole_device
         whole_plain = time_ms(lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window),
                               reps=reps, warmup=1)
         whole_ops = BWD_MIN_FLOPS * d * pairs
         whole_bytes = item * (3 * q.numel() + 2 * k.numel()) + item * (q.numel() + 2 * k.numel())
         whole_bound = max(whole_ops / peak, whole_bytes / MEM_BYTES_PER_S) * 1e3
         print(f"attention backward {label}: q ({b}, {h}, {lq}, {d}) over ({b}, {hkv}, {lk}, {d}) "
-              f"{dt}, {pairs} visible pair-heads: all three kernels {whole_ms:.4f} ms (graph "
-              f"{whole_device:.4f}), plain {whole_plain:.4f}, SDPA's backward {library_ms:.4f} "
-              f"(rel. max err {lib_share:.2g}); bound {whole_bound:.5f} ms "
+              f"{dt}, {pairs} visible pair-heads, route {route}: the backward {whole_ms:.4f} ms "
+              f"(graph {whole_device:.4f}), the general backward {general_ms:.4f} (graph "
+              f"{general_device:.4f}), plain {whole_plain:.4f}, SDPA's backward "
+              f"{library_ms:.4f} (rel. max err {lib_share:.2g}); bound {whole_bound:.5f} ms "
               f"({BWD_MIN_FLOPS}·D flops a pair-head at {peak / 1e12:.0f} TFLOP/s; bytes "
               f"{whole_bytes / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
-        for name, (kernel, plain) in calls.items():
-            ops = BWD_FLOPS[name] * d * pairs
-            bytes_ms, ops_ms = nbytes[name] / MEM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        ckey = {"sm90": "bfloat16 sm90", "general": "bfloat16 general (forced)"}
+        for name, part, kernel, which in calls:
+            ops = 0 if part == "prep (delta)" else BWD_FLOPS[name] * d * pairs
+            bytes_ms = nbytes[part] / MEM_BYTES_PER_S * 1e3
+            ops_ms = ops / peak * 1e3
+            key = "float32 general" if dt == "float32" else ckey[which]
             row = {
-                "shape": f"{label}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) {dt}",
-                "ms": time_ms(kernel, reps=5), "device_ms": graph_ms(kernel, reps=5),
-                "plain_ms": time_ms(plain, reps=reps, warmup=1), "ops": ops,
-                "bytes": nbytes[name], "visible_pair_heads": pairs,
+                "shape": f"{label}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) {dt}"
+                         + ("" if which == route else ", the general backward forced"),
+                "part": part, "ms": time_ms(kernel, reps=5 if which == "sm90" else 3),
+                "device_ms": graph_ms(kernel, reps=5 if which == "sm90" else 3),
+                "plain_ms": time_ms(plain[part.split()[0]], reps=reps, warmup=1), "ops": ops,
+                "bytes": nbytes[part], "visible_pair_heads": pairs,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": None, "sdpa_backward_ms": library_ms,
                 "whole_backward_ms": whole_ms, "whole_backward_device_ms": whole_device,
+                "general_backward_ms": general_ms, "general_backward_device_ms": general_device,
                 "whole_backward_plain_ms": whole_plain, "whole_backward_bound_ms": whole_bound,
-                "max_abs_err": checked[dt]["kernels"][name]["max_abs_err"],
+                "max_abs_err": checked[key]["kernels"][name]["max_abs_err"],
             }
             rows[name].append(row)
-            print(f"{name} {row['shape']}: ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
-                  f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
-                  f"({row['bound_by']}; {BWD_FLOPS[name]}·D flops a pair-head, bytes "
+            print(f"{name} {row['shape']} [{part}]: ms={row['ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
+                  f"{0 if not ops else BWD_FLOPS[name]}·D flops a pair-head, bytes "
                   f"{bytes_ms:.5f})", flush=True)
-        del q, k, v, out, dout, lse, delta, library, want
+        del q, k, v, out, dout, lse, delta, lse_fwd, library
         torch.cuda.empty_cache()
     return [kernel_entry(name, launches, rows[name], variant="backward") for name in BWD_KERNELS]
 
@@ -3288,6 +3408,11 @@ def train_phase(torch, dev, phase: TrainPhase) -> tuple:
     route = first if phase.route_rows is None else [
         {k: v[:phase.route_rows] for k, v in batches[0].items()}]
     n_attn = cfg.n_layers if lm else (cfg.n_blocks if phase.arch == "bert4rec" else 0)
+    # The backward's kernels (kernel.bwd_route): gemma3-4b's bf16 D = 256
+    # takes the sm90 pair, BERT4Rec's fp32 encoder the general one.
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    bwd_kernels = BWD_ROUTE_KERNELS[FK.bwd_route(cfg.adtype, cfg.head_dim) if lm else "general"]
     report = {"arch": phase.arch, "cell": phase.cell, "rows": phase.batch, "microbatches": micro,
               "layers": cfg.n_layers if lm else None, "dtype": dtype, "init_s": init_s,
               "params": cfg.n_params()}
@@ -3300,9 +3425,10 @@ def train_phase(torch, dev, phase: TrainPhase) -> tuple:
         B.reset_launch_counts()
         loss_k = _grads_of(torch, model, route, setup.loss_fn)
         first_launches = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
-        if first_launches != dict.fromkeys(BWD_KERNELS, n_attn * len(route)):
+        if first_launches != {n: n_attn * len(route) * (n in bwd_kernels) for n in BWD_KERNELS}:
             raise AssertionError(f"{phase.arch}: first step's backward launches "
-                                 f"{first_launches}, want {n_attn * len(route)} each")
+                                 f"{first_launches}, want {n_attn * len(route)} of each of "
+                                 f"{bwd_kernels} and none of the others")
         kernel_grads = _host_grads(model)
         loss_p = _grads_of(torch, model, route, setup.loss_fn, plain_route_attention)
         plain_grads = _host_grads(model)
@@ -3357,7 +3483,7 @@ def train_phase(torch, dev, phase: TrainPhase) -> tuple:
     launches = {n: B.LAUNCHES[n] for n in (*BWD_KERNELS, "flash_attention_sm90",
                                            "flash_attention_resident", "flash_attention_kernel")}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    design = {n: n_attn * micro * phase.steps for n in BWD_KERNELS}
+    design = {n: n_attn * micro * phase.steps * (n in bwd_kernels) for n in BWD_KERNELS}
     if lm:  # the forward and its replay under the block remat
         design["flash_attention_sm90"] = 2 * n_attn * micro * phase.steps
     elif n_attn:
@@ -3612,6 +3738,13 @@ def sanitizer_phase(torch, svc, cq) -> dict:
     return {"queries": len(cq), "clean": True, "caught": caught}
 
 
+def phase_done(name: str, t0: float) -> float:
+    """Print a phase's wall time on a line of its own; the time now."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f}s", flush=True)
+    return now
+
+
 def kernel_entry(name, launches, rows, variant):
     source, replaces = SOURCES[name]
     main = rows[0]
@@ -3648,9 +3781,11 @@ def main() -> int:
     for stem, lines in B.PTXAS.items():
         print(f"ptxas {stem}.cu: " + " | ".join(lines), flush=True)
 
+    t0 = phase_done("build", t0)
     check_intersect_cases(torch, dev)
     check_fold_cases(torch, dev)
     score_case_err = check_cluster_score_cases(torch, dev)
+    t0 = phase_done("search kernel cases", t0)
 
     # The LM serving path, first while the card holds nothing else (the MoE
     # phases' weights take 52-57 GiB): each phase reads only the attention
@@ -3658,6 +3793,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full fp32
     torch.backends.cudnn.allow_tf32 = False
     flash_errs = check_flash_cases(torch, dev)
+    t0 = phase_done("attention cases", t0)
     lm = {}
     launches = {}
     for phase in LM_PHASES:
@@ -3665,12 +3801,14 @@ def main() -> int:
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
+        t0 = phase_done(f"LM {phase.name}", t0)
     mesh_lm = {}
     for phase in MESH_PHASES:
         mesh_lm[phase.name], phase_launches = mesh_phase(torch, dev, phase)
         for name, n in phase_launches.items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
+        t0 = phase_done(f"mesh {phase.name}", t0)
     print(f"attention launches over the LM phases: {launches}", flush=True)
 
     # Training: the backward kernels' checks, then each train phase on an
@@ -3682,13 +3820,13 @@ def main() -> int:
         t0 = time.perf_counter()
         train[phase.arch], phase_launches = train_phase(torch, dev, phase)
         train[phase.arch]["wall_s"] = time.perf_counter() - t0
-        print(f"train phase {phase.arch}: {train[phase.arch]['wall_s']:.1f}s", flush=True)
+        print(f"phase train {phase.arch}: {train[phase.arch]['wall_s']:.1f}s", flush=True)
         for n, c in phase_launches.items():
             launches[n] = launches.get(n, 0) + c
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train["checkpoint"] = checkpoint_phase(torch, dev)
-    print(f"checkpoint phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"phase checkpoint: {time.perf_counter() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     print(f"backward launches over the train phases: "
           f"{ {n: launches[n] for n in BWD_KERNELS} }", flush=True)
@@ -3714,7 +3852,7 @@ def main() -> int:
         {k: v for k, v in r.items() if k not in ("ids", "brute")} for r in filt["filters"]]
     recsys["wall_s"] = time.perf_counter() - t0
     del filt
-    print(f"recsys path: {recsys['wall_s']:.1f}s; attention launches now {launches}", flush=True)
+    print(f"phase recsys: {recsys['wall_s']:.1f}s; attention launches now {launches}", flush=True)
 
     # The search path: only the search kernels' counters are read.
     args = search.build_parser().parse_args([
@@ -3723,6 +3861,7 @@ def main() -> int:
     ])
     from repro_torch.kernels.intersect import kernel as search_kernels
 
+    t0 = time.perf_counter()
     B.reset_launch_counts()
     svc, logs, report, corpus = search.setup(args)
     recorder = Spans(torch)  # the fold's arguments per batch, for its timing below
@@ -3744,6 +3883,7 @@ def main() -> int:
         raise AssertionError(f"{launches['segment_fold']} fold launches for {n_batches} batches")
     print("search path: n_docs={n_docs} n_postings={n_postings} index_nbytes={index_nbytes} "
           "fit_s={fit_s:.1f}".format(**report))
+    phase_done("search path", t0)
     for name in logs:
         e = report[f"engine_{name}"]
         print(f"  {name}: median t_plan_s={e['t_plan_s_median']:.6f} "
@@ -3753,15 +3893,16 @@ def main() -> int:
     t0 = time.perf_counter()
     sanitize = sanitizer_phase(torch, svc, next(iter(logs.values())).queries[:256])
     sanitize["wall_s"] = time.perf_counter() - t0
-    print(f"sanitizer phase: {sanitize['wall_s']:.1f}s", flush=True)
+    print(f"phase sanitizer: {sanitize['wall_s']:.1f}s", flush=True)
 
     # The serving tier over the same fit: sharded engine, replays, chaos.
     t0 = time.perf_counter()
     tier = serving_tier(torch, svc, logs, corpus, N_QUERIES)
     tier["wall_s"] = time.perf_counter() - t0
-    print(f"serving tier: {tier['wall_s']:.1f}s", flush=True)
+    print(f"phase serving tier: {tier['wall_s']:.1f}s", flush=True)
 
     # The clustering path: only the cluster_scores counter is read.
+    t0 = time.perf_counter()
     kmeans, kmeans_launches = device_kmeans(torch, dev, svc.res)
     for name in ("cluster_scores_kernel", "cluster_scores_staged"):
         launches[name] = kmeans_launches[name]
@@ -3775,6 +3916,7 @@ def main() -> int:
     print("  host-clock spans (s): " + " ".join(
         f"{name}={sec:.3f}" for name, sec in sorted(kmeans["spans_s"].items())), flush=True)
 
+    t0 = phase_done("clustering", t0)
     ell, p, tables8, kmeans["round_check"] = round_check(torch, dev, svc.res.view)
 
     fold = fold_rows(torch, svc, logs, launches, fold_batches)
@@ -3787,9 +3929,9 @@ def main() -> int:
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
     kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
-    t0 = time.perf_counter()
+    t0 = phase_done("search and attention kernel rows", t0)
     kernels += flash_bwd_rows(torch, dev, launches, bwd_errs)
-    print(f"backward kernels timed in {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_done("backward kernel rows", t0)
     for row in bert4rec_rows:  # the resident variant, then the general kernel
         entry = kernel_entry(f"flash_attention_{row['variant']}", launches, [row],
                              variant=row["variant"])

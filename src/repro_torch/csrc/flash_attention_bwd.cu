@@ -3,7 +3,8 @@
 // so every launch is deterministic):
 //   - flash_bwd_prep_kernel: one block a (batch, head, 16 query rows):
 //     each row's log-sum-exp over its visible keys (recomputed from Q and
-//     K), and delta = rowsum(dO ∘ O);
+//     K), and delta = rowsum(dO ∘ O); or delta alone, where the forward
+//     saved the log-sum-exp (the sm90 forward does; a pass over bytes);
 //   - flash_bwd_dkdv_kernel: one block a (batch, KV head, 32 keys): loops
 //     over the group's query heads and their query tiles that see the
 //     keys, recomputes P from the log-sum-exp, and accumulates dV = Pᵀ·dO
@@ -45,8 +46,10 @@
 // does 8 products of length D on the fp32 CUDA cores (S in prep, dkdv
 // and dq; dP in dkdv and dq; dV, dK, dQ), against the 5 of the minimal
 // backward (the bound chip_smoke.py states: 10·D flops a pair and head
-// at the unit's peak).  Tensor cores (wgmma), TMA and a log-sum-exp
-// saved by the forward are later work.
+// at the unit's peak).  For bf16 at D in {64, 128, 256} the backward takes
+// the tensor-core kernels of csrc/flash_attention_bwd_sm90.cu instead
+// (dkdv and dq; prep as here), and these stay the general backward: fp32,
+// the other head dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(FB_THREADS)
 flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ o, const T* __restrict__ g,
                       float* __restrict__ lse, float* __restrict__ delta, FbDims dm,
-                      FbStrides st, float scale, int64_t bh0) {
+                      FbStrides st, float scale, int64_t bh0, int want_lse) {
   constexpr int DP = NC * 32;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;               // [FB_BQ][DP]
@@ -184,8 +187,6 @@ flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* ob = o + b * st.o[0] + hq * st.o[1];
   const T* gb = g + b * st.g[0] + hq * st.g[1];
 
-  fb_stage<T, DP, FB_BQ, false>(qs, qb, q0, dm.lq, st.q[2], d);
-
   const int r0 = warp * FB_RW;
   int64_t pos[FB_RW];
 #pragma unroll
@@ -200,6 +201,8 @@ flash_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (lane == 0) delta[bh * dm.lq + row] = acc;
     }
   }
+  if (!want_lse) return;  // the forward saved it
+  fb_stage<T, DP, FB_BQ, false>(qs, qb, q0, dm.lq, st.q[2], d);
 
   const int64_t rows_here = dm.lq - q0 < FB_BQ ? dm.lq - q0 : FB_BQ;
   int64_t j_begin, j_end;
@@ -478,17 +481,20 @@ static int fb_parse(const int64_t* a, FbArgs* out) {
 
 template <typename T, int NC>
 static int fb_prep_nc(const void* q, const void* k, const void* o, const void* g, float* lse,
-                      float* delta, const FbArgs& fa, float scale, cudaStream_t s) {
-  const size_t smem = fb_prep_smem(NC * 32);
+                      float* delta, const FbArgs& fa, float scale, int want_lse,
+                      cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_prep_kernel<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)fb_prep_smem(NC * 32));
   if (err != cudaSuccess) return (int)err;
+  const size_t smem = want_lse ? fb_prep_smem(NC * 32) : 0;  // delta alone stages nothing
   const int64_t pairs = fa.dm.b * fa.dm.h;
   for (int64_t p0 = 0; p0 < pairs; p0 += FB_MAX_GRID_Y) {
     const int64_t n = pairs - p0 < FB_MAX_GRID_Y ? pairs - p0 : FB_MAX_GRID_Y;
     const dim3 grid((unsigned)((fa.dm.lq + FB_BQ - 1) / FB_BQ), (unsigned)n);
     flash_bwd_prep_kernel<T, NC><<<grid, FB_THREADS, smem, s>>>(
-        (const T*)q, (const T*)k, (const T*)o, (const T*)g, lse, delta, fa.dm, fa.st, scale, p0);
+        (const T*)q, (const T*)k, (const T*)o, (const T*)g, lse, delta, fa.dm, fa.st, scale, p0,
+        want_lse);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -554,16 +560,17 @@ static int fb_dq_nc(const void* q, const void* k, const void* v, const void* g,
   } while (0);                                                            \
   return (int)cudaErrorInvalidValue
 
-// Each returns the CUDA error of its launches (0 when they ran).
+// Each returns the CUDA error of its launches (0 when they ran).  Prep
+// writes lse only when want_lse is not 0.
 extern "C" int flash_bwd_prep_launch(const void* q, const void* k, const void* o,
                                      const void* g, void* lse, void* delta, const int64_t* a,
-                                     float scale, void* stream) {
+                                     float scale, int want_lse, void* stream) {
   FbArgs fa;
   const int bad = fb_parse(a, &fa);
   if (bad) return bad;
   if (fa.dm.lq <= 0 || fa.dm.b * fa.dm.h <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  FB_DISPATCH(fb_prep_nc, q, k, o, g, (float*)lse, (float*)delta, fa, scale, s);
+  FB_DISPATCH(fb_prep_nc, q, k, o, g, (float*)lse, (float*)delta, fa, scale, want_lse, s);
 }
 
 extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k, const void* v,

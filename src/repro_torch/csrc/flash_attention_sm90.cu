@@ -53,27 +53,19 @@
 //     the keys.
 //   - Output.  Each consumer writes its bf16 O tile into its own Q buffer
 //     in the swizzled layout and one thread stores it with TMA, which
-//     clips rows past Lq.
+//     clips rows past Lq.  When the autograd forward asks for it
+//     (`lse` not null), each row's log-sum-exp ln 2 · (m + log2 l) goes
+//     out too, for the backward (csrc/flash_attention_bwd_sm90.cu); the
+//     serving path passes null.
 // Each consumer overlaps its softmax of key tile n with its P·V product of
 // tile n - 1 on the tensor cores: it issues S_n = Q·K_n^T and
 // O += P_{n-1}·V_{n-1} as two wgmma groups, waits for the first, computes
 // P_n while the second runs, then rescales O and packs P_n to bf16.
 // K and V have rings and barriers of their own, so a K tile is released as
-// soon as its scores are computed.
+// soon as its scores are computed.  The barrier, TMA and wgmma wrappers
+// and the tensor maps live in sm90_common.cuh, shared with the backward.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define SM90_NEG_INF (-1e30f)
-#define SM90_ROWS 64            // query rows per consumer warpgroup
-#define SM90_BK 64              // keys per K/V tile
-#define SM90_CHUNK_BYTES 8192   // one 64-row x 128-byte swizzled chunk
-#define SM90_CONSUMERS 2
-#define SM90_THREADS ((SM90_CONSUMERS + 1) * 128)
-#define SM90_LOG2E 1.4426950408889634f
-#define SM90_MAX_GRID_Y 65535   // gridDim.y's limit: its rows go in such chunks
+#include "sm90_common.cuh"
 
 struct Sm90Params {
   int h, groups, lq, lk;
@@ -86,205 +78,8 @@ struct Sm90Params {
   int slot_v[3];
   int slot_o[3];
   int64_t bh0;         // the first (batch, head) row of gridDim.y in this launch
+  float* lse;          // null, or (B·H, Lq) float32: each row's log-sum-exp
 };
-
-__device__ __forceinline__ uint32_t sm90_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Waits until the barrier's phase differs from `parity`.  (No timeout: a
-// clock check in this loop costs the D = 256 consumers the registers that
-// keep their wgmma pipelined.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
-                                             int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
-// 1024-byte swizzle atoms are 1024-byte aligned (base offset 0).
-__device__ __forceinline__ uint64_t sm90_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// The value of x, opaque to the compiler: descriptors derived from it are
-// computed where they are used instead of being hoisted out of the key
-// loop, where 16 or more of them would each hold two registers across it.
-__device__ __forceinline__ uint64_t sm90_opaque(uint64_t x) {
-  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
-  return x;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The coordinate of a map's dimension slot s (1..3) for (row, head, batch),
-// where slot[0..2] says in which slot L, H and B lie.
-__device__ __forceinline__ int sm90_coord(const int* slot, int s, int row, int head, int b) {
-  return slot[0] == s ? row : (slot[1] == s ? head : b);
-}
-
-// ---- wgmma wrappers (register lists written out: the instruction names
-// every accumulator register) ----
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n64(d, a, b, 1);
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n128(d, a, b, 1);
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n256(d, a, b, 1);
-}
 
 template <int D>
 struct Sm90Cfg {
@@ -566,7 +361,12 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       float lt = l[rh] + __shfl_xor_sync(0xffffffffu, l[rh], 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       inv[rh] = 1.0f / fmaxf(lt, 1e-30f);
+      // The backward's log-sum-exp, natural units: ln(2) · (m + log2 l).
+      const int row = rowbase + 16 * warp + lane / 4 + 8 * rh;
+      if (p.lse != nullptr && lane % 4 == 0 && row < p.lq)
+        p.lse[((int64_t)b * p.h + hq) * p.lq + row] = (m[rh] + log2f(lt)) * SM90_LN2;
     }
+    __syncwarp();  // converged again before the aligned barrier below
 #pragma unroll
     for (int i = 0; i < C::NACC; i += 2) {
       const int rh = (i >> 1) & 1;
@@ -591,74 +391,6 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   }
-}
-
-// ---- host side ----
-
-// cuTensorMapEncodeTiled, taken from the driver at run time so that the
-// library does not link libcuda.
-typedef CUresult (*Sm90EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static Sm90EncodeFn sm90_encode() {
-  static Sm90EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<Sm90EncodeFn>(ptr);
-  }
-  return fn;
-}
-
-#define SM90_ENCODE_FAILED 100000  // + the CUresult of a refused tensor map
-
-// A 4-D map (D, then L, H, B ordered by stride) of a bf16 (B, H, L, D) view
-// with the given sizes {L, H, B} and strides {L, H, B} in elements; 64 x 64
-// boxes (64 columns of D, 64 positions), 128-byte swizzle, zero fill past
-// the edges.  slot[i] receives the map dimension (1..3) of L, H, B.
-static int sm90_map(CUtensorMap* map, Sm90EncodeFn encode, const void* ptr, int64_t d,
-                    const int64_t* size, const int64_t* stride, int* slot) {
-  // A dimension of size 1 is never stepped: give it a stride past the
-  // tensor's extent, so the order stays by stride.
-  int64_t extent = d * 2;
-  for (int i = 0; i < 3; ++i)
-    if (size[i] > 1 && stride[i] * 2 * size[i] > extent) extent = stride[i] * 2 * size[i];
-  extent = (extent + 15) / 16 * 16;
-  int64_t bytes[3];
-  int order[3] = {0, 1, 2};
-  for (int i = 0; i < 3; ++i) bytes[i] = size[i] > 1 ? stride[i] * 2 : extent;
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (bytes[order[j]] < bytes[order[i]]) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
-  cuuint64_t gdim[4] = {(cuuint64_t)d, 0, 0, 0};
-  cuuint64_t gstride[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  for (int r = 0; r < 3; ++r) {
-    gdim[1 + r] = (cuuint64_t)size[order[r]];
-    gstride[r] = (cuuint64_t)bytes[order[r]];
-    if (order[r] == 0) box[1 + r] = 64;
-    slot[order[r]] = 1 + r;
-  }
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                              gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : SM90_ENCODE_FAILED + (int)res;
 }
 
 template <int D>
@@ -691,12 +423,13 @@ static int sm90_launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUten
 // has checked that every base and every stride of a dimension longer
 // than 1 is a multiple of 16 bytes.  Returns 0 when the kernel launched,
 // a CUDA error, or SM90_ENCODE_FAILED + the driver's error for a refused
-// tensor map.
+// tensor map.  `lse` is null, or float32 (B·H, Lq) contiguous: each
+// row's log-sum-exp of its visible scaled scores, for the backward.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
                                            int64_t b, int64_t h, int64_t hkv, int64_t lq,
                                            int64_t lk, int64_t d, const int64_t* strides,
                                            int causal, int has_window, int64_t window,
-                                           float scale, void* stream) {
+                                           float scale, void* lse, void* stream) {
   if ((d != 64 && d != 128 && d != 256) || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (lq <= 0 || b * h <= 0) return 0;
@@ -713,6 +446,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   p.window = window;
   p.scale_log2 = scale * SM90_LOG2E;
   p.bh0 = 0;
+  p.lse = (float*)lse;
   CUtensorMap mq, mk, mv, mo;
   const int64_t size_q[3] = {lq, h, b}, size_k[3] = {lk, hkv, b};
   const int64_t sq[3] = {strides[2], strides[1], strides[0]};

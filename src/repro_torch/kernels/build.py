@@ -5,11 +5,13 @@ fold of the device engine), ``intersect.cu`` (the intersect trio),
 ``cluster_score.cu`` (the δ⁺ scoring gather of the device K-means),
 ``flash_attention.cu`` (the general, the resident and the split-K decode
 attention kernels, with the decode's combine) and
-``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel) and
-``flash_attention_bwd.cu`` (the attention's backward: prep, dK/dV, dQ).
-Each source is compiled with ``nvcc`` for ``sm_90a`` on first use into
-its own shared library under ``build/repro_torch/`` at the repository
-root, named by a hash of the source and the compiler flags, so an edited
+``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel),
+``flash_attention_bwd.cu`` (the attention's general backward: prep,
+dK/dV, dQ) and ``flash_attention_bwd_sm90.cu`` (the bf16 tensor-core
+dK/dV and dQ); the two sm90 sources share ``sm90_common.cuh``.  Each
+source is compiled with ``nvcc`` for ``sm_90a`` on first use into its own
+shared library under ``build/repro_torch/`` at the repository root, named
+by a hash of the source, the headers and the compiler flags, so an edited
 source rebuilds and an unchanged one loads at once.  All sources compile
 in parallel, one ``nvcc`` each.  Without ``nvcc``, or when a build
 fails, the build raises: there is no fallback.
@@ -47,7 +49,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_sm90")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,12 +81,17 @@ _SIGNATURES = {
     },
     "flash_attention_sm90": {
         "flash_attention_sm90_launch": (
-            _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _P),
+            _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _P, _P),
     },
     "flash_attention_bwd": {
-        "flash_bwd_prep_launch": (_P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_bwd_prep_launch": (_P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _I, _P),
         "flash_bwd_dkdv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
         "flash_bwd_dq_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+    },
+    "flash_attention_bwd_sm90": {
+        "flash_bwd_dkdv_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F,
+                                       _P),
+        "flash_bwd_dq_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
     },
 }
 
@@ -98,8 +105,10 @@ _SIGNATURES = {
 # prefill), ``flash_attention_decode`` and ``flash_attention_combine``
 # (split-K decode, two launches a call), ``flash_attention_resident`` (K and
 # V of a head in shared memory) or ``flash_attention_general``.  The
-# backward (``kernel.flash_attention_bwd_cuda``) launches ``flash_bwd_prep``,
-# ``flash_bwd_dkdv`` and ``flash_bwd_dq`` once each a call.
+# backward (``kernel.flash_attention_bwd_cuda``) launches ``flash_bwd_prep``
+# and, by ``kernel.bwd_route``, either ``flash_bwd_dkdv_sm90`` and
+# ``flash_bwd_dq_sm90`` (bf16 tensor cores) or ``flash_bwd_dkdv`` and
+# ``flash_bwd_dq`` (the general backward), once each a call.
 LAUNCHES: Dict[str, int] = {
     "segment_fold": 0,
     "intersect_members_kernel": 0,
@@ -117,6 +126,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_prep": 0,
     "flash_bwd_dkdv": 0,
     "flash_bwd_dq": 0,
+    "flash_bwd_dkdv_sm90": 0,
+    "flash_bwd_dq_sm90": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -148,6 +159,8 @@ def _nvcc() -> str:
 def _library_path(stem: str) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 

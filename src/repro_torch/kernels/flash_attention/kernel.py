@@ -1,6 +1,7 @@
 """Launcher of the attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_sm90.cu``) and of the backward's three
-(``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_cuda`).
+``csrc/flash_attention_sm90.cu``) and of the backward's
+(``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_sm90.cu``,
+:func:`flash_attention_bwd_cuda`).
 
 The libraries are built, loaded and counted by
 :mod:`repro_torch.kernels.build`.  :func:`flash_attention_cuda` checks
@@ -32,6 +33,15 @@ the counter of each kernel it launched.  Any B·H goes: the kernels take
 (batch, head) pairs on ``gridDim.y``, whose limit is 65,535, so their C
 launchers cut B·H (B·Hkv for decode) into launches of at most that many
 pairs on the same stream, with no host sync; a call still counts once.
+
+The backward (:func:`flash_attention_bwd_cuda`) runs prep (each row's
+log-sum-exp and delta = rowsum(dO ∘ O); delta alone when the forward saved
+the log-sum-exp: :func:`flash_attention_lse_cuda` on the sm90 route), then
+dK/dV and dQ by :func:`bwd_route`: ``"sm90"`` for bf16 with D in
+:data:`SM90_HEAD_DIMS` (wgmma and TMA: :func:`bwd_dkdv_sm90_cuda`,
+:func:`bwd_dq_sm90_cuda`; P and dS rounded to bf16 for their products;
+16-byte aligned bases and strides or ``ValueError``), ``"general"``
+otherwise (fp32 arithmetic: :func:`bwd_dkdv_cuda`, :func:`bwd_dq_cuda`).
 """
 
 from __future__ import annotations
@@ -46,8 +56,9 @@ from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
 __all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "RESIDENT_MAX_HEAD_DIM", "RESIDENT_SMEM_BYTES",
            "SM90_HEAD_DIMS", "combine_cuda", "decode_partials_cuda", "decode_plan",
-           "bwd_dkdv_cuda", "bwd_dq_cuda", "bwd_prep_cuda", "flash_attention_bwd_cuda",
-           "flash_attention_cuda", "flash_route", "resident_q_chunk", "resident_smem_bytes",
+           "bwd_dkdv_cuda", "bwd_dkdv_sm90_cuda", "bwd_dq_cuda", "bwd_dq_sm90_cuda",
+           "bwd_prep_cuda", "bwd_route", "flash_attention_bwd_cuda", "flash_attention_cuda",
+           "flash_attention_lse_cuda", "flash_route", "resident_q_chunk", "resident_smem_bytes",
            "sm_count"]
 
 MAX_HEAD_DIM = 256
@@ -93,6 +104,13 @@ def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, 
             and d <= RESIDENT_MAX_HEAD_DIM and resident_smem_bytes(lk, d) <= RESIDENT_SMEM_BYTES):
         return "resident"
     return "general"
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The dK/dV and dQ kernels that :func:`flash_attention_bwd_cuda`
+    launches: ``"sm90"`` (bf16 tensor cores) for bf16 with D in
+    :data:`SM90_HEAD_DIMS`, else ``"general"``."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "general"
 
 
 def resident_q_chunk(lq: int, bhkv: int, sms: int) -> int:
@@ -301,11 +319,27 @@ def flash_attention_cuda(
     causal, window >= 1), through the variant :func:`flash_route` names.
     What depends only on the inputs' geometry is checked and computed at
     its first call and kept (``_Launch``)."""
+    return _flash(q, k, v, causal, window, False)[0]
+
+
+def flash_attention_lse_cuda(q, k, v, causal: bool = True, window: Optional[int] = None):
+    """(out, lse): :func:`flash_attention_cuda`'s output and, where the
+    route is ``"sm90"``, each row's log-sum-exp of its visible scaled
+    scores, float32 (B·H, Lq) contiguous, which the sm90 forward writes at
+    its end for the backward (else ``None``: prep recomputes it)."""
+    return _flash(q, k, v, causal, window, True)
+
+
+def _flash(q, k, v, causal, window, want_lse):
     name = "flash_attention_kernel"
     launch = _launch_of(q, k, v, causal, window, name)
     out = torch.empty_like(q)
+    lse = None
+    if want_lse and launch.route == "sm90":
+        lse = torch.empty((q.shape[0] * q.shape[1], q.shape[2]), dtype=torch.float32,
+                          device=q.device)
     if launch.empty:
-        return out
+        return out, lse
     b, h, hkv, lq, lk, d = launch.dims
     stream = stream_of(q.device)
     route = launch.route
@@ -321,7 +355,8 @@ def flash_attention_cuda(
         launch.check_bases("flash_attention_sm90", q, k, v, out)
         status = lib("flash_attention_sm90").flash_attention_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, lq, lk, d,
-            launch.strides, *launch.mask, launch.scale, stream)
+            launch.strides, *launch.mask, launch.scale, None if lse is None else lse.data_ptr(),
+            stream)
         check(status, "flash_attention_sm90")
         LAUNCHES["flash_attention_sm90"] += 1
     elif route == "resident":
@@ -334,7 +369,7 @@ def flash_attention_cuda(
     else:
         _general(q, k, v, out, launch, stream)
     LAUNCHES[name] += 1
-    return out
+    return out, lse
 
 
 def _general(q, k, v, out, launch: _Launch, stream: int) -> None:
@@ -384,21 +419,64 @@ def _bwd_checked(q, k, v, out, dout, causal, window, name):
             raise ValueError(f"{name}: the last dimension must be dense (stride 1)")
 
 
-def bwd_prep_cuda(q, k, out, dout, causal: bool = True, window: Optional[int] = None, v=None):
+def _stats_checked(q, stats, name) -> None:
+    """lse and delta: float32 (B·H, Lq), contiguous, on q's device (the
+    sm90 kernels index them so)."""
+    want = (q.shape[0] * q.shape[1], q.shape[2])
+    for t in stats:
+        if (t.dtype != torch.float32 or tuple(t.shape) != want or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name}: lse and delta must be float32 {want}, contiguous, on "
+                             f"q's device")
+
+
+def _sm90_bwd_checked(q, k, v, dout, causal, window, name) -> None:
+    """What the sm90 backward takes beyond the general one: bf16, D in
+    :data:`SM90_HEAD_DIMS`, 16-byte aligned bases and strides (TMA), and
+    lengths within its 32-bit indices and grid rows.  The shape checks
+    come before the device's, so they hold on any machine.  (The
+    gradients, ``torch.empty_like`` of aligned inputs with D·2 a multiple
+    of 16 bytes, are aligned too.)"""
+    if bwd_route(q.dtype, q.shape[3]) != "sm90":
+        raise ValueError(f"{name}: bf16 with head dim in {SM90_HEAD_DIMS} required, got "
+                         f"{q.dtype} and head dim {q.shape[3]}")
+    for t in (q, k, v, dout):
+        why = _misaligned("sm90 backward", t.shape, t.stride(), 2, 0)
+        if why:
+            raise ValueError(f"{name}: {why}")
+    b, h, lq, _ = q.shape
+    if b * h * lq >= 2**31 or -(-max(lq, k.shape[2]) // 64) > 65535:
+        raise ValueError(f"{name}: B·H·Lq below 2**31 and lengths up to 64·65,535 required")
+    _bwd_checked(q, k, v, dout, dout, causal, window, name)
+    for t in (q, k, v, dout):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: " + _misaligned("sm90 backward", t.shape, t.stride(), 2,
+                                                       t.data_ptr()))
+
+
+def bwd_prep_cuda(q, k, out, dout, causal: bool = True, window: Optional[int] = None, v=None,
+                  lse=None):
     """``flash_bwd_prep``: (lse, delta), float32 (B·H, Lq): each row's
-    log-sum-exp over its visible scaled scores and rowsum(dO ∘ O)."""
+    log-sum-exp over its visible scaled scores and rowsum(dO ∘ O).  Given
+    the forward's ``lse`` (:func:`flash_attention_lse_cuda`), it computes
+    delta alone and returns that ``lse``."""
     v = k if v is None else v
     _bwd_checked(q, k, v, out, dout, causal, window, "flash_bwd_prep")
     b, h, lq, _ = q.shape
-    lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if lse is None:
+        lse_out = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    else:
+        _stats_checked(q, (lse,), "flash_bwd_prep")
+        lse_out = lse
+    delta = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
     launch = _BwdLaunch(q, k, v, out, dout, q, k, v, causal, window)
     if not launch.empty:
         check(lib("flash_attention_bwd").flash_bwd_prep_launch(
-            q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), launch.args, launch.scale, launch.stream), "flash_bwd_prep")
+            q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(), lse_out.data_ptr(),
+            delta.data_ptr(), launch.args, launch.scale, int(lse is None), launch.stream),
+            "flash_bwd_prep")
         LAUNCHES["flash_bwd_prep"] += 1
-    return lse, delta
+    return lse_out, delta
 
 
 def bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal: bool = True, window: Optional[int] = None):
@@ -432,18 +510,69 @@ def bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool = True, window: Optional
     return dq
 
 
+def bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal: bool = True,
+                       window: Optional[int] = None):
+    """``flash_bwd_dkdv_sm90``: :func:`bwd_dkdv_cuda` on the bf16 tensor
+    cores (``csrc/flash_attention_bwd_sm90.cu``), for the inputs
+    :func:`bwd_route` sends there; raises ``ValueError`` for any other."""
+    name = "flash_bwd_dkdv_sm90"
+    _sm90_bwd_checked(q, k, v, dout, causal, window, name)
+    _stats_checked(q, (lse, delta), name)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch = _BwdLaunch(q, k, v, dout, dout, q, dk, dv, causal, window)
+    if launch.empty:
+        return dk.zero_(), dv.zero_()
+    check(lib("flash_attention_bwd_sm90").flash_bwd_dkdv_sm90_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), launch.args, launch.scale,
+        launch.stream), name)
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal: bool = True,
+                     window: Optional[int] = None):
+    """``flash_bwd_dq_sm90``: :func:`bwd_dq_cuda` on the bf16 tensor cores
+    (``csrc/flash_attention_bwd_sm90.cu``), for the inputs
+    :func:`bwd_route` sends there; raises ``ValueError`` for any other."""
+    name = "flash_bwd_dq_sm90"
+    _sm90_bwd_checked(q, k, v, dout, causal, window, name)
+    _stats_checked(q, (lse, delta), name)
+    dq = torch.empty_like(q)
+    launch = _BwdLaunch(q, k, v, dout, dout, dq, k, v, causal, window)
+    if launch.empty:
+        return dq
+    check(lib("flash_attention_bwd_sm90").flash_bwd_dq_sm90_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), launch.args, launch.scale, launch.stream), name)
+    LAUNCHES[name] += 1
+    return dq
+
+
 def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True,
-                             window: Optional[int] = None):
+                             window: Optional[int] = None, lse=None):
     """(dq, dk, dv), the gradient of :func:`flash_attention_cuda` (any
     variant: they compute one function) at output ``out`` for the output
-    gradient ``dout``, through the three kernels of
-    ``csrc/flash_attention_bwd.cu``: ``flash_bwd_prep`` (each row's
-    log-sum-exp and rowsum(dO ∘ O) into float32 scratch (B·H, Lq)),
-    ``flash_bwd_dkdv`` (dK and dV, the group's heads summed) and
-    ``flash_bwd_dq``, one launch each.  The same inputs as the forward
-    (every row must see a key); ``out`` and ``dout`` (B, H, Lq, D) in q's
-    dtype on q's device, last dimension dense.  Gradients come in
-    ``torch.empty_like`` of q, k and v (their layouts)."""
+    gradient ``dout``: ``flash_bwd_prep`` (delta = rowsum(dO ∘ O) into
+    float32 scratch (B·H, Lq), and each row's log-sum-exp unless the
+    forward's ``lse`` is given), then dK/dV (the group's heads summed) and
+    dQ through the kernels :func:`bwd_route` names, one launch each.  The
+    same inputs as the forward (every row must see a key); ``out`` and
+    ``dout`` (B, H, Lq, D) in q's dtype on q's device, last dimension
+    dense.  Gradients come in ``torch.empty_like`` of q, k and v (their
+    layouts)."""
+    if bwd_route(q.dtype, q.shape[3]) == "sm90":
+        _sm90_bwd_checked(q, k, v, dout, causal, window, "flash_attention_bwd_sm90")
+        lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
+        dk, dv = bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+        return bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv
+    return _general_bwd_forced(q, k, v, out, dout, causal, window)
+
+
+def _general_bwd_forced(q, k, v, out, dout, causal: bool = True, window: Optional[int] = None):
+    """:func:`flash_attention_bwd_cuda` through the general backward's three
+    kernels whatever the route (prep recomputes the log-sum-exp), to time
+    and check it beside the route's."""
     lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
     dk, dv = bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window)
     return bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv

@@ -9,10 +9,13 @@ or raises.  Nothing falls back from the card to the plain version.
 When grad mode is on and q, k or v requires a gradient,
 :func:`flash_attention` runs as a ``torch.autograd.Function``: its forward
 is the call above (the variant ``kernel.flash_route`` picks on the card),
-and it saves q, k, v and the output; its backward is
-:func:`flash_attention_bwd`, the three kernels of
-``csrc/flash_attention_bwd.cu`` on the card and ``ref.attention_bwd_ref``
-on the CPU.  The JAX package differentiates its jnp attention with XLA;
+and it saves q, k, v, the output and, where the forward computed it (the
+sm90 variant on the card, ``ref.attention_lse_ref`` on the CPU), each
+row's log-sum-exp; its backward is :func:`flash_attention_bwd`: prep and
+the dK/dV and dQ kernels ``kernel.bwd_route`` picks on the card (the bf16
+tensor-core pair of ``csrc/flash_attention_bwd_sm90.cu`` or the general
+pair of ``csrc/flash_attention_bwd.cu``), ``ref.attention_bwd_ref`` on the
+CPU.  The JAX package differentiates its jnp attention with XLA;
 its Pallas kernel has no backward.
 """
 
@@ -22,11 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (combine_cuda, decode_partials_cuda,
-                                                        decode_plan, flash_attention_bwd_cuda,
-                                                        flash_attention_cuda, sm_count)
-from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_ref,
-                                                     combine_ref, decode_partials_ref)
+from repro_torch.kernels.flash_attention.kernel import (_misaligned, bwd_route, combine_cuda,
+                                                        decode_partials_cuda, decode_plan,
+                                                        flash_attention_bwd_cuda,
+                                                        flash_attention_cuda,
+                                                        flash_attention_lse_cuda, sm_count)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref, combine_ref,
+                                                     decode_partials_ref)
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_decode_combine",
            "flash_decode_partials"]
@@ -57,32 +63,43 @@ def _forward(q, k, v, causal, window):
 
 
 def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of :func:`flash_attention` at output ``out`` for the
-    output gradient ``dout``: the backward kernels on the card, the plain
-    recompute on the CPU."""
+    output gradient ``dout``, given the forward's log-sum-exp ``lse``
+    where it saved one: the backward kernels on the card, the plain
+    recompute on the CPU.  On the card ``dout`` is made contiguous when
+    its last dimension is not dense, or when the bf16 tensor-core route
+    would get a base or stride its TMA loads cannot take."""
     if q.is_cuda:
-        if dout.stride(3) != 1 and dout.shape[3] > 1:
+        tma = bwd_route(dout.dtype, dout.shape[3]) == "sm90"
+        if (dout.stride(3) != 1 and dout.shape[3] > 1) or tma and (
+                0 in dout.stride()[:3]
+                or _misaligned("sm90", dout.shape, dout.stride(), 2, dout.data_ptr())):
             dout = dout.contiguous()
-        return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal, window=window)
-    return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+        return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal, window=window,
+                                        lse=lse)
+    return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window, lse=lse)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The attention with its hand-written backward: the forward saves q,
-    k, v and its output, the backward recomputes P from them."""
+    k, v, its output and each row's log-sum-exp where it computed one, the
+    backward recomputes P from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        if q.is_cuda:
+            out, lse = flash_attention_lse_cuda(q, k, v, causal=causal, window=window)
+        else:
+            out, lse = attention_lse_ref(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.window, lse)
         return dq, dk, dv, None, None
 
 

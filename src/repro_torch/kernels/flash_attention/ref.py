@@ -18,7 +18,10 @@ of the splits), which ``chip_smoke.py`` times and checks one by one.
 (``csrc/flash_attention_bwd.cu``): the gradient of ``attention_ref`` with
 respect to q, k and v by FlashAttention-2's recompute, in float32, built
 from the plain versions of its three kernels (``bwd_prep_ref``,
-``bwd_dkdv_ref``, ``bwd_dq_ref``).
+``bwd_dkdv_ref``, ``bwd_dq_ref``).  ``attention_lse_ref`` is the plain
+version of the forward that also hands the backward each row's
+log-sum-exp (the sm90 forward's ``lse``); given it, the backward skips
+its recompute.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "attention_bwd_ref", "attention_ref", "bwd_dkdv_ref", "bwd_dq_ref",
-           "bwd_prep_ref", "combine_ref", "decode_partials_ref"]
+__all__ = ["NEG_INF", "attention_bwd_ref", "attention_lse_ref", "attention_ref", "bwd_dkdv_ref",
+           "bwd_dq_ref", "bwd_prep_ref", "combine_ref", "decode_partials_ref"]
 
 NEG_INF = -1e30
 
@@ -140,15 +143,32 @@ def _scores(q, k, causal, window):
     return s, _visible(lq, lk, causal, window, q.device)
 
 
+def _lse(q, k, causal, window):
+    """float32 (B·H, Lq): each row's log-sum-exp of its visible scaled
+    scores."""
+    b, h, lq, _ = q.shape
+    s, mask = _scores(q, k, causal, window)
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1).reshape(b * h, lq)
+
+
+def _delta(out, dout):
+    """float32 (B·H, Lq): rowsum(dO ∘ O)."""
+    b, h, lq, _ = out.shape
+    return (dout.float() * out.float()).sum(dim=-1).reshape(b * h, lq)
+
+
+def attention_lse_ref(q, k, v, causal=True, window=None):
+    """(out, lse): ``attention_ref``'s output and ``bwd_prep_ref``'s
+    log-sum-exp (float32 (B·H, Lq)), the plain version of the sm90 forward
+    asked for its log-sum-exp (``kernel.flash_attention_lse_cuda``)."""
+    return attention_ref(q, k, v, causal=causal, window=window), _lse(q, k, causal, window)
+
+
 def bwd_prep_ref(q, k, out, dout, causal=True, window=None):
     """Plain version of ``flash_bwd_prep_kernel``: per (batch·head, row)
     the log-sum-exp of the row's visible scaled scores and
     ``delta = rowsum(dO ∘ O)``, both float32 (B·H, Lq)."""
-    b, h, lq, _ = q.shape
-    s, mask = _scores(q, k, causal, window)
-    lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
-    delta = (dout.float() * out.float()).sum(dim=-1)
-    return lse.reshape(b * h, lq), delta.reshape(b * h, lq)
+    return _lse(q, k, causal, window), _delta(out, dout)
 
 
 def _p_ds(q, k, v, dout, lse, delta, causal, window):
@@ -185,14 +205,19 @@ def bwd_dq_ref(q, k, v, dout, lse, delta, causal=True, window=None):
     return dq.reshape(b, h, lq, d).to(q.dtype)
 
 
-def attention_bwd_ref(q, k, v, out, dout, causal=True, window=None):
+def attention_bwd_ref(q, k, v, out, dout, causal=True, window=None, lse=None):
     """(dq, dk, dv): the gradient of ``attention_ref(q, k, v, causal,
     window)`` whose output was ``out``, for the output gradient ``dout``,
     recomputed in float32 (FlashAttention-2: the log-sum-exp of each row,
-    ``delta = rowsum(dO ∘ O)``, then P and dS), in the inputs' dtypes.
-    The group's query heads are summed into each KV head's dK and dV.
-    Every row must see a key, as the kernels require (a row that sees none
-    gets zero gradients here, not those of the forward's uniform average)."""
-    lse, delta = bwd_prep_ref(q, k, out, dout, causal, window)
+    ``delta = rowsum(dO ∘ O)``, then P and dS), in the inputs' dtypes;
+    with the forward's ``lse`` (``attention_lse_ref``) it computes delta
+    alone.  The group's query heads are summed into each KV head's dK and
+    dV.  Every row must see a key, as the kernels require (a row that sees
+    none gets zero gradients here, not those of the forward's uniform
+    average)."""
+    if lse is None:
+        lse, delta = bwd_prep_ref(q, k, out, dout, causal, window)
+    else:
+        delta = _delta(out, dout)
     dk, dv = bwd_dkdv_ref(q, k, v, dout, lse, delta, causal, window)
     return bwd_dq_ref(q, k, v, dout, lse, delta, causal, window), dk, dv

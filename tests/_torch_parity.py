@@ -170,6 +170,42 @@ FLASH_BWD_CASES = [
 # magnitude m (half a step at m is 2**(floor(log2 m) - 8)) plus the fp32
 # limit of the same element; ``flash_bwd_error`` applies both.
 FLASH_BWD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-4, 2e-4)}
+# The bf16 tensor-core backward (kernel.bwd_route "sm90",
+# csrc/flash_attention_bwd_sm90.cu) also rounds P to bf16 for
+# dV += Pᵀ·dO and dS to bf16 for dK += dSᵀ·Q and dQ += dS·K.  A rounding
+# moves each term by at most the bf16 unit roundoff, 2**-8 of it, so a
+# gradient element moves by at most BWD_ROUNDING times the same product of
+# absolute values: dV_j by 2**-8 · Σ_i P_ij |dO_i|, dK_j by
+# 2**-8 · scale · Σ_i |dS_ij| |Q_i|, dQ_i by 2**-8 · scale · Σ_j |dS_ij| |K_j|
+# (``bwd_rounding_terms``, summed over the group's heads for dK and dV).
+# That route's limit adds this term to FLASH_BWD_TOL; the general backward
+# keeps FLASH_BWD_TOL.
+BWD_ROUNDING = 2**-8
+
+
+def bwd_rounding_terms(q, k, v, dout, lse, delta, causal, window):
+    """(dq, dk, dv) float32: ``BWD_ROUNDING`` times the plain backward's
+    products of absolute values that the sm90 route rounds (P and dS
+    from ``lse`` and ``delta``, the plain prep's): its extra limit per
+    gradient element."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import _p_ds
+
+    b, h, lq, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    scale = 1.0 / d**0.5
+    p, ds = _p_ds(q.float(), k.float(), v.float(), dout.float(), lse, delta, causal, window)
+    ads = ds.abs()
+    del ds
+    qg = q.float().abs().reshape(b, hkv, g, lq, d)
+    dog = dout.float().abs().reshape(b, hkv, g, lq, d)
+    dv = torch.einsum("bkgqj,bkgqd->bkjd", p, dog)
+    del p
+    dk = torch.einsum("bkgqj,bkgqd->bkjd", ads, qg) * scale
+    dq = torch.einsum("bkgqj,bkjd->bkgqd", ads, k.float().abs()).reshape(b, h, lq, d) * scale
+    return BWD_ROUNDING * dq, BWD_ROUNDING * dk, BWD_ROUNDING * dv
 
 
 def half_bf16_step(m: float) -> float:
@@ -179,12 +215,13 @@ def half_bf16_step(m: float) -> float:
     return 0.0 if m <= 0 else 2.0 ** (math.floor(math.log2(m)) - 8)
 
 
-def flash_bwd_error(got, want) -> tuple[float, float]:
+def flash_bwd_error(got, want, extra=None) -> tuple[float, float]:
     """The largest |got - want| of a gradient of the backward kernels
     against the plain version (float32), and the largest share of its
     limit (``FLASH_BWD_TOL``: ``atol + rtol·|want|``, plus for bf16 half a
-    bf16 step of max|want|); raises when the shapes differ or ``got`` is
-    not finite."""
+    bf16 step of max|want|, plus ``extra`` per element where given: the
+    sm90 route's ``bwd_rounding_terms``); raises when the shapes differ or
+    ``got`` is not finite."""
     import torch
 
     if got.shape != want.shape:
@@ -200,12 +237,14 @@ def flash_bwd_error(got, want) -> tuple[float, float]:
     limit = atol + rtol * want.abs()
     if bf16:
         limit = limit + half_bf16_step(float(want.abs().max()))
+    if extra is not None:
+        limit = limit + extra.float()
     return float(err.max()), float((err / limit).max())
 
 
-def flash_bwd_close(name: str, got, want) -> tuple[float, float]:
+def flash_bwd_close(name: str, got, want, extra=None) -> tuple[float, float]:
     """``flash_bwd_error``, raising when an element lies outside its limit."""
-    err, share = flash_bwd_error(got, want)
+    err, share = flash_bwd_error(got, want, extra)
     if share > 1.0:
         raise AssertionError(f"{name} disagrees with the plain backward (max |err| {err}, "
                              f"{share:.3g} of the limit)")

@@ -34,10 +34,17 @@ gridDim.y's 65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and
 launches; at BERT4Rec's call the resident variant and the general kernel
 forced on the same inputs are both held to ``FLASH_TOL``.
 
-The attention's backward (``csrc/flash_attention_bwd.cu``: prep, dK/dV,
-dQ) is held against ``attention_bwd_ref`` at ``FLASH_BWD_CASES`` within
-``FLASH_BWD_TOL`` (``flash_bwd_close``), through the autograd function of
-``ops.flash_attention`` (one launch of each of its three kernels a call).
+The attention's backward is held against ``attention_bwd_ref`` at
+``FLASH_BWD_CASES`` through the autograd function of
+``ops.flash_attention``, one launch of each kernel of the route
+``kernel.bwd_route`` names a call: prep (``csrc/flash_attention_bwd.cu``),
+then the bf16 tensor-core dK/dV and dQ (``csrc/flash_attention_bwd_sm90.cu``,
+bf16 with D in {64, 128, 256}; limit ``FLASH_BWD_TOL`` plus
+``bwd_rounding_terms``, the rounding of P and dS) or the general pair
+(``FLASH_BWD_TOL``).  The sm90 kernels are also held one by one against
+their plain parts fed the same lse and delta, bit for bit across two
+runs, past one launch chunk of B·H, and the sm90 forward's log-sum-exp
+against ``bwd_prep_ref``'s within ``FLASH_BWD_TOL["float32"]``.
 
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
@@ -49,8 +56,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_BWD_CASES, FLASH_CASES, FLASH_VARIANTS, FOLD_CASES,
-                           VARIANT_LAUNCHES, attention_ref_chunked, flash_bwd_close, flash_close,
+from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, FLASH_CASES, FLASH_VARIANTS,
+                           FOLD_CASES, VARIANT_LAUNCHES, attention_ref_chunked,
+                           bwd_rounding_terms, flash_bwd_close, flash_close,
                            flash_inputs, fold_emulation,
                            make_rows, p_rounding_term, staged_scores_emulation,
                            synthetic_fold_case)
@@ -60,8 +68,9 @@ from repro_torch.kernels.cluster_score import ops as cops
 from repro_torch.kernels.cluster_score.ref import cluster_scores_ref
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_ref, combine_ref,
-                                                     decode_partials_ref)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_ref,
+                                                     bwd_dkdv_ref, bwd_dq_ref, bwd_prep_ref,
+                                                     combine_ref, decode_partials_ref)
 from repro_torch.kernels.intersect import kernel as K
 from repro_torch.kernels.intersect import ops, ref
 from repro_torch.kernels.intersect.ref import PAD
@@ -530,7 +539,24 @@ def test_cluster_scores_is_deterministic(cuda_device):
                            CK.cluster_scores_cuda(ell, p, tables, variant=variant))
 
 
-BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
+               "flash_bwd_dq_sm90")
+BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
+                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")}
+SM90_BWD_CASES = [c for c in FLASH_BWD_CASES if c[5] in FK.SM90_HEAD_DIMS]
+
+
+def _bwd_case(cuda_device, dtype, b, h, hkv, lq, lk, d, seed):
+    q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=seed,
+                           model_layout=lk % 2 == 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed + 1)
+    return q, k, v, torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
+
+
+def _plain_terms(q, k, v, out, dout, causal, window):
+    """The plain backward's lse and delta and the sm90 route's rounding term."""
+    lse, delta = bwd_prep_ref(q.float(), k.float(), out.float(), dout.float(), causal, window)
+    return lse, delta, bwd_rounding_terms(q, k, v, dout, lse, delta, causal, window)
 
 
 @pytest.mark.cuda
@@ -539,20 +565,117 @@ BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
 def test_flash_attention_backward_equals_plain(cuda_device, dtype, b, h, hkv, lq, lk, d, causal,
                                                window):
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v = (t.requires_grad_() for t in flash_inputs(
-        cuda_device, dtype, b, h, hkv, lq, lk, d, seed=3 * lq + lk + d, model_layout=lk % 2 == 0))
-    gen = torch.Generator(device=cuda_device).manual_seed(lq * lk)
-    dout = torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
+    q, k, v, dout = _bwd_case(cuda_device, dtype, b, h, hkv, lq, lk, d, 3 * lq + lk + d)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    route = FK.bwd_route(dtype, d)
     out = flash_attention(q, k, v, causal=causal, window=window)
     before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == dict.fromkeys(BWD_KERNELS, 1)
-    want = attention_bwd_ref(q.detach().float(), k.detach().float(), v.detach().float(),
-                             out.detach().float(), dout.float(), causal, window)
-    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v), strict=True):
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n in BWD_ROUTE_KERNELS[route]) for n in BWD_KERNELS}
+    qf, kf, vf, of = (t.detach().float() for t in (q, k, v, out))
+    want = attention_bwd_ref(qf, kf, vf, of, dout.float(), causal, window)
+    terms = (_plain_terms(q.detach(), k.detach(), v.detach(), of, dout, causal, window)[2]
+             if route == "sm90" else (None, None, None))
+    for name, g, w, x, t in zip(("dq", "dk", "dv"), got, want, (q, k, v), terms, strict=True):
         assert g.dtype == dtype and g.shape == x.shape
-        flash_bwd_close(name, g, w)
+        flash_bwd_close(name, g, w, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window", SM90_BWD_CASES)
+def test_sm90_backward_kernels_equal_their_plain_parts(cuda_device, b, h, hkv, lq, lk, d, causal,
+                                                       window):
+    """dkdv and dq alone against ``bwd_dkdv_ref`` and ``bwd_dq_ref`` fed the
+    same lse and delta (prep's, recomputed); prep given the forward's lse
+    computes delta alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, b, h, hkv, lq, lk, d, lq + 7 * d)
+    out, lse_fwd = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+    _, _, terms = _plain_terms(q, k, v, out, dout, causal, window)
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    dk, dv = FK.bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+    dq = FK.bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n in ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")) for n in BWD_KERNELS}
+    args = (q.float(), k.float(), v.float(), dout.float(), lse, delta, causal, window)
+    want_dk, want_dv = bwd_dkdv_ref(*args)
+    flash_bwd_close("dk", dk, want_dk.float(), terms[1])
+    flash_bwd_close("dv", dv, want_dv.float(), terms[2])
+    flash_bwd_close("dq", dq, bwd_dq_ref(*args).float(), terms[0])
+    if lse_fwd is not None:
+        same, delta2 = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd)
+        assert same is lse_fwd
+        torch.testing.assert_close(delta2, delta, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window", SM90_BWD_CASES[:4])
+def test_sm90_backward_is_deterministic(cuda_device, b, h, hkv, lq, lk, d, causal, window):
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, b, h, hkv, lq, lk, d, 11)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    first = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window, lse=lse)
+    second = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window, lse=lse)
+    for a, b_ in zip(first, second, strict=True):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d", [(8193, 8, 4, 40, 40, 64), (70000, 2, 2, 16, 16, 128)])
+def test_sm90_backward_past_one_launch_chunk(cuda_device, b, h, hkv, lq, lk, d):
+    """B·H past the 65,535 pairs of one launch chunk of the general kernels:
+    the sm90 kernels put the pairs on gridDim.x, which takes them all (the
+    second case gives both kernels 140,000 blocks along it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, b, h, hkv, lq, lk, d, 5)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, True, None)
+    assert lse is not None
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    got = FK.flash_attention_bwd_cuda(q, k, v, out, dout, True, None, lse=lse)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n in BWD_ROUTE_KERNELS["sm90"]) for n in BWD_KERNELS}
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), dout.float(), True)
+    terms = _plain_terms(q, k, v, out, dout, True, None)[2]
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms, strict=True):
+        flash_bwd_close(name, g, w, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window",
+                         [c for c in FLASH_CASES
+                          if FK.flash_route(torch.bfloat16, *c[1:]) == "sm90"])
+def test_sm90_forward_lse_equals_the_plain_lse(cuda_device, b, h, hkv, lq, lk, d, causal, window):
+    q, k, v = flash_inputs(cuda_device, torch.bfloat16, b, h, hkv, lq, lk, d, seed=lq + d,
+                           model_layout=lk % 2 == 0)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    assert torch.equal(out, FK.flash_attention_cuda(q, k, v, causal, window))
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, lq) and lse.is_contiguous()
+    rows = max(1, 2**30 // (4 * h * lq * lk))  # the plain scores in batch chunks
+    want = torch.cat([bwd_prep_ref(q[c0:c0 + rows].float(), k[c0:c0 + rows].float(),
+                                   out[c0:c0 + rows].float(), out[c0:c0 + rows].float(), causal,
+                                   window)[0] for c0 in range(0, b, rows)])
+    rtol, atol = FLASH_BWD_TOL["float32"]
+    torch.testing.assert_close(lse, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_sm90_backward_refuses_misaligned_bases_and_strides(cuda_device):
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, 1, 4, 2, 64, 64, 64, 2)
+    lse = torch.zeros((4, 64), device=cuda_device)
+    wide = torch.zeros((1, 4, 64, 68), dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    flat = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(1, 4, 64, 64)  # base 2 bytes past 16
+    for fn in (FK.bwd_dkdv_sm90_cuda, FK.bwd_dq_sm90_cuda):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(wide, k, v, dout, lse, lse)
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(shifted, k, v, dout, lse, lse)
+        with pytest.raises(ValueError, match="lse and delta"):
+            fn(q, k, v, dout, lse[:, :63], lse)
 
 
 @pytest.mark.cuda

@@ -31,6 +31,15 @@ kernel's time between its parts.  Each unablated fold is checked against
 the plain version bit for bit, each unablated scoring within the scores
 tolerance.
 
+    python3 tools/kernel_ab.py --bwd            # on the GPU
+
+times the bf16 tensor-core backward's ``flash_bwd_dkdv_sm90`` and
+``flash_bwd_dq_sm90`` at gemma3-4b's training shapes against ablated
+copies of this tree's ``flash_attention_bwd_sm90.cu`` (``ABLATIONS``: no
+operand loads, no tensor-core products, no P exchange between dkdv's
+warpgroups, no per-row statistics), in turns, into
+``chiprun_out/kernel_ab_bwd.json``.
+
 The attention's ablations are of this tree's ``flash_attention.cu``
 (``design`` is the unchanged source, built the same way).  The input is
 BERT4Rec's call on a bulk slice: q, k, v (32768, 2, 200, 32) float32 in
@@ -65,6 +74,16 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 WORK = ROOT / "build" / "kernel_ab"
+# The backward's ablations that take out every wgmma, and the loads of the
+# per-row statistics.
+NO_WGMMA = [("wgmma_ss_n64(acc, da + step, db + step, (c | kk) != 0);", "(void)step;"),
+            ("for (int kk = 0; kk < 4; ++kk) wgmma_pv(acc, pf[kk], db + ((kk * 2048) >> 4));",
+             "(void)db;")]
+STAT_LOADS_OUT = [("stat[r] = in ? p.lse[row0 + r] * SM90_LOG2E : 0.0f;", "stat[r] = 0.0f * in;"),
+                  ("stat[SM90_ROWS + r] = in ? p.delta[row0 + r] : 0.0f;",
+                   "stat[SM90_ROWS + r] = 0.0f;"),
+                  ("lse2[rh] = row < p.lq ? p.lse[at] * SM90_LOG2E : 0.0f;", "lse2[rh] = 0.0f;"),
+                  ("dl[rh] = row < p.lq ? p.delta[at] : 0.0f;", "dl[rh] = 0.0f;")]
 # (source stem, variant, [(text, replacement), ...])
 ABLATIONS = [
     ("fold", "no_count_atomics", [("atomicAdd(&counts[query], 1);", "(void)query;")]),
@@ -108,6 +127,32 @@ ABLATIONS = [
      [("  asm(\n      \"mma.sync", "  asm volatile(\n      \"mma.sync")]),
     # 8 warps a block (2 blocks an SM) instead of 4 (4 blocks an SM)
     ("flash_attention", "eight_warps", [("#define FR_WARPS 4", "#define FR_WARPS 8")]),
+    # The bf16 tensor-core backward (dkdv and dq), one part undone each.
+    ("flash_attention_bwd_sm90", "design", []),
+    # no operand tiles from device memory: the producer arrives on each
+    # stage with no TMA load (dkdv: Q and dO; dq: K and V), the consumers
+    # compute on what the shared memory holds
+    ("flash_attention_bwd_sm90", "no_operand_loads",
+     [("mbar_expect_tx(full + 8 * s, 2 * C::TILE);", "mbar_expect_tx(full + 8 * s, 0);"),
+      ("tma_load_4d(st + c * SM90_CHUNK_BYTES,", "if (false) tma_load_4d(st + c * SM90_CHUNK_BYTES,"),
+      ("tma_load_4d(st + C::TILE + c * SM90_CHUNK_BYTES,",
+       "if (false) tma_load_4d(st + C::TILE + c * SM90_CHUNK_BYTES,"),
+      ("mbar_expect_tx(k_full + 8 * sk, C::TILE);", "mbar_expect_tx(k_full + 8 * sk, 0);"),
+      ("tma_load_4d(k_smem + sk * C::TILE", "if (false) tma_load_4d(k_smem + sk * C::TILE"),
+      ("mbar_expect_tx(v_full + 8 * sv, C::TILE);", "mbar_expect_tx(v_full + 8 * sv, 0);"),
+      ("tma_load_4d(v_smem + sv * C::TILE", "if (false) tma_load_4d(v_smem + sv * C::TILE")]),
+    # no tensor-core products: every wgmma left out
+    ("flash_attention_bwd_sm90", "no_tensor_cores", NO_WGMMA),
+    # dkdv: warpgroup 1 does not wait for warpgroup 0's P (wrong dK)
+    ("flash_attention_bwd_sm90", "no_p_exchange",
+     [("if (it > 0) named_sync(BWD_BAR_P_FREE, 256);", ""),
+      ("named_arrive(BWD_BAR_P_READY, 256);", ""),
+      ("named_sync(BWD_BAR_P_READY, 256);", ""),
+      ("if (it + 1 < n_tiles) named_arrive(BWD_BAR_P_FREE, 256);", "")]),
+    # no per-row statistics loaded (lse and delta taken as 0)
+    ("flash_attention_bwd_sm90", "no_stat_loads", STAT_LOADS_OUT),
+    # the operand loads alone: no products, no statistics
+    ("flash_attention_bwd_sm90", "operand_loads_only", NO_WGMMA + STAT_LOADS_OUT),
 ]
 # BERT4Rec's attention call on a bulk slice: B, H, Hkv, Lq, Lk, D.
 ATTENTION_SHAPE = (32768, 2, 2, 200, 200, 32)
@@ -145,7 +190,7 @@ def build_ablations(build_mod, stems, logs=None):
         cu.write_text(src)
         so = WORK / f"lib{stem}_{variant}.so"
         procs.append((stem, variant, so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(build_mod.CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for stem, variant, so, proc in procs:
         log, _ = proc.communicate()
@@ -329,6 +374,73 @@ def attention_ab(torch) -> dict:
     return {"shape": ATTENTION_SHAPE, "turns": ATTENTION_TURNS, "rows": rows}
 
 
+def attention_bwd_ab(torch) -> dict:
+    """The bf16 tensor-core backward's two kernels and their ablated copies
+    at gemma3-4b's training shapes (``chip_smoke.BWD_TRAIN_SHAPES``' bf16
+    rows): per shape and variant the median of ``ATTENTION_TURNS`` turns of
+    ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90`` (CUDA events, 5
+    launches a turn), the design's outputs equal to this tree's build bit
+    for bit (the build ``chip_smoke.py`` holds to the plain version)."""
+    import chip_smoke as S
+    from _torch_parity import flash_inputs
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    stem = "flash_attention_bwd_sm90"
+    built = {variant: lib for (_stem, variant), lib in build_ablations(B, (stem,)).items()}
+    missing = [variant for variant, lib in built.items() if lib is None]
+    if missing:
+        raise RuntimeError(f"ablations whose text is not in {stem}.cu: {missing}")
+    dev = torch.device("cuda", 0)
+    report = {}
+    for label, dt, b, h, hkv, lq, lk, d, causal, window in S.BWD_TRAIN_SHAPES:
+        if dt != "bfloat16":
+            continue
+        q, k, v = flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=5,
+                               model_layout=True)
+        dout = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+        out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+        lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
+        want_dq = FK.bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+        want_dk, want_dv = FK.bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        args_kv = FK._BwdLaunch(q, k, v, dout, dout, q, dk, dv, causal, window)
+        args_q = FK._BwdLaunch(q, k, v, dout, dout, dq, k, v, causal, window)
+
+        def dkdv(lib):
+            B.check(lib.flash_bwd_dkdv_sm90_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), args_kv.args, args_kv.scale,
+                B.stream_of(dev)), "flash_bwd_dkdv_sm90")
+
+        def dq_call(lib):
+            B.check(lib.flash_bwd_dq_sm90_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), args_q.args, args_q.scale, B.stream_of(dev)),
+                "flash_bwd_dq_sm90")
+
+        dkdv(built["design"])
+        dq_call(built["design"])
+        torch.cuda.synchronize()
+        if not (torch.equal(dk, want_dk) and torch.equal(dv, want_dv) and torch.equal(dq, want_dq)):
+            raise AssertionError(f"the design's copy differs from this tree's build at {label}")
+        rows = {variant: {"dkdv_ms": [], "dq_ms": []} for variant in built}
+        for turn in range(ATTENTION_TURNS):
+            for variant in (list(built) if turn % 2 == 0 else list(built)[::-1]):
+                lib = built[variant]
+                rows[variant]["dkdv_ms"].append(S.time_ms(lambda lib=lib: dkdv(lib), reps=5))
+                rows[variant]["dq_ms"].append(S.time_ms(lambda lib=lib: dq_call(lib), reps=5))
+        for variant, row in rows.items():
+            for key in ("dkdv_ms", "dq_ms"):
+                row[f"median_{key}"] = float(np.median(row[key]))
+            print(f"backward {label} {variant}: dkdv median {row['median_dkdv_ms']:.4f} ms, dq "
+                  f"median {row['median_dq_ms']:.4f} ms", flush=True)
+        report[label] = rows
+        del q, k, v, out, dout, lse, delta, dq, dk, dv, want_dq, want_dk, want_dv
+        torch.cuda.empty_cache()
+    return {"turns": ATTENTION_TURNS, "shapes": report}
+
+
 # What ``train_ab`` keeps of a train phase's report.
 TRAIN_KEYS = ("step_s", "step_s_median", "peak_gib", "forward_ms", "backward_ms",
               "attention_backward_ms", "optimizer_ms", "device_ms", "idle_share", "losses")
@@ -366,6 +478,20 @@ def train_ab(tree: Path) -> list:
 def main(argv) -> int:
     import torch
 
+    if argv == ["--bwd"]:
+        if not torch.cuda.is_available():
+            print(__doc__, file=sys.stderr)
+            return 2
+        sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tests")]
+        import chip_smoke as S
+
+        report = {"card": S.card_line()}
+        print(report["card"], flush=True)
+        report["attention_bwd"] = attention_bwd_ab(torch)
+        out = ROOT / "chiprun_out" / "kernel_ab_bwd.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=1))
+        return 0
     train = argv[:1] == ["--train"]
     if len(argv) > (2 if train else 1) or train and len(argv) < 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
