@@ -111,21 +111,27 @@
 10. trains right after the LM phases (``TRAIN_PHASES``, on the emptied
    card), after holding the attention's backward kernels against the
    plain backward (``attention_bwd_ref``) at
-   ``_torch_parity.FLASH_BWD_CASES`` and the training shapes
-   (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global layer at 4,096
-   tokens in bf16, BERT4Rec's call at 32,768 rows in fp32, past one
-   launch chunk), each call through the route ``kernel.bwd_route`` names
-   (``BWD_ROUTE_KERNELS``, one launch of each a call): ``flash_bwd_prep``
-   (``csrc/flash_attention_bwd.cu``; delta alone where the sm90 forward
-   saved the log-sum-exp), then for bf16 at D in {64, 128, 256} the
-   tensor-core ``flash_bwd_dkdv_sm90`` and ``flash_bwd_dq_sm90``
-   (``csrc/flash_attention_bwd_sm90.cu``; limit ``FLASH_BWD_TOL`` plus
-   the rounding term of P and dS, ``bwd_rounding_terms``), else the
-   general ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (``FLASH_BWD_TOL``);
-   the bf16 cases also through the general backward forced; each kernel
-   alone against its plain part, the sm90 forward's log-sum-exp against
-   the plain one, and two faulty controls (the window dropped, the group
-   sum dropped) that must land beyond the sm90 limit.  Each phase goes
+   ``_torch_parity.FLASH_BWD_CASES``, ``RESIDENT_BWD_CASES`` and the
+   training shapes (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global
+   layer at 4,096 tokens in bf16, BERT4Rec's call at 32,768 rows in fp32,
+   past one launch chunk), each call through the route
+   ``kernel.bwd_route`` names (``BWD_ROUTE_KERNELS``, one launch of each
+   a call): for fp32, not causal, no window (BERT4Rec's call) the
+   resident kernel ``flash_bwd_resident`` alone
+   (``csrc/flash_attention_bwd_resident.cu``, given the resident
+   forward's log-sum-exp; ``FLASH_BWD_TOL``; a rerun bit-identical), else
+   ``flash_bwd_prep`` (``csrc/flash_attention_bwd.cu``; delta alone where
+   the sm90 forward saved the log-sum-exp), then for bf16 at D in {64,
+   128, 256} the tensor-core ``flash_bwd_dkdv_sm90`` and
+   ``flash_bwd_dq_sm90`` (``csrc/flash_attention_bwd_sm90.cu``; limit
+   ``FLASH_BWD_TOL`` plus the rounding term of P and dS,
+   ``bwd_rounding_terms``), else the general ``flash_bwd_dkdv`` and
+   ``flash_bwd_dq`` (``FLASH_BWD_TOL``); the sm90 and resident cases also
+   through the general backward forced; each kernel alone against its
+   plain part, the sm90 and resident forwards' log-sum-exp against the
+   plain one, and the faulty controls that must land beyond their route's
+   limit (sm90: the window dropped, the group sum dropped; resident:
+   delta dropped, the group sum dropped).  Each phase goes
    through
    ``launch/train.py``'s own ``train_setup`` and ``launch.steps.
    train_step`` at the published widths with seeded random weights:
@@ -138,7 +144,8 @@
    local layers' window, or BERT4Rec's made causal — beyond it), a recsys
    arch's also to the port on the CPU on its first rows; then the steps,
    counters set to 0 just before and read just after (the backward
-   kernels once a layer a microbatch, the sm90 forward twice under the
+   kernels once a layer a microbatch: bert4rec's one ``flash_bwd_resident``
+   a layer and none of the others; the sm90 forward twice under the
    block remat), the last one traced (device time by part, idle), and
    the loss on the first batch must fall.  Then the checkpoint restart on
    dcn-v2 through the ``Trainer`` (restored state and next batch
@@ -189,9 +196,11 @@
    resident variant took BERT4Rec's call);
    The backward kernels are timed at the training shapes, each alone
    (eager and as a graph replay) against its plain part and its bound
-   (at gemma3-4b's the sm90 route's and the general ones forced), beside
-   the whole backward of the route and of the general kernels and
-   ``scaled_dot_product_attention``'s backward.  Each phase's wall time
+   (at gemma3-4b's the sm90 route's, at BERT4Rec's the resident kernel,
+   bound at the tensor cores' TF32 rate over three products, and at both
+   the general ones forced), beside the whole backward of the route and
+   of the general kernels and ``scaled_dot_product_attention``'s
+   backward.  Each phase's wall time
    is printed on a line of its own (``phase <name>: <s>s``);
 13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
@@ -411,6 +420,8 @@ SOURCES = {
     **{name: ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
               "none (XLA's gradient of src/repro/models/layers.py:97 attention)")
        for name in ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")},
+    "flash_bwd_resident": ("src/repro_torch/csrc/flash_attention_bwd_resident.cu",
+                           "none (XLA's gradient of src/repro/models/layers.py:97 attention)"),
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -2879,19 +2890,26 @@ BWD_TRAIN_SHAPES = (
      None),
 )
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
-               "flash_bwd_dq_sm90")
+               "flash_bwd_dq_sm90", "flash_bwd_resident")
 # The kernels one backward call launches on each route (kernel.bwd_route):
+# the fp32 resident kernel alone (given the forward's log-sum-exp), or
 # prep, then the bf16 tensor-core dK/dV and dQ, or the general pair.
 BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
-                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")}
+                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
+                     "resident": ("flash_bwd_resident",)}
 # Flops a visible (row, key) pair and head, per unit of D, that each kernel
-# does (products of length D, two flops a multiply-add): prep S (none when
+# needs (products of length D, two flops a multiply-add): prep S (none when
 # the forward saved the log-sum-exp: delta alone, bound by its bytes);
 # dkdv S, dP, dV, dK; dq S, dP, dQ.  The minimal backward does S, dP, dV,
-# dK, dQ: 10·D (its bound, BWD_MIN_FLOPS).
-BWD_FLOPS = {"flash_bwd_prep": 2, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6,
-             "flash_bwd_dkdv_sm90": 8, "flash_bwd_dq_sm90": 6}
+# dK, dQ: 10·D (BWD_MIN_FLOPS), and the resident kernel computes the whole
+# backward given the lse, so 10·D is its bound.  It does 14·D
+# (RESIDENT_BWD_OWN_FLOPS: S, dP, dV, dK in its phase 2 and S, dP, dQ
+# again in its phase 3), reported beside the bound, not as it.
 BWD_MIN_FLOPS = 10
+RESIDENT_BWD_OWN_FLOPS = 14
+BWD_FLOPS = {"flash_bwd_prep": 2, "flash_bwd_dkdv": 8, "flash_bwd_dq": 6,
+             "flash_bwd_dkdv_sm90": 8, "flash_bwd_dq_sm90": 6,
+             "flash_bwd_resident": BWD_MIN_FLOPS}
 class TrainPhase(NamedTuple):
     """A train phase: the arch, its train cell, rows a step, sequential
     microbatches, steps (the first warms up, the last is traced), the
@@ -3019,30 +3037,36 @@ def rounding_terms(torch, q, k, v, dout, lse, delta, causal, window):
 
 def check_flash_bwd_cases(torch, dev) -> dict:
     """The backward kernels against the plain backward on the card at
-    ``FLASH_BWD_CASES`` (fp32 and bf16) and the training shapes.  Each case
-    runs through its route (``kernel.bwd_route``; launches read from the
-    counters): the whole backward against ``attention_bwd_ref`` within
-    ``FLASH_BWD_TOL``, plus on the sm90 route the rounding term of P and dS
-    (``_torch_parity.bwd_rounding_terms``); each kernel alone against its
-    own plain part — prep's lse and delta against ``bwd_prep_ref`` (and, on
-    the sm90 route, its delta alone given the forward's lse), dkdv's dK, dV
-    and dq's dQ against ``bwd_dkdv_ref`` and ``bwd_dq_ref`` fed the same
-    lse and delta; the sm90 forward's lse against ``bwd_prep_ref``'s within
-    ``FLASH_BWD_TOL["float32"]``.  The bf16 cases also run the general
-    backward forced (``kernel._general_bwd_forced``), held to
+    ``FLASH_BWD_CASES`` (fp32 and bf16), ``RESIDENT_BWD_CASES`` and the
+    training shapes.  Each case runs through its route (``kernel.bwd_route``;
+    launches read from the counters): the whole backward against
+    ``attention_bwd_ref`` within ``FLASH_BWD_TOL``, plus on the sm90 route
+    the rounding term of P and dS (``_torch_parity.bwd_rounding_terms``);
+    on the resident route one kernel, given the resident forward's lse,
+    whose rerun must give the same bits; on the others each kernel alone
+    against its own plain part — prep's lse and delta against
+    ``bwd_prep_ref`` (and, on the sm90 route, its delta alone given the
+    forward's lse), dkdv's dK, dV and dq's dQ against ``bwd_dkdv_ref`` and
+    ``bwd_dq_ref`` fed the same lse and delta; the sm90 and resident
+    forwards' lse against ``bwd_prep_ref``'s within
+    ``FLASH_BWD_TOL["float32"]``.  The sm90 and resident cases also run the
+    general backward forced (``kernel._general_bwd_forced``), held to
     ``FLASH_BWD_TOL`` with no rounding term, its kernels alone too.  Then
-    the faulty controls, which must land beyond the sm90 limit: the window
-    dropped (a local layer's backward computed as a global one's) and the
-    group sum dropped (dK and dV from the first query head of each group).
-    Returns per route the largest error and share of the limit of the
-    whole backward and of each kernel (``kernels``)."""
-    from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, flash_bwd_close,
-                               flash_bwd_error)
+    the faulty controls, which must land beyond their route's limit: on the
+    sm90 route the window dropped (a local layer's backward computed as a
+    global one's) and the group sum dropped (dK and dV from the first
+    query head of each group), on the resident route delta dropped (the
+    kernel handed O = 0) and the group sum dropped, each in every case it
+    applies to.  Returns per route the largest error and share of the limit
+    of the whole backward and of each kernel (``kernels``)."""
+    from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, RESIDENT_BWD_CASES,
+                               flash_bwd_close, flash_bwd_error)
     from repro_torch.kernels import build as B
     from repro_torch.kernels.flash_attention import kernel as FK
 
     t0 = time.perf_counter()
-    routes = ("float32 general", "bfloat16 sm90", "bfloat16 general (forced)")
+    routes = ("float32 resident", "float32 general", "float32 general (forced)",
+              "bfloat16 sm90", "bfloat16 general", "bfloat16 general (forced)")
     worst = {r: {"max_abs_err": 0.0, "share": 0.0, "cases": 0,
                  "kernels": {name: {"max_abs_err": 0.0, "share": 0.0}
                              for name in (*BWD_KERNELS, "forward_lse")}}
@@ -3067,7 +3091,7 @@ def check_flash_bwd_cases(torch, dev) -> dict:
         return out
 
     def kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms):
-        """Each kernel of ``route`` against its plain part."""
+        """Each kernel of ``route`` (sm90 or general) against its plain part."""
         lse, delta = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
         plain_lse, plain_delta = plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
                                                  "prep")
@@ -3090,15 +3114,21 @@ def check_flash_bwd_cases(torch, dev) -> dict:
         (want_q,) = plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq", lse, delta)
         hold(key, label, "dq", dq, want_q, terms[0] if sm90 else None, kernel=names[2])
 
+    def control(name, got, want, terms=(None, None, None)):
+        """A faulty control's share of the limit; the least over its cases."""
+        share = max(flash_bwd_error(g, w, t)[1] for g, w, t in zip(got, want, terms))
+        controls[name] = min(controls.get(name, share), share)
+
     cases = [(f"case {c}", dt, *c) for c in FLASH_BWD_CASES for dt in ("float32", "bfloat16")]
+    cases += [(f"resident case {c}", "float32", *c, False, None) for c in RESIDENT_BWD_CASES
+              if (*c, False, None) not in FLASH_BWD_CASES]
     cases += [(label, dt, b, h, hkv, lq, lk, d, causal, window)
               for label, dt, b, h, hkv, lq, lk, d, causal, window in BWD_TRAIN_SHAPES]
     controls = {}
     for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(cases):
         dtype = getattr(torch, dt)
-        route = FK.bwd_route(dtype, d)
-        key = "float32 general" if dt == "float32" else (
-            "bfloat16 sm90" if route == "sm90" else "bfloat16 general (forced)")
+        route = FK.bwd_route(dtype, h, hkv, lq, lk, d, causal, window)
+        key = f"{dt} {route}"
         q, k, v, out, dout, lse_fwd = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal,
                                                  window, seed=500 + n)
         got = counted(lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window,
@@ -3112,7 +3142,7 @@ def check_flash_bwd_cases(torch, dev) -> dict:
         for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms, strict=True):
             hold(key, label, name, g, w, t)
         worst[key]["cases"] += 1
-        if lse_fwd is not None:  # the sm90 forward's log-sum-exp
+        if lse_fwd is not None:  # the sm90 or resident forward's log-sum-exp
             rtol, atol = FLASH_BWD_TOL["float32"]
             err = (lse_fwd - plain_lse).abs()
             share = float((err / (atol + rtol * plain_lse.abs())).max())
@@ -3120,11 +3150,25 @@ def check_flash_bwd_cases(torch, dev) -> dict:
             mine["max_abs_err"] = max(mine["max_abs_err"], float(err.max()))
             mine["share"] = max(mine["share"], share)
             if share > 1.0:
-                raise AssertionError(f"the sm90 forward's lse at {label}: {share:.3g} of the "
+                raise AssertionError(f"the forward's lse at {label} ({key}): {share:.3g} of the "
                                      f"limit")
-        kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms)
-        if route == "sm90":  # the general backward on the same inputs
-            gkey = "bfloat16 general (forced)"
+        if route == "resident":  # one kernel: the whole backward is the kernel alone
+            for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+                hold(key, label, name, g, w, kernel="flash_bwd_resident")
+            again = FK.bwd_resident_cuda(q, k, v, out, dout, lse_fwd)
+            if not all(torch.equal(a, c) for a, c in zip(got, again, strict=True)):
+                raise AssertionError(f"the resident backward at {label}: a rerun differs")
+            control("delta dropped (resident)", FK.bwd_resident_cuda(
+                q, k, v, torch.zeros_like(out), dout, lse_fwd), want)
+            if h > hkv:
+                g = h // hkv
+                lse0 = lse_fwd.reshape(b, h, lq)[:, ::g].reshape(b * hkv, lq).contiguous()
+                bad = FK.bwd_resident_cuda(q[:, ::g], k, v, out[:, ::g], dout[:, ::g], lse0)
+                control("group sum dropped (resident)", bad[1:], want[1:])
+        else:
+            kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms)
+        if route != "general":  # the general backward on the same inputs
+            gkey = f"{dt} general (forced)"
             forced = counted(lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window),
                              label, BWD_ROUTE_KERNELS["general"])
             for name, g, w in zip(("dq", "dk", "dv"), forced, want, strict=True):
@@ -3134,20 +3178,17 @@ def check_flash_bwd_cases(torch, dev) -> dict:
                           (None, None, None))
         if label.startswith("gemma3-4b") and window is not None:
             bad = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, None)
-            controls["window dropped"] = max(flash_bwd_error(g, w, t)[1]
-                                             for g, w, t in zip(bad, want, terms, strict=True))
+            control("window dropped (sm90)", bad, want, terms)
         if label.startswith("gemma3-4b") and window is None:
             g = h // hkv
             q0, o0, d0 = q[:, ::g], out[:, ::g], dout[:, ::g]
             lse0, delta0 = FK.bwd_prep_cuda(q0, k, o0, d0, causal, window, v=v)
             bad = FK.bwd_dkdv_sm90_cuda(q0, k, v, d0, lse0, delta0, causal, window)
-            controls["group sum dropped"] = max(
-                flash_bwd_error(g_, w, t)[1]
-                for g_, w, t in zip(bad, want[1:], terms[1:], strict=True))
+            control("group sum dropped (sm90)", bad, want[1:], terms[1:])
         del q, k, v, out, dout, lse_fwd, got, want, terms, plain_lse, plain_delta
         torch.cuda.empty_cache()
     for name, share in controls.items():
-        print(f"attention backward control ({name}): {share:.3g} of the sm90 limit", flush=True)
+        print(f"attention backward control ({name}): {share:.3g} of the limit", flush=True)
         if share <= 1.0:
             raise AssertionError(f"the backward's control ({name}) was not caught: {share:.3g}")
     worst["controls"] = controls
@@ -3185,20 +3226,26 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
     """The backward's kernels at the training shapes (``BWD_TRAIN_SHAPES``),
     each alone, eager and as a graph replay, against its plain version (its
     part of ``attention_bwd_ref``) and its bound (its own flops,
-    ``BWD_FLOPS``·D a visible pair and head, at the unit of the inputs'
-    dtype: 989 TFLOP/s bf16, 67 fp32; or its bytes): at gemma3-4b's
-    shapes the sm90 route's kernels (prep computing delta alone, given the
-    forward's lse) and the general kernels forced on the same inputs
-    (prep recomputing the lse); at BERT4Rec's, the general route.  Beside
-    them the whole backward of the route and the forced general one (bound
-    10·D a pair and head), ``scaled_dot_product_attention``'s backward and
-    the plain version.  Returns the kernels' entries."""
+    ``BWD_FLOPS``·D a visible pair and head, at the rate of the unit its
+    products run on: 989 TFLOP/s bf16, 67 fp32 outside the tensor cores,
+    495 TF32 over ``TF32_PRODUCTS_PER_FP32`` for the resident kernel's
+    3xTF32 products; or its bytes): at gemma3-4b's shapes the sm90 route's
+    kernels (prep computing delta alone, given the forward's lse), at
+    BERT4Rec's the resident kernel (given the resident forward's lse), and
+    at both the general kernels forced on the same inputs (prep
+    recomputing the lse).  Beside them the whole backward of the route and
+    the forced general one (bound 10·D a pair and head at the route's
+    rate), ``scaled_dot_product_attention``'s backward (the resident
+    kernel's library call: it computes the same function) and the plain
+    version.  Returns the kernels' entries."""
     from repro_torch.kernels.flash_attention import kernel as FK
 
+    rates = {"sm90": BF16_OPS_PER_S, "general": FP32_OPS_PER_S,
+             "resident": TF32_OPS_PER_S / TF32_PRODUCTS_PER_FP32}
     rows = {name: [] for name in BWD_KERNELS}
     for n, (label, dt, b, h, hkv, lq, lk, d, causal, window) in enumerate(BWD_TRAIN_SHAPES):
         dtype = getattr(torch, dt)
-        route = FK.bwd_route(dtype, d)
+        route = FK.bwd_route(dtype, h, hkv, lq, lk, d, causal, window)
         item = 2 if dt == "bfloat16" else 4
         peak = BF16_OPS_PER_S if dt == "bfloat16" else FP32_OPS_PER_S
         q, k, v, out, dout, lse_fwd = bwd_inputs(torch, dev, dtype, b, h, hkv, lq, lk, d, causal,
@@ -3213,8 +3260,11 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
         nbytes = {"prep": 2 * qb + kb + qb + 2 * stat,  # q, k, o, dO; lse, delta
                   "prep (delta)": 2 * qb + stat,  # o, dO; delta
                   "dkdv": 2 * qb + 2 * kb + 2 * stat + 2 * kb,  # q, k, v, dO, lse, delta; dk, dv
-                  "dq": 2 * qb + 2 * kb + 2 * stat + qb}  # ...; dq
+                  "dq": 2 * qb + 2 * kb + 2 * stat + qb,  # ...; dq
+                  # q, o, dO, k, v, lse; dq, dk, dv
+                  "resident": 3 * qb + 2 * kb + stat + qb + 2 * kb}
         plain = {
+            "resident": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window),
             "prep": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "prep"),
             "dkdv": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dkdv",
                                             lse, delta),
@@ -3238,6 +3288,10 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                      ("flash_bwd_dq_sm90", "dq",
                       lambda: FK.bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window),
                       "sm90")] + calls
+        if route == "resident":
+            calls = [("flash_bwd_resident", "resident",
+                      lambda: FK.bwd_resident_cuda(q, k, v, out, dout, lse_fwd),
+                      "resident")] + calls
         library = sdpa_backward(torch, q, k, v, dout, causal, window)
         want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
         lib_share = max(float((g.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -3250,7 +3304,7 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                                                     lse=lse_fwd)
         general = lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window)  # noqa: E731
         whole_ms, whole_device = time_ms(whole, reps=5), graph_ms(whole, reps=5)
-        if route == "sm90":
+        if route != "general":
             general_ms, general_device = time_ms(general, reps=3), graph_ms(general, reps=3)
         else:
             general_ms, general_device = whole_ms, whole_device
@@ -3258,41 +3312,50 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                               reps=reps, warmup=1)
         whole_ops = BWD_MIN_FLOPS * d * pairs
         whole_bytes = item * (3 * q.numel() + 2 * k.numel()) + item * (q.numel() + 2 * k.numel())
-        whole_bound = max(whole_ops / peak, whole_bytes / MEM_BYTES_PER_S) * 1e3
+        whole_bound = max(whole_ops / rates[route], whole_bytes / MEM_BYTES_PER_S) * 1e3
+        general_bound = max(whole_ops / rates["general"], whole_bytes / MEM_BYTES_PER_S) * 1e3
         print(f"attention backward {label}: q ({b}, {h}, {lq}, {d}) over ({b}, {hkv}, {lk}, {d}) "
               f"{dt}, {pairs} visible pair-heads, route {route}: the backward {whole_ms:.4f} ms "
               f"(graph {whole_device:.4f}), the general backward {general_ms:.4f} (graph "
               f"{general_device:.4f}), plain {whole_plain:.4f}, SDPA's backward "
               f"{library_ms:.4f} (rel. max err {lib_share:.2g}); bound {whole_bound:.5f} ms "
-              f"({BWD_MIN_FLOPS}·D flops a pair-head at {peak / 1e12:.0f} TFLOP/s; bytes "
+              f"({BWD_MIN_FLOPS}·D flops a pair-head at {rates[route] / 1e12:.0f} TFLOP/s; the "
+              f"general backward's {general_bound:.5f} at {rates['general'] / 1e12:.0f}; bytes "
               f"{whole_bytes / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
-        ckey = {"sm90": "bfloat16 sm90", "general": "bfloat16 general (forced)"}
         for name, part, kernel, which in calls:
             ops = 0 if part == "prep (delta)" else BWD_FLOPS[name] * d * pairs
             bytes_ms = nbytes[part] / MEM_BYTES_PER_S * 1e3
-            ops_ms = ops / peak * 1e3
-            key = "float32 general" if dt == "float32" else ckey[which]
+            ops_ms = ops / (rates[which] if which == "resident" else peak) * 1e3
+            key = f"{dt} {which}" + ("" if which == route else " (forced)")
             row = {
                 "shape": f"{label}: q ({b}, {h}, {lq}, {d}), k/v ({b}, {hkv}, {lk}, {d}) {dt}"
                          + ("" if which == route else ", the general backward forced"),
-                "part": part, "ms": time_ms(kernel, reps=5 if which == "sm90" else 3),
-                "device_ms": graph_ms(kernel, reps=5 if which == "sm90" else 3),
+                "part": part, "ms": time_ms(kernel, reps=3 if which == "general" else 5),
+                "device_ms": graph_ms(kernel, reps=3 if which == "general" else 5),
                 "plain_ms": time_ms(plain[part.split()[0]], reps=reps, warmup=1), "ops": ops,
                 "bytes": nbytes[part], "visible_pair_heads": pairs,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None, "sdpa_backward_ms": library_ms,
+                "library_ms": library_ms if which == "resident" else None,
+                "sdpa_backward_ms": library_ms,
                 "whole_backward_ms": whole_ms, "whole_backward_device_ms": whole_device,
                 "general_backward_ms": general_ms, "general_backward_device_ms": general_device,
+                "general_backward_bound_ms": general_bound,
                 "whole_backward_plain_ms": whole_plain, "whole_backward_bound_ms": whole_bound,
                 "max_abs_err": checked[key]["kernels"][name]["max_abs_err"],
             }
+            own = ""
+            if name == "flash_bwd_resident":
+                own_ms = RESIDENT_BWD_OWN_FLOPS * d * pairs / rates["resident"] * 1e3
+                row["own_products_bound_ms"] = max(bytes_ms, own_ms)
+                own = (f"; its own {RESIDENT_BWD_OWN_FLOPS}·D products' bound "
+                       f"{row['own_products_bound_ms']:.5f}")
             rows[name].append(row)
             print(f"{name} {row['shape']} [{part}]: ms={row['ms']:.4f} "
                   f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
                   f"{0 if not ops else BWD_FLOPS[name]}·D flops a pair-head, bytes "
-                  f"{bytes_ms:.5f})", flush=True)
+                  f"{bytes_ms:.5f}{own})", flush=True)
         del q, k, v, out, dout, lse, delta, lse_fwd, library
         torch.cuda.empty_cache()
     return [kernel_entry(name, launches, rows[name], variant="backward") for name in BWD_KERNELS]
@@ -3408,11 +3471,18 @@ def train_phase(torch, dev, phase: TrainPhase) -> tuple:
     route = first if phase.route_rows is None else [
         {k: v[:phase.route_rows] for k, v in batches[0].items()}]
     n_attn = cfg.n_layers if lm else (cfg.n_blocks if phase.arch == "bert4rec" else 0)
-    # The backward's kernels (kernel.bwd_route): gemma3-4b's bf16 D = 256
-    # takes the sm90 pair, BERT4Rec's fp32 encoder the general one.
+    # The backward's kernels: gemma3-4b's bf16 D = 256 takes the sm90 pair
+    # (kernel.bwd_route), BERT4Rec's fp32 bidirectional encoder the resident
+    # kernel alone; the launch counts below hold each arch to its own.  The
+    # other archs have no attention.
     from repro_torch.kernels.flash_attention import kernel as FK
 
-    bwd_kernels = BWD_ROUTE_KERNELS[FK.bwd_route(cfg.adtype, cfg.head_dim) if lm else "general"]
+    if lm:
+        seq = setup.pipeline.seq_len
+        bwd_kernels = BWD_ROUTE_KERNELS[FK.bwd_route(cfg.adtype, cfg.n_heads, cfg.n_kv_heads, seq,
+                                                     seq, cfg.head_dim, True, None)]
+    else:
+        bwd_kernels = BWD_ROUTE_KERNELS["resident"] if n_attn else ()
     report = {"arch": phase.arch, "cell": phase.cell, "rows": phase.batch, "microbatches": micro,
               "layers": cfg.n_layers if lm else None, "dtype": dtype, "init_s": init_s,
               "params": cfg.n_params()}

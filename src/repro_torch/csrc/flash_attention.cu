@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "resident_common.cuh"
+
 #define FA_NEG_INF (-1e30f)
 #define FA_WARPS 4
 #define FA_THREADS (FA_WARPS * 32)
@@ -343,12 +345,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // block's query rows (every query head of the group) in tiles of
 // FR_ROWS = 16; a warp's Q tile lives in registers as mma fragments.
 //
-// Arithmetic: TF32 tensor cores (mma.sync.m16n8k8) in the 3xTF32 split,
-// the softmax in fp32.  Each fp32 operand x is split into x_hi =
-// tf32(x) (round to nearest, ties away) and x_lo = x - x_hi cut to TF32,
-// and a product a·b is taken as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with
-// fp32 sums: the dropped a_lo·b_lo (2^-22 of |a·b|) and the cut of the lo
-// parts (below 2^-21) keep the error near that of fp32 FMA.  Scores: Q (pre-multiplied by
+// Arithmetic: TF32 tensor cores (mma.sync.m16n8k8) in the 3xTF32 split
+// (resident_common.cuh, which the backward shares), the softmax in fp32.
+// Scores: Q (pre-multiplied by
 // scale·log2 e) times K^T, 8 keys an mma, FR_KEYS = 32 keys a chunk.
 // Softmax: online over the chunks, as the other kernels, in base 2: the
 // running max m of each row (an xor shuffle over the row's 4 lanes), the
@@ -359,7 +358,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // rows g and g + 8, which are A's (g, t), (g, t + 4), (g + 8, t),
 // (g + 8, t + 4) under that order; V's rows are read in the same order.
 // So P never leaves the registers.  The end divides by max(l, 1e-30),
-// as the file's contract says.
+// as the file's contract says.  Given an `lse` pointer (training: the
+// resident backward of csrc/flash_attention_bwd_resident.cu reads it), the
+// end also writes each row's natural-log log-sum-exp of its scaled scores,
+// (m + log2 l)·ln 2, into lse[(b·H + h)·Lq + row]; serving passes null.
 //
 // What bounds it on an H100: the operations (4·D per (query, key) pair)
 // over the bytes (q, k, v and o once), at BERT4Rec's call 5.0 ms on the
@@ -371,79 +373,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #define FR_THREADS (FR_WARPS * 32)
 #define FR_ROWS 16            // query rows of a warp's tile: the mma's M
 #define FR_KEYS 32            // keys of a chunk: 4 mma tiles of 8
-#define FR_MAX_SMEM 232448    // an H100 block's opt-in shared memory
-#define FR_LOG2E 1.4426950408889634f
 
 struct FrParams {
   int h, groups, lq, lk, d, q_chunk;
   int64_t sq[3], sk[3], sv[3], so[3];  // strides in elements: batch, head, position
   float scale_log2;                    // scale · log2(e)
+  float* lse;                          // (B·H, Lq) log-sum-exp of each row, or null
   int64_t bh0;                         // the first (batch, KV head) of this launch
 };
-
-// Piece c (16 bytes) of row r: swizzled within its group of 8 pieces.
-__device__ __forceinline__ int fr_swz(int r, int c) { return (c & ~7) | ((c ^ r) & 7); }
-
-// Element (r, col) of a swizzled [rows][dp] array.
-__device__ __forceinline__ int fr_at(int r, int col, int dp) {
-  return r * dp + fr_swz(r, col >> 2) * 4 + (col & 3);
-}
-
-// One 16-byte copy into shared memory; zeros where `full` is false (the
-// source is then not read, but stays a valid address).
-__device__ __forceinline__ void fr_cp16(float* dst, const float* src, bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = full ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void fr_cp_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-// zero: what cvt.rna.tf32.f32 gives for finite x, in two integer
-// operations at the full rate (the conversion runs at a quarter of it).
-__device__ __forceinline__ uint32_t fr_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// The 3xTF32 split of x: hi = tf32(x), lo = x - hi (exact in fp32, at most
-// 2^-11 of |x|) cut to TF32 by dropping its low 13 bits: that moves lo by
-// less than 2^-21 of |x|, and costs one operation.
-__device__ __forceinline__ void fr_split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = fr_tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// c += a·b: one m16n8k8 TF32 product on the tensor cores, fp32 sums.
-__device__ __forceinline__ void fr_mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b in the 3xTF32 split, the small terms first.
-__device__ __forceinline__ void fr_mma3(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                        float b0, float b1) {
-  uint32_t b0h, b0l, b1h, b1l;
-  fr_split(b0, b0h, b0l);
-  fr_split(b1, b1h, b1l);
-  fr_mma(c, a_lo, b0h, b1h);
-  fr_mma(c, a_hi, b0l, b1l);
-  fr_mma(c, a_hi, b0h, b1h);
-}
-
-// 2^x in one MUFU operation (ex2.approx: relative error about 2^-22;
-// results below the smallest normal float are 0).
-__device__ __forceinline__ float fr_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // K and V as [lk rounded up to 8][dp] fp32 each.
 static size_t fr_smem_bytes(int64_t lk, int dp) {
@@ -607,6 +544,8 @@ flash_resident_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lr += __shfl_xor_sync(FA_FULL, lr, 2);
       const int row = r0 + g + 8 * r;
       if (row >= p1) continue;
+      if (p.lse != nullptr && t == 0)
+        p.lse[(b * p.h + hq) * (int64_t)p.lq + row] = (m[r] + log2f(lr)) * FR_LN2;
       const float denom = fmaxf(lr, 1e-30f);
       float* orow = o + b * p.so[0] + (int64_t)hq * p.so[1] + (int64_t)row * p.so[2];
 #pragma unroll
@@ -644,8 +583,10 @@ static int resident_launch_nc(const float* q, const float* k, const float* v, fl
 // kernel.py: b, h, hkv, lq, lk, d, q_chunk (query positions a block), the
 // 12 strides of q, k, v and o (each batch, head, position).  fp32 only;
 // the launcher in kernel.py has checked 16-byte aligned bases and strides.
+// lse: null, or float32 (B·H, Lq) contiguous for each row's log-sum-exp.
 extern "C" int flash_resident_launch(const void* q, const void* k, const void* v, void* o,
-                                     const int64_t* a, float scale, void* stream) {
+                                     const int64_t* a, float scale, void* lse,
+                                     void* stream) {
   const int64_t b = a[0], h = a[1], hkv = a[2], lq = a[3], lk = a[4], d = a[5];
   const int64_t q_chunk = a[6];
   if (d < 1 || d > 64 || d % 4 != 0 || hkv < 1 || h % hkv != 0 || lk < 1 || q_chunk < 1 ||
@@ -666,6 +607,7 @@ extern "C" int flash_resident_launch(const void* q, const void* k, const void* v
     p.so[i] = a[16 + i];
   }
   p.scale_log2 = scale * FR_LOG2E;
+  p.lse = (float*)lse;
   p.bh0 = 0;
   const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
   float* of = (float*)o;

@@ -7,8 +7,10 @@ fold of the device engine), ``intersect.cu`` (the intersect trio),
 attention kernels, with the decode's combine) and
 ``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel),
 ``flash_attention_bwd.cu`` (the attention's general backward: prep,
-dK/dV, dQ) and ``flash_attention_bwd_sm90.cu`` (the bf16 tensor-core
-dK/dV and dQ); the two sm90 sources share ``sm90_common.cuh``.  Each
+dK/dV, dQ), ``flash_attention_bwd_sm90.cu`` (the bf16 tensor-core
+dK/dV and dQ) and ``flash_attention_bwd_resident.cu`` (the fp32 backward
+in one kernel at the resident forward's calls); the two sm90 sources
+share ``sm90_common.cuh``, the two resident ones ``resident_common.cuh``.  Each
 source is compiled with ``nvcc`` for ``sm_90a`` on first use into its own
 shared library under ``build/repro_torch/`` at the repository root, named
 by a hash of the source, the headers and the compiler flags, so an edited
@@ -49,7 +51,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd", "flash_attention_bwd_sm90")
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_resident")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,7 +79,7 @@ _SIGNATURES = {
             _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _I, _P),
         "flash_decode_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
         "flash_combine_launch": (_P, _P, _P, ctypes.POINTER(_L), _P),
-        "flash_resident_launch": (_P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_resident_launch": (_P, _P, _P, _P, ctypes.POINTER(_L), _F, _P, _P),
     },
     "flash_attention_sm90": {
         "flash_attention_sm90_launch": (
@@ -93,6 +95,10 @@ _SIGNATURES = {
                                        _P),
         "flash_bwd_dq_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
     },
+    "flash_attention_bwd_resident": {
+        "flash_bwd_resident_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L),
+                                      _F, _P),
+    },
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
@@ -105,8 +111,10 @@ _SIGNATURES = {
 # prefill), ``flash_attention_decode`` and ``flash_attention_combine``
 # (split-K decode, two launches a call), ``flash_attention_resident`` (K and
 # V of a head in shared memory) or ``flash_attention_general``.  The
-# backward (``kernel.flash_attention_bwd_cuda``) launches ``flash_bwd_prep``
-# and, by ``kernel.bwd_route``, either ``flash_bwd_dkdv_sm90`` and
+# backward (``kernel.flash_attention_bwd_cuda``) launches, by
+# ``kernel.bwd_route``, ``flash_bwd_resident`` (fp32 at the resident
+# forward's calls: one kernel, given the forward's log-sum-exp), or
+# ``flash_bwd_prep`` and then either ``flash_bwd_dkdv_sm90`` and
 # ``flash_bwd_dq_sm90`` (bf16 tensor cores) or ``flash_bwd_dkdv`` and
 # ``flash_bwd_dq`` (the general backward), once each a call.
 LAUNCHES: Dict[str, int] = {
@@ -128,6 +136,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dq": 0,
     "flash_bwd_dkdv_sm90": 0,
     "flash_bwd_dq_sm90": 0,
+    "flash_bwd_resident": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

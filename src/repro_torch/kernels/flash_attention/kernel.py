@@ -1,7 +1,7 @@
 """Launcher of the attention kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_sm90.cu``) and of the backward's
 (``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_sm90.cu``,
-:func:`flash_attention_bwd_cuda`).
+``csrc/flash_attention_bwd_resident.cu``, :func:`flash_attention_bwd_cuda`).
 
 The libraries are built, loaded and counted by
 :mod:`repro_torch.kernels.build`.  :func:`flash_attention_cuda` checks
@@ -34,14 +34,21 @@ the counter of each kernel it launched.  Any B·H goes: the kernels take
 launchers cut B·H (B·Hkv for decode) into launches of at most that many
 pairs on the same stream, with no host sync; a call still counts once.
 
-The backward (:func:`flash_attention_bwd_cuda`) runs prep (each row's
-log-sum-exp and delta = rowsum(dO ∘ O); delta alone when the forward saved
-the log-sum-exp: :func:`flash_attention_lse_cuda` on the sm90 route), then
-dK/dV and dQ by :func:`bwd_route`: ``"sm90"`` for bf16 with D in
+The backward (:func:`flash_attention_bwd_cuda`) takes the kernels
+:func:`bwd_route` names.  ``"resident"`` (fp32, not causal, no window, D a
+multiple of 4 up to :data:`RESIDENT_MAX_HEAD_DIM`, K, V, Q and dO of one
+(batch, KV head) within :data:`RESIDENT_SMEM_BYTES`:
+:func:`resident_bwd_smem_bytes`; BERT4Rec's encoder call): one kernel,
+:func:`bwd_resident_cuda`, which computes delta itself and reads the
+forward's log-sum-exp (:func:`flash_attention_lse_cuda` returns it on the
+resident and sm90 routes; without it, prep's recompute).  Else prep (each
+row's log-sum-exp and delta = rowsum(dO ∘ O); delta alone given the
+forward's log-sum-exp), then dK/dV and dQ: ``"sm90"`` for bf16 with D in
 :data:`SM90_HEAD_DIMS` (wgmma and TMA: :func:`bwd_dkdv_sm90_cuda`,
-:func:`bwd_dq_sm90_cuda`; P and dS rounded to bf16 for their products;
-16-byte aligned bases and strides or ``ValueError``), ``"general"``
-otherwise (fp32 arithmetic: :func:`bwd_dkdv_cuda`, :func:`bwd_dq_cuda`).
+:func:`bwd_dq_sm90_cuda`; P and dS rounded to bf16 for their products),
+``"general"`` otherwise (fp32 arithmetic: :func:`bwd_dkdv_cuda`,
+:func:`bwd_dq_cuda`).  The sm90 and resident kernels need 16-byte aligned
+bases and strides, or raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -57,9 +64,9 @@ from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 __all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "RESIDENT_MAX_HEAD_DIM", "RESIDENT_SMEM_BYTES",
            "SM90_HEAD_DIMS", "combine_cuda", "decode_partials_cuda", "decode_plan",
            "bwd_dkdv_cuda", "bwd_dkdv_sm90_cuda", "bwd_dq_cuda", "bwd_dq_sm90_cuda",
-           "bwd_prep_cuda", "bwd_route", "flash_attention_bwd_cuda", "flash_attention_cuda",
-           "flash_attention_lse_cuda", "flash_route", "resident_q_chunk", "resident_smem_bytes",
-           "sm_count"]
+           "bwd_prep_cuda", "bwd_resident_cuda", "bwd_route", "flash_attention_bwd_cuda",
+           "flash_attention_cuda", "flash_attention_lse_cuda", "flash_route", "resident_q_chunk",
+           "resident_bwd_smem_bytes", "resident_smem_bytes", "sm_count"]
 
 MAX_HEAD_DIM = 256
 # Query rows (Lq·(H/Hkv)) of one (batch, KV head) that the decode variant
@@ -92,6 +99,17 @@ def resident_smem_bytes(lk: int, d: int) -> int:
     return 4 * 2 * (-(-lk // 8) * 8) * (-(-d // 32) * 32)
 
 
+def resident_bwd_smem_bytes(lq: int, lk: int, d: int, groups: int) -> int:
+    """Shared memory of one block of the resident backward
+    (``csrc/flash_attention_bwd_resident.cu``): K and V of the head (Lk
+    rounded up to 16 rows), Q and dO of each of the group's ``groups`` query
+    heads (Lq rounded up to 16), as fp32 rows of D rounded up to 32, and
+    each query row's lse and delta."""
+    dp = -(-d // 32) * 32
+    lk16, lq16 = -(-lk // 16) * 16, -(-lq // 16) * 16
+    return 4 * (2 * lk16 * dp + 2 * groups * lq16 * dp + 2 * groups * lq16)
+
+
 def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, causal: bool,
                 window: Optional[int]) -> str:
     """The variant that :func:`flash_attention_cuda` launches for these
@@ -106,11 +124,30 @@ def flash_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, 
     return "general"
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The dK/dV and dQ kernels that :func:`flash_attention_bwd_cuda`
-    launches: ``"sm90"`` (bf16 tensor cores) for bf16 with D in
-    :data:`SM90_HEAD_DIMS`, else ``"general"``."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "general"
+def bwd_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, causal: bool,
+              window: Optional[int]) -> str:
+    """The kernels that :func:`flash_attention_bwd_cuda` launches for the
+    forward's inputs: ``"sm90"`` (prep, then the bf16 tensor-core dK/dV and
+    dQ) for bf16 with D in :data:`SM90_HEAD_DIMS`; ``"resident"`` (one
+    kernel) for fp32, not causal, no window, D a multiple of 4 up to
+    :data:`RESIDENT_MAX_HEAD_DIM` and :func:`resident_bwd_smem_bytes` within
+    :data:`RESIDENT_SMEM_BYTES`; else ``"general"`` (prep, dK/dV, dQ)."""
+    if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS:
+        return "sm90"
+    if (dtype == torch.float32 and not causal and window is None and d % 4 == 0
+            and d <= RESIDENT_MAX_HEAD_DIM
+            and resident_bwd_smem_bytes(lq, lk, d, h // hkv) <= RESIDENT_SMEM_BYTES):
+        return "resident"
+    return "general"
+
+
+def _bwd_route_of(q, k, causal, window) -> str:
+    """:func:`bwd_route` of these inputs; ``"general"`` (whose checks then
+    raise) where they are not (B, H, L, D) with Hkv dividing H."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape[1] < 1 or q.shape[1] % k.shape[1]:
+        return "general"
+    b, h, lq, d = q.shape
+    return bwd_route(q.dtype, h, k.shape[1], lq, k.shape[2], d, causal, window)
 
 
 def resident_q_chunk(lq: int, bhkv: int, sms: int) -> int:
@@ -324,9 +361,10 @@ def flash_attention_cuda(
 
 def flash_attention_lse_cuda(q, k, v, causal: bool = True, window: Optional[int] = None):
     """(out, lse): :func:`flash_attention_cuda`'s output and, where the
-    route is ``"sm90"``, each row's log-sum-exp of its visible scaled
-    scores, float32 (B·H, Lq) contiguous, which the sm90 forward writes at
-    its end for the backward (else ``None``: prep recomputes it)."""
+    route is ``"sm90"`` or ``"resident"``, each row's log-sum-exp of its
+    visible scaled scores, float32 (B·H, Lq) contiguous, which those
+    forwards write at their end for the backward (else ``None``: prep
+    recomputes it)."""
     return _flash(q, k, v, causal, window, True)
 
 
@@ -335,7 +373,7 @@ def _flash(q, k, v, causal, window, want_lse):
     launch = _launch_of(q, k, v, causal, window, name)
     out = torch.empty_like(q)
     lse = None
-    if want_lse and launch.route == "sm90":
+    if want_lse and launch.route in ("sm90", "resident"):
         lse = torch.empty((q.shape[0] * q.shape[1], q.shape[2]), dtype=torch.float32,
                           device=q.device)
     if launch.empty:
@@ -363,7 +401,7 @@ def _flash(q, k, v, causal, window, want_lse):
         launch.check_bases("flash_attention_resident", q, k, v, out)
         status = lib("flash_attention").flash_resident_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), launch.resident_args,
-            launch.scale, stream)
+            launch.scale, None if lse is None else lse.data_ptr(), stream)
         check(status, "flash_attention_resident")
         LAUNCHES["flash_attention_resident"] += 1
     else:
@@ -437,9 +475,9 @@ def _sm90_bwd_checked(q, k, v, dout, causal, window, name) -> None:
     come before the device's, so they hold on any machine.  (The
     gradients, ``torch.empty_like`` of aligned inputs with D·2 a multiple
     of 16 bytes, are aligned too.)"""
-    if bwd_route(q.dtype, q.shape[3]) != "sm90":
+    if _bwd_route_of(q, k, causal, window) != "sm90":
         raise ValueError(f"{name}: bf16 with head dim in {SM90_HEAD_DIMS} required, got "
-                         f"{q.dtype} and head dim {q.shape[3]}")
+                         f"{q.dtype} and head dim {q.shape[-1]}")
     for t in (q, k, v, dout):
         why = _misaligned("sm90 backward", t.shape, t.stride(), 2, 0)
         if why:
@@ -549,30 +587,93 @@ def bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal: bool = True,
     return dq
 
 
+def _resident_bwd_checked(q, k, v, out, dout, causal, window, name, lse=None) -> None:
+    """What the resident backward takes: the inputs :func:`bwd_route` sends
+    there, 16-byte aligned bases and strides (cp.async and float4 loads)
+    and, where given, lse float32 (B·H, Lq) contiguous; then the general
+    checks (device, shapes).  The route, alignment and lse checks come before the
+    device's, so they hold on any machine.  (The gradients,
+    ``torch.empty_like`` of aligned inputs with D a multiple of 4, are
+    aligned too.)"""
+    if _bwd_route_of(q, k, causal, window) != "resident":
+        raise ValueError(f"{name}: float32, not causal, no window, head dim a multiple of 4 up "
+                         f"to {RESIDENT_MAX_HEAD_DIM} and K, V, Q and dO of a (batch, KV head) "
+                         f"within {RESIDENT_SMEM_BYTES} bytes of shared memory required")
+    for t in (q, k, v, out, dout):
+        why = _misaligned("resident backward", t.shape, t.stride(), 4, t.data_ptr())
+        if why:
+            raise ValueError(f"{name}: {why}")
+    if lse is not None:
+        _stats_checked(q, (lse,), name)
+    _bwd_checked(q, k, v, out, dout, causal, window, name)
+
+
+def bwd_resident_cuda(q, k, v, out, dout, lse, causal: bool = False,
+                      window: Optional[int] = None):
+    """``flash_bwd_resident``: (dq, dk, dv) like q, k and v, the whole
+    backward in one kernel (``csrc/flash_attention_bwd_resident.cu``: delta
+    = rowsum(dO ∘ O), dK and dV with the group's heads summed, dQ), given
+    the forward's log-sum-exp ``lse`` (float32 (B·H, Lq) contiguous), for
+    the inputs :func:`bwd_route` sends there; raises ``ValueError`` for any
+    other before launching."""
+    name = "flash_bwd_resident"
+    if lse is None:
+        raise ValueError(f"{name}: the forward's log-sum-exp is required")
+    _resident_bwd_checked(q, k, v, out, dout, causal, window, name, lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    b, h, lq, _ = q.shape
+    if lq == 0 or b * h == 0:
+        return dq, dk.zero_(), dv.zero_()
+    check(lib("flash_attention_bwd_resident").flash_bwd_resident_launch(
+        *_resident_bwd_args(q, k, v, out, dout, lse, dq, dk, dv)), name)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def _resident_bwd_args(q, k, v, out, dout, lse, dq, dk, dv) -> tuple:
+    """``flash_bwd_resident_launch``'s arguments: the ten tensors' pointers,
+    the packed shapes and strides, the scale and the stream."""
+    b, h, lq, d = q.shape
+    args = _int64s((b, h, k.shape[1], lq, k.shape[2], d,
+                    *(t.stride(i) for t in (q, k, v, out, dout, dq, dk, dv) for i in range(3))))
+    return (*(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv)), args, 1.0 / d**0.5,
+            stream_of(q.device))
+
+
 def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True,
                              window: Optional[int] = None, lse=None):
     """(dq, dk, dv), the gradient of :func:`flash_attention_cuda` (any
     variant: they compute one function) at output ``out`` for the output
-    gradient ``dout``: ``flash_bwd_prep`` (delta = rowsum(dO ∘ O) into
+    gradient ``dout``, through the kernels :func:`bwd_route` names, one
+    launch each: on the resident route :func:`bwd_resident_cuda` alone,
+    given the forward's ``lse`` (without it, ``flash_bwd_prep`` first
+    recomputes it); else ``flash_bwd_prep`` (delta = rowsum(dO ∘ O) into
     float32 scratch (B·H, Lq), and each row's log-sum-exp unless the
-    forward's ``lse`` is given), then dK/dV (the group's heads summed) and
-    dQ through the kernels :func:`bwd_route` names, one launch each.  The
-    same inputs as the forward (every row must see a key); ``out`` and
-    ``dout`` (B, H, Lq, D) in q's dtype on q's device, last dimension
-    dense.  Gradients come in ``torch.empty_like`` of q, k and v (their
-    layouts)."""
-    if bwd_route(q.dtype, q.shape[3]) == "sm90":
+    forward's ``lse`` is given: the sm90 forward's, or the resident
+    forward's where the resident backward does not fit), then dK/dV (the
+    group's heads summed) and dQ.  The same inputs as the forward (every row must see a key);
+    ``out`` and ``dout`` (B, H, Lq, D) in q's dtype on q's device, last
+    dimension dense.  Gradients come in ``torch.empty_like`` of q, k and v
+    (their layouts)."""
+    route = _bwd_route_of(q, k, causal, window)
+    if route == "sm90":
         _sm90_bwd_checked(q, k, v, dout, causal, window, "flash_attention_bwd_sm90")
         lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
         dk, dv = bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
         return bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv
-    return _general_bwd_forced(q, k, v, out, dout, causal, window)
+    if route == "resident":
+        if lse is None:
+            _resident_bwd_checked(q, k, v, out, dout, causal, window, "flash_bwd_resident")
+            lse, _ = bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+        return bwd_resident_cuda(q, k, v, out, dout, lse, causal, window)
+    return _general_bwd_forced(q, k, v, out, dout, causal, window, lse)
 
 
-def _general_bwd_forced(q, k, v, out, dout, causal: bool = True, window: Optional[int] = None):
+def _general_bwd_forced(q, k, v, out, dout, causal: bool = True, window: Optional[int] = None,
+                        lse=None):
     """:func:`flash_attention_bwd_cuda` through the general backward's three
-    kernels whatever the route (prep recomputes the log-sum-exp), to time
-    and check it beside the route's."""
-    lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
+    kernels whatever the route (prep recomputes the log-sum-exp unless
+    ``lse`` is given), to time and check it beside the route's."""
+    lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
     dk, dv = bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window)
     return bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv

@@ -10,12 +10,13 @@ When grad mode is on and q, k or v requires a gradient,
 :func:`flash_attention` runs as a ``torch.autograd.Function``: its forward
 is the call above (the variant ``kernel.flash_route`` picks on the card),
 and it saves q, k, v, the output and, where the forward computed it (the
-sm90 variant on the card, ``ref.attention_lse_ref`` on the CPU), each
-row's log-sum-exp; its backward is :func:`flash_attention_bwd`: prep and
-the dK/dV and dQ kernels ``kernel.bwd_route`` picks on the card (the bf16
-tensor-core pair of ``csrc/flash_attention_bwd_sm90.cu`` or the general
-pair of ``csrc/flash_attention_bwd.cu``), ``ref.attention_bwd_ref`` on the
-CPU.  The JAX package differentiates its jnp attention with XLA;
+sm90 and resident variants on the card, ``ref.attention_lse_ref`` on the
+CPU), each row's log-sum-exp; its backward is :func:`flash_attention_bwd`:
+the kernels ``kernel.bwd_route`` picks on the card (the fp32 resident
+backward of ``csrc/flash_attention_bwd_resident.cu`` in one kernel, or
+prep and the bf16 tensor-core pair of ``csrc/flash_attention_bwd_sm90.cu``
+or the general pair of ``csrc/flash_attention_bwd.cu``),
+``ref.attention_bwd_ref`` on the CPU.  The JAX package differentiates its jnp attention with XLA;
 its Pallas kernel has no backward.
 """
 
@@ -25,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (_misaligned, bwd_route, combine_cuda,
+from repro_torch.kernels.flash_attention.kernel import (_bwd_route_of, _misaligned, combine_cuda,
                                                         decode_partials_cuda, decode_plan,
                                                         flash_attention_bwd_cuda,
                                                         flash_attention_cuda,
@@ -68,13 +69,15 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
     output gradient ``dout``, given the forward's log-sum-exp ``lse``
     where it saved one: the backward kernels on the card, the plain
     recompute on the CPU.  On the card ``dout`` is made contiguous when
-    its last dimension is not dense, or when the bf16 tensor-core route
-    would get a base or stride its TMA loads cannot take."""
+    its last dimension is not dense, or when the bf16 tensor-core route or
+    the resident route would get a base or stride its TMA, cp.async or
+    16-byte loads cannot take."""
     if q.is_cuda:
-        tma = bwd_route(dout.dtype, dout.shape[3]) == "sm90"
-        if (dout.stride(3) != 1 and dout.shape[3] > 1) or tma and (
+        route = _bwd_route_of(q, k, causal, window)
+        itemsize = {"sm90": 2, "resident": 4}.get(route)
+        if (dout.stride(3) != 1 and dout.shape[3] > 1) or itemsize and (
                 0 in dout.stride()[:3]
-                or _misaligned("sm90", dout.shape, dout.stride(), 2, dout.data_ptr())):
+                or _misaligned(route, dout.shape, dout.stride(), itemsize, dout.data_ptr())):
             dout = dout.contiguous()
         return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal, window=window,
                                         lse=lse)

@@ -208,6 +208,47 @@ def bwd_rounding_terms(q, k, v, dout, lse, delta, causal, window):
     return BWD_ROUNDING * dq, BWD_ROUNDING * dk, BWD_ROUNDING * dv
 
 
+# (B, H, Hkv, Lq, Lk, D) of the resident backward (kernel.bwd_route
+# "resident", csrc/flash_attention_bwd_resident.cu: fp32, not causal, no
+# window): the resident cases of FLASH_BWD_CASES (group 8 at D = 64 over
+# 70 keys, BERT4Rec's call at a few rows), a ragged Lq != Lk (37 over 77),
+# groups 2 and 4, D 20 (padded to 32) and 64, rows past a 16-row tile.
+RESIDENT_BWD_CASES = [c[:6] for c in FLASH_BWD_CASES if not c[6] and c[7] is None] + [
+    (1, 4, 2, 37, 77, 32), (2, 8, 2, 33, 45, 20), (1, 4, 1, 50, 64, 64), (2, 2, 2, 40, 40, 20),
+]
+
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32``: x rounded to TF32 (10 mantissa bits), to
+    nearest with ties away from zero, kept as float32 (the resident
+    kernels' ``fr_tf32``, an integer add and mask)."""
+    import torch
+
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_cut(x):
+    """x cut to TF32 by dropping its low 13 bits (toward zero)."""
+    import torch
+
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a, b, spec, single=False):
+    """``einsum(spec, a, b)`` as the resident kernels' tensor cores take
+    it: each operand split into hi = tf32(x) (to nearest) and lo = x - hi
+    cut to TF32, the product a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (exact
+    products, summed in float64, then float32); ``single`` keeps a_hi·b_hi
+    only (one TF32 product)."""
+    import torch
+
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_cut(a - a_hi), tf32_cut(b - b_hi)
+    terms = [(a_hi, b_hi)] if single else [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+    return sum(torch.einsum(spec, x.double(), y.double()) for x, y in terms).float()
+
+
 def half_bf16_step(m: float) -> float:
     """Half a bf16 step at magnitude m: 2**(floor(log2 m) - 8) (0 at 0)."""
     import math

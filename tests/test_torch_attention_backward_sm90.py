@@ -3,9 +3,11 @@ the CPU (its kernels, ``csrc/flash_attention_bwd_sm90.cu``, run on the
 card: ``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``).
 
 - ``kernel.bwd_route`` sends exactly bf16 with D in {64, 128, 256} to the
-  sm90 kernels, and their launchers refuse what those kernels do not take
-  (another dtype or head dim, a base or stride off 16 bytes, CPU tensors,
-  statistics of the wrong shape) before launching anything.
+  sm90 kernels (the fp32 resident route is
+  ``tests/test_torch_attention_backward_resident.py``'s), and their
+  launchers refuse what those kernels do not take (another dtype or head
+  dim, a base or stride off 16 bytes, CPU tensors, statistics of the wrong
+  shape) before launching anything.
 - The sm90 route rounds P and dS to bf16 for its three products
   (``_torch_parity.BWD_ROUNDING``): a plain emulation that does the same
   lands within ``FLASH_BWD_TOL`` plus ``bwd_rounding_terms`` of the plain
@@ -71,8 +73,9 @@ def _case(n, b, h, hkv, lq, lk, d, causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [20, 32, 64, 96, 128, 192, 256])
 def test_bwd_route_takes_the_sm90_kernels_exactly_for_bf16_at_their_head_dims(dtype, d):
+    """A causal call (the LM's), so no input takes the resident route."""
     want = "sm90" if dtype == torch.bfloat16 and d in (64, 128, 256) else "general"
-    assert FK.bwd_route(dtype, d) == want
+    assert FK.bwd_route(dtype, 4, 2, 64, 64, d, True, None) == want
 
 
 def test_sm90_backward_launchers_refuse_what_their_kernels_do_not_take():

@@ -37,14 +37,18 @@ forced on the same inputs are both held to ``FLASH_TOL``.
 The attention's backward is held against ``attention_bwd_ref`` at
 ``FLASH_BWD_CASES`` through the autograd function of
 ``ops.flash_attention``, one launch of each kernel of the route
-``kernel.bwd_route`` names a call: prep (``csrc/flash_attention_bwd.cu``),
-then the bf16 tensor-core dK/dV and dQ (``csrc/flash_attention_bwd_sm90.cu``,
-bf16 with D in {64, 128, 256}; limit ``FLASH_BWD_TOL`` plus
-``bwd_rounding_terms``, the rounding of P and dS) or the general pair
-(``FLASH_BWD_TOL``).  The sm90 kernels are also held one by one against
-their plain parts fed the same lse and delta, bit for bit across two
-runs, past one launch chunk of B·H, and the sm90 forward's log-sum-exp
-against ``bwd_prep_ref``'s within ``FLASH_BWD_TOL["float32"]``.
+``kernel.bwd_route`` names a call: the fp32 resident kernel alone
+(``csrc/flash_attention_bwd_resident.cu``, fp32, not causal, no window,
+given the resident forward's lse; ``FLASH_BWD_TOL``), or prep
+(``csrc/flash_attention_bwd.cu``), then the bf16 tensor-core dK/dV and dQ
+(``csrc/flash_attention_bwd_sm90.cu``, bf16 with D in {64, 128, 256};
+limit ``FLASH_BWD_TOL`` plus ``bwd_rounding_terms``, the rounding of P
+and dS) or the general pair (``FLASH_BWD_TOL``).  The sm90 kernels are
+also held one by one against their plain parts fed the same lse and
+delta, the sm90 and resident kernels bit for bit across two runs and
+past one launch chunk of B·H, and the sm90 and resident forwards'
+log-sum-exp against ``bwd_prep_ref``'s within
+``FLASH_BWD_TOL["float32"]``.
 
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
@@ -57,7 +61,7 @@ import pytest
 import torch
 
 from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, FLASH_CASES, FLASH_VARIANTS,
-                           FOLD_CASES, VARIANT_LAUNCHES, attention_ref_chunked,
+                           FOLD_CASES, RESIDENT_BWD_CASES, VARIANT_LAUNCHES, attention_ref_chunked,
                            bwd_rounding_terms, flash_bwd_close, flash_close,
                            flash_inputs, fold_emulation,
                            make_rows, p_rounding_term, staged_scores_emulation,
@@ -540,9 +544,10 @@ def test_cluster_scores_is_deterministic(cuda_device):
 
 
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
-               "flash_bwd_dq_sm90")
+               "flash_bwd_dq_sm90", "flash_bwd_resident")
 BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
-                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")}
+                     "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
+                     "resident": ("flash_bwd_resident",)}
 SM90_BWD_CASES = [c for c in FLASH_BWD_CASES if c[5] in FK.SM90_HEAD_DIMS]
 
 
@@ -567,7 +572,7 @@ def test_flash_attention_backward_equals_plain(cuda_device, dtype, b, h, hkv, lq
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, dout = _bwd_case(cuda_device, dtype, b, h, hkv, lq, lk, d, 3 * lq + lk + d)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    route = FK.bwd_route(dtype, d)
+    route = FK.bwd_route(dtype, h, hkv, lq, lk, d, causal, window)
     out = flash_attention(q, k, v, causal=causal, window=window)
     before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
     got = torch.autograd.grad(out, (q, k, v), dout)
@@ -676,6 +681,115 @@ def test_sm90_backward_refuses_misaligned_bases_and_strides(cuda_device):
             fn(shifted, k, v, dout, lse, lse)
         with pytest.raises(ValueError, match="lse and delta"):
             fn(q, k, v, dout, lse[:, :63], lse)
+
+
+def _resident_bwd_call(q, k, v, dout):
+    """The resident forward's output and lse, then the resident backward
+    alone, its launches read from the counters."""
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, False, None)
+    assert lse is not None
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    got = FK.flash_attention_bwd_cuda(q, k, v, out, dout, False, None, lse=lse)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n == "flash_bwd_resident") for n in BWD_KERNELS}
+    return out, lse, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d", RESIDENT_BWD_CASES)
+def test_resident_backward_equals_plain(cuda_device, b, h, hkv, lq, lk, d):
+    """One launch of ``flash_bwd_resident`` a call, given the resident
+    forward's lse, within ``FLASH_BWD_TOL``; a rerun gives the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _bwd_case(cuda_device, torch.float32, b, h, hkv, lq, lk, d, lq + 3 * d)
+    assert FK.bwd_route(torch.float32, h, hkv, lq, lk, d, False, None) == "resident"
+    out, lse, got = _resident_bwd_call(q, k, v, dout)
+    want = attention_bwd_ref(q, k, v, out, dout, False, None)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v), strict=True):
+        assert g.shape == x.shape and g.stride() == torch.empty_like(x).stride()
+        flash_bwd_close(name, g, w)
+    again = FK.bwd_resident_cuda(q, k, v, out, dout, lse)
+    for a, b_ in zip(got, again, strict=True):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_resident_backward_past_one_launch_chunk(cuda_device):
+    """B·Hkv = 65,537: two launches of the kernel, one call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _bwd_case(cuda_device, torch.float32, 65537, 1, 1, 16, 16, 32, 6)
+    out, _, got = _resident_bwd_call(q, k, v, dout)
+    want = attention_bwd_ref(q, k, v, out, dout, False, None)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        flash_bwd_close(name, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d", [(1, 8, 1, 200, 200, 64), (2, 2, 2, 800, 800, 32)])
+def test_resident_forward_with_the_general_backward(cuda_device, b, h, hkv, lq, lk, d):
+    """fp32 calls whose K and V fit the resident forward but whose group's
+    Q and dO do not fit the resident backward: the autograd backward takes
+    the general kernels, prep computes delta alone from the forward's lse,
+    and the gradients are within ``FLASH_BWD_TOL``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert FK.flash_route(torch.float32, h, hkv, lq, lk, d, False, None) == "resident"
+    assert FK.bwd_route(torch.float32, h, hkv, lq, lk, d, False, None) == "general"
+    q, k, v, dout = _bwd_case(cuda_device, torch.float32, b, h, hkv, lq, lk, d, lq + d)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, False, None)
+    assert lse is not None
+    same, delta = FK.bwd_prep_cuda(q, k, out, dout, False, None, v=v, lse=lse)
+    assert same is lse
+    torch.testing.assert_close(delta, FK.bwd_prep_cuda(q, k, out, dout, False, None, v=v)[1],
+                               rtol=0, atol=0)
+    # The route's gradients are those of dK/dV and dQ fed the forward's lse.
+    given = (*FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, False, None),
+             FK.bwd_dq_cuda(q, k, v, dout, lse, delta, False, None))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    got = torch.autograd.grad(flash_attention(*leaves, causal=False), leaves, dout)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n in BWD_ROUTE_KERNELS["general"]) for n in BWD_KERNELS}
+    for g, w in zip(got, (given[2], given[0], given[1]), strict=True):
+        assert torch.equal(g, w)
+    want = attention_bwd_ref(q, k, v, out, dout, False, None)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
+        flash_bwd_close(name, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window",
+                         [c for c in FLASH_CASES
+                          if FK.flash_route(torch.float32, *c[1:]) == "resident"])
+def test_resident_forward_lse_equals_the_plain_lse(cuda_device, b, h, hkv, lq, lk, d, causal,
+                                                   window):
+    """The forward asked for its lse writes the same output as without it,
+    and each row's log-sum-exp within ``FLASH_BWD_TOL["float32"]``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, torch.float32, b, h, hkv, lq, lk, d, seed=lq + d,
+                           model_layout=lk % 2 == 0)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    assert torch.equal(out, FK.flash_attention_cuda(q, k, v, causal, window))
+    assert lse.dtype == torch.float32 and lse.shape == (b * h, lq) and lse.is_contiguous()
+    want = bwd_prep_ref(q, k, out, out, causal, window)[0]
+    rtol, atol = FLASH_BWD_TOL["float32"]
+    torch.testing.assert_close(lse, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_resident_backward_refuses_misaligned_bases_and_strides(cuda_device):
+    q, k, v, dout = _bwd_case(cuda_device, torch.float32, 2, 2, 2, 40, 40, 32, 2)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, False, None)
+    shifted = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    wide = torch.zeros((2, 2, 40, 33), device=cuda_device)[..., :32]
+    before = dict(B.LAUNCHES)
+    for bad in ((shifted, k, v, out, dout), (q, wide, v, out, dout), (q, k, v, out, wide)):
+        with pytest.raises(ValueError, match="16-byte"):
+            FK.bwd_resident_cuda(*bad, lse)
+    with pytest.raises(ValueError, match="lse"):
+        FK.bwd_resident_cuda(q, k, v, out, dout, lse[:, :39])
+    assert B.LAUNCHES == before  # refused before any launch, no fallback
 
 
 @pytest.mark.cuda

@@ -29,7 +29,8 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from _torch_parity import FLASH_CASES, flash_close, flash_error, flash_inputs, p_rounding_term
+from _torch_parity import (FLASH_CASES, flash_close, flash_error, flash_inputs, p_rounding_term,
+                           tf32_cut, tf32_product, tf32_round)
 from repro_torch.kernels import build as B
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_attention import kernel as FK
@@ -268,34 +269,10 @@ def test_sm90_bf16_limit_holds_the_emulation_and_catches_faults(case):
         assert flash_error(_emulate_sm90(q, k, v, causal, None), want, extra)[1] > 1.0
 
 
-def _tf32(x):
-    """``cvt.rna.tf32.f32``: x rounded to TF32 (10 mantissa bits), to
-    nearest with ties away from zero, kept as float32."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_cut(x):
-    """x cut to TF32 by dropping its low 13 bits (toward zero)."""
-    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_product(a, b, spec, single=False):
-    """``einsum(spec, a, b)`` as the resident variant's tensor cores take
-    it: each operand split into hi = tf32(x) (to nearest) and lo = x - hi
-    cut to TF32, the product a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (exact
-    products, summed in float64, then float32); ``single`` keeps a_hi·b_hi
-    only (one TF32 product, a fault the limit must catch)."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32_cut(a - a_hi), _tf32_cut(b - b_hi)
-    terms = [(a_hi, b_hi)] if single else [(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
-    return sum(torch.einsum(spec, x.double(), y.double()) for x, y in terms).float()
-
-
 def _emulate_resident(q, k, v, fault=None):
     """The resident variant's arithmetic on the CPU: q pre-multiplied by
     scale·log2 e in float32, the scores and P·V in the 3xTF32 split
-    (``_tf32_product``), an online softmax in float32 over chunks of
+    (``_torch_parity.tf32_product``), an online softmax in float32 over chunks of
     ``FK_KEYS`` keys in base 2 (running max m, sum l, accumulator rescaled
     by exp2(m - m_new) at each chunk), the end divided by max(l, 1e-30).
     ``fault``: ``"single_tf32"`` takes one TF32 product instead of three,
@@ -305,7 +282,7 @@ def _emulate_resident(q, k, v, fault=None):
     kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
     scale_log2 = torch.tensor((1.0 / d**0.5) * 1.4426950408889634, dtype=torch.float32)
     single = fault == "single_tf32"
-    s = _tf32_product(q.float() * scale_log2, kf, "bhqd,bhkd->bhqk", single)
+    s = tf32_product(q.float() * scale_log2, kf, "bhqd,bhkd->bhqk", single)
     m = torch.full(q.shape[:3] + (1,), NEG_INF)
     l = torch.zeros(q.shape[:3] + (1,))
     acc = torch.zeros(q.shape, dtype=torch.float32)
@@ -315,7 +292,7 @@ def _emulate_resident(q, k, v, fault=None):
         alpha = torch.exp2(m - m_new) if fault != "no_rescale" else torch.ones_like(m)
         p = torch.exp2(part - m_new)
         l = l * alpha + p.sum(dim=3, keepdim=True)
-        acc = acc * alpha + _tf32_product(p, vf[:, :, j0:j0 + FK_KEYS], "bhqk,bhkd->bhqd",
+        acc = acc * alpha + tf32_product(p, vf[:, :, j0:j0 + FK_KEYS], "bhqk,bhkd->bhqd",
                                           single)
         m = m_new
     return acc / l.clamp_min(1e-30)
@@ -330,12 +307,12 @@ def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
                       1.0 + 3 * step / 2, 3.0e-5])
     want = torch.tensor([1.0, 1.0 + step, -(1.0 + step), 1.0, 1.0 + 2 * step,
                          float(np.float32(3.0e-5))])
-    got = _tf32(x)
+    got = tf32_round(x)
     assert torch.equal(got[:5], want[:5])
     assert abs(float(got[5]) - 3.0e-5) <= 3.0e-5 * 2.0**-11
-    hi = _tf32(x)
+    hi = tf32_round(x)
     assert float(((x - hi).abs() / x.abs()).max()) <= 2.0**-11  # lo: at most half a TF32 unit
-    residue = (x - hi - _tf32_cut(x - hi)).abs() / x.abs()  # what the split leaves out
+    residue = (x - hi - tf32_cut(x - hi)).abs() / x.abs()  # what the split leaves out
     assert float(residue.max()) < 2.0**-21
 
 

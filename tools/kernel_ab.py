@@ -25,8 +25,9 @@ this, this, other):
   per call.
 
 ``ABLATIONS`` are copies of the other tree's sources with one part
-taken out (a text substitution; a variant whose text is not in the
-source is reported as not applicable), timed the same way to split the
+taken out (a text substitution in the source or a header it includes,
+each built in its own directory with its own copy of the headers; a
+variant whose text is in neither is reported as not applicable), timed the same way to split the
 kernel's time between its parts.  Each unablated fold is checked against
 the plain version bit for bit, each unablated scoring within the scores
 tolerance.
@@ -37,7 +38,10 @@ times the bf16 tensor-core backward's ``flash_bwd_dkdv_sm90`` and
 ``flash_bwd_dq_sm90`` at gemma3-4b's training shapes against ablated
 copies of this tree's ``flash_attention_bwd_sm90.cu`` (``ABLATIONS``: no
 operand loads, no tensor-core products, no P exchange between dkdv's
-warpgroups, no per-row statistics), in turns, into
+warpgroups, no per-row statistics), and the fp32 resident backward's
+``flash_bwd_resident`` at BERT4Rec's training call against ablated copies
+of ``flash_attention_bwd_resident.cu`` (no products, no exp, no operand
+loads, phase 3 alone, the copies and delta alone), in turns, into
 ``chiprun_out/kernel_ab_bwd.json``.
 
 The attention's ablations are of this tree's ``flash_attention.cu``
@@ -84,6 +88,22 @@ STAT_LOADS_OUT = [("stat[r] = in ? p.lse[row0 + r] * SM90_LOG2E : 0.0f;", "stat[
                    "stat[SM90_ROWS + r] = 0.0f;"),
                   ("lse2[rh] = row < p.lq ? p.lse[at] * SM90_LOG2E : 0.0f;", "lse2[rh] = 0.0f;"),
                   ("dl[rh] = row < p.lq ? p.delta[at] : 0.0f;", "dl[rh] = 0.0f;")]
+# The resident backward's ablations: every product out, the operand loads
+# out, phase 2 skipped (phase 3 alone), and both phases skipped.
+NO_MMA = [("""  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));""",
+           "  c[0] += __uint_as_float(a[0] ^ b0 ^ b1);")]
+RESIDENT_LOADS_OUT = [("const bool full = c < dch && r < lk;", "const bool full = false;"),
+                      ("const bool full = c < dch && r < lq;", "const bool full = false;"),
+                      ("    if (live) {\n      const float* orow",
+                       "    if (false) {\n      const float* orow")]
+RESIDENT_PHASE2 = ("for (int kt = warp; kt < lk16 / FRB_TILE; kt += FRB_WARPS) {",
+                   "for (int kt = warp; kt < 0; kt += FRB_WARPS) {")
+RESIDENT_PHASE3 = ("tile < groups * q_tiles; tile += FRB_WARPS) {",
+                   "tile < 0; tile += FRB_WARPS) {")
 # (source stem, variant, [(text, replacement), ...])
 ABLATIONS = [
     ("fold", "no_count_atomics", [("atomicAdd(&counts[query], 1);", "(void)query;")]),
@@ -153,6 +173,20 @@ ABLATIONS = [
     ("flash_attention_bwd_sm90", "no_stat_loads", STAT_LOADS_OUT),
     # the operand loads alone: no products, no statistics
     ("flash_attention_bwd_sm90", "operand_loads_only", NO_WGMMA + STAT_LOADS_OUT),
+    # The fp32 resident backward, one part undone each.
+    ("flash_attention_bwd_resident", "design", []),
+    # no tensor-core products: each mma.sync of resident_common.cuh becomes
+    # one xor and add on an accumulator, so its operands' loads and splits
+    # stay live
+    ("flash_attention_bwd_resident", "no_products", NO_MMA),
+    # no exponentials: P = S - lse
+    ("flash_attention_bwd_resident", "no_exp",
+     [("  asm(\"ex2.approx.ftz.f32 %0, %1;\\n\" : \"=f\"(y) : \"f\"(x));", "  y = x;")]),
+    # no operand loads: the copies zero-fill shared memory, delta reads no O
+    ("flash_attention_bwd_resident", "no_operand_loads", RESIDENT_LOADS_OUT),
+    # phase 3 (dQ) alone, neither phase (the copies and delta)
+    ("flash_attention_bwd_resident", "phase3_only", [RESIDENT_PHASE2]),
+    ("flash_attention_bwd_resident", "copies_and_delta_only", [RESIDENT_PHASE2, RESIDENT_PHASE3]),
 ]
 # BERT4Rec's attention call on a bulk slice: B, H, Hkv, Lq, Lk, D.
 ATTENTION_SHAPE = (32768, 2, 2, 200, 200, 32)
@@ -180,14 +214,18 @@ def build_ablations(build_mod, stems, logs=None):
     for stem, variant, subs in ABLATIONS:
         if stem not in stems:
             continue
-        src = (build_mod.CSRC / f"{stem}.cu").read_text()
-        if not all(old in src for old, _new in subs):
+        texts = {f"{stem}.cu": (build_mod.CSRC / f"{stem}.cu").read_text()}
+        texts.update({h.name: h.read_text() for h in sorted(build_mod.CSRC.glob("*.cuh"))})
+        if not all(any(old in text for text in texts.values()) for old, _new in subs):
             out[(stem, variant)] = None
             continue
-        for old, new in subs:
-            src = src.replace(old, new)
-        cu = WORK / f"{stem}_{variant}.cu"
-        cu.write_text(src)
+        where = WORK / f"{stem}_{variant}"  # the source and its headers, as edited
+        where.mkdir(parents=True, exist_ok=True)
+        for name, text in texts.items():
+            for old, new in subs:
+                text = text.replace(old, new)
+            (where / name).write_text(text)
+        cu = where / f"{stem}.cu"
         so = WORK / f"lib{stem}_{variant}.so"
         procs.append((stem, variant, so, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-I", str(build_mod.CSRC), "-o", str(so), str(cu)],
@@ -349,7 +387,7 @@ def attention_ab(torch) -> dict:
     def call(lib):  # on the current stream: a graph capture's, when there is one
         B.check(lib.flash_resident_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                           out.data_ptr(), launch.resident_args, launch.scale,
-                                          B.stream_of(dev)), "flash_attention_resident")
+                                          None, B.stream_of(dev)), "flash_attention_resident")
 
     rows = {}
     for variant, lib in built.items():
@@ -441,6 +479,61 @@ def attention_bwd_ab(torch) -> dict:
     return {"turns": ATTENTION_TURNS, "shapes": report}
 
 
+def resident_bwd_ab(torch) -> dict:
+    """The fp32 resident backward and its ablated copies at BERT4Rec's
+    training call (``chip_smoke.BWD_TRAIN_SHAPES``' fp32 row, given the
+    resident forward's lse): per variant ptxas's registers and spills and
+    the median of ``ATTENTION_TURNS`` turns (CUDA events, 5 launches a
+    turn, every build once a turn, the order reversed every other turn);
+    the design's outputs must equal this tree's build bit for bit (the
+    build ``chip_smoke.py`` holds to the plain version)."""
+    import chip_smoke as S
+    from _torch_parity import flash_inputs
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    stem = "flash_attention_bwd_resident"
+    logs = {}
+    built = {variant: lib for (_stem, variant), lib in build_ablations(B, (stem,), logs).items()}
+    missing = [variant for variant, lib in built.items() if lib is None]
+    if missing:
+        raise RuntimeError(f"ablations whose text is not in {stem}.cu or its headers: {missing}")
+    dev = torch.device("cuda", 0)
+    (label, dt, b, h, hkv, lq, lk, d, causal, window), = [
+        row for row in S.BWD_TRAIN_SHAPES if row[1] == "float32"]
+    q, k, v = flash_inputs(dev, torch.float32, b, h, hkv, lq, lk, d, seed=5, model_layout=True)
+    dout = torch.randn(q.shape, device=dev)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    want = FK.bwd_resident_cuda(q, k, v, out, dout, lse, causal, window)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    args = FK._resident_bwd_args(q, k, v, out, dout, lse, dq, dk, dv)
+
+    def call(lib):  # on the stream of the call's arguments
+        B.check(lib.flash_bwd_resident_launch(*args), "flash_bwd_resident")
+
+    rows = {}
+    for variant, lib in built.items():
+        lines = logs[(stem, variant)].splitlines()
+        at = next(i for i, ln in enumerate(lines) if "flash_bwd_resident_kernelILi1" in ln)
+        rows[variant] = {"ptxas": [ln.split(":", 1)[-1].strip() for ln in lines[at + 1:at + 4]
+                                   if "Used" in ln or "spill" in ln], "ms": []}
+        if variant == "design":
+            call(lib)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip((dq, dk, dv), want, strict=True)):
+                raise AssertionError("the design's copy differs from this tree's build")
+    for turn in range(ATTENTION_TURNS):
+        for variant in (list(built) if turn % 2 == 0 else list(built)[::-1]):
+            rows[variant]["ms"].append(S.time_ms(lambda lib=built[variant]: call(lib), reps=5))
+    for variant, row in rows.items():
+        row["median_ms"] = float(np.median(row["ms"]))
+        row["min_ms"], row["max_ms"] = min(row["ms"]), max(row["ms"])
+        print(f"resident backward {label} {variant}: median {row['median_ms']:.4f} ms (min "
+              f"{row['min_ms']:.4f}, max {row['max_ms']:.4f}) {' | '.join(row['ptxas'])}",
+              flush=True)
+    return {"shape": [b, h, hkv, lq, lk, d], "turns": ATTENTION_TURNS, "rows": rows}
+
+
 # What ``train_ab`` keeps of a train phase's report.
 TRAIN_KEYS = ("step_s", "step_s_median", "peak_gib", "forward_ms", "backward_ms",
               "attention_backward_ms", "optimizer_ms", "device_ms", "idle_share", "losses")
@@ -488,6 +581,7 @@ def main(argv) -> int:
         report = {"card": S.card_line()}
         print(report["card"], flush=True)
         report["attention_bwd"] = attention_bwd_ab(torch)
+        report["resident_bwd"] = resident_bwd_ab(torch)
         out = ROOT / "chiprun_out" / "kernel_ab_bwd.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1))
