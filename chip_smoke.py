@@ -65,7 +65,7 @@
    (``repro_torch.launch.serve``), in the phases of ``LM_PHASES`` (run
    right after step 8, before step 4, while the card holds nothing else):
    gemma3-4b at its full width with the bf16 cache (8 prompts of 2048
-   tokens, 16 greedy steps),
+   tokens, 8 greedy steps),
    then the serving cell ``decode_32k`` (the int8 KV cache) for
    qwen3-moe-30b-a3b at full width and depth, gemma3-4b at the cell's
    cache length of 32,768 and arctic-480b at full width cut to 2 layers,
@@ -152,7 +152,31 @@
    bit-equal; resumed losses within ``CKPT_LOSS_RTOL`` of the
    uninterrupted run's).  After the search path (step 4) it runs the
    sanitizer on the warm fold (``analysis/sanitize.py``: clean, and a
-   planted ``.item()`` and ``torch.nonzero`` caught);
+   planted ``.item()`` and ``torch.nonzero`` caught).  Then PNA
+   (``pna_phase``, on the emptied card), through ``launch/train.py``'s
+   ``graph_setup`` and ``launch.steps.train_step``: ogb_products at its
+   full graph (2,449,029 nodes; ``synth_graph`` at degree 25 gives
+   61,225,725 edges, the cell's 61,859,140 the one cut, printed) and
+   full width, built on the host by a process of its own started after
+   the LM and mesh phases (``start_pna_graphs``, with minibatch_lg's
+   232,965-node graph at degree 492 and its first sampled batch of 1,024
+   seeds); ``PNA_STEPS``
+   steps, counters set to 0 just before and read just after (per step 2
+   ``segment_aggregate_fwd`` launches a layer, the layer checkpoint's
+   recompute included, and 1 ``segment_aggregate_bwd``), the last traced
+   (step s, edges and nodes/s, peak, device ms by part, idle); layer 1's
+   aggregation, kernels against the plain version's formulas in float64
+   over destination ranges of at most ``PNA_RANGE_EDGES`` edges (node 0's
+   11.5 M alone): max, min, deg and the tie counts bit for bit, mean, std,
+   d hs and d hd within the limits of the kernels' float64 sums
+   (``_torch_parity.aggregate_reference``, derived in its docstring), the
+   faulty controls (ties not averaged; one run's merge record and the
+   first record past the merge's 32 warps dropped, at node 0 and at a
+   node of ~10⁵ edges) beyond them; each kernel timed eager and as a
+   graph replay beside its bounds and the plain version's time on node
+   0's range; and at ``PNA_ROUTE_CELLS`` (full_graph_sm, molecule, one
+   minibatch_lg batch) a step through the kernels against the same step
+   through the plain version, per leaf (``pna_route_check``);
 11. drives the recsys serving path right after the training: first a
    ``FilteredRetriever`` (``serve/retrieval.py``, its defaults) over the
    ``retrieval_cand`` cell's ``N_ITEMS`` items with attributes drawn as
@@ -311,19 +335,20 @@ class LMPhase(NamedTuple):
 
 # The LM path: gemma3-4b at full width and depth with the bf16 cache, 8
 # requests of 2048 tokens (past the 1024 window, so the local layers skip
-# key tiles) and 16 greedy steps, then the zoo's own serving cell
+# key tiles) and 8 greedy steps, then the zoo's own serving cell
 # ``decode_32k`` (its overrides: the int8 KV cache) for qwen3-moe-30b-a3b at
 # full width and depth, for gemma3-4b at the cell's cache length (4 x
-# 32,752 prompt tokens + 16 steps fill 32,768 positions) and for
+# 32,760 prompt tokens + 8 steps fill 32,768 positions) and for
 # arctic-480b at full width with its depth cut to 2 layers (its 35 take
 # 888 GiB).  Cuts: the cell's batch of 128 to 8 or 4, the MoE phases'
-# cache of 32,768 positions to 2,064, weights random.
+# cache of 32,768 positions to 2,056, weights random; the steps from 16 to
+# 8 since the pna phase joined the run (each replay's decode calls halve).
 LM_PHASES = (
-    LMPhase("gemma3-4b", "gemma3-4b", None, 8, 2048, 16, None, ("window", "tail")),
-    LMPhase("qwen3-moe-30b-a3b decode_32k", "qwen3-moe-30b-a3b", "decode_32k", 8, 2048, 16, None,
+    LMPhase("gemma3-4b", "gemma3-4b", None, 8, 2048, 8, None, ("window", "tail")),
+    LMPhase("qwen3-moe-30b-a3b decode_32k", "qwen3-moe-30b-a3b", "decode_32k", 8, 2048, 8, None,
             ("gates",)),
-    LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32752, 16, None, ("window",)),
-    LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 16, 2, ("gates",)),
+    LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32760, 8, None, ("window",)),
+    LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 8, 2, ("gates",)),
 )
 
 
@@ -348,17 +373,18 @@ class MeshPhase(NamedTuple):
 # (64 layers, 35.2 B parameters, 65.6 GiB in bf16) and qwen3-moe-30b-a3b at
 # full width and depth, each at ``decode_32k`` (the int8 KV cache) under a
 # 1 x 4 mesh of slots of the card: every decode step splits the cache's
-# 2,064 positions over the 4 model slots (516 each: one split-K launch a
+# 2,056 positions over the 4 model slots (514 each: one split-K launch a
 # shard with visible keys, one combine a layer), and qwen3's 128 experts
 # run 32 a slot.  Cuts: the cell's batch of 128 to 4 (qwen1.5-32b: its
-# weights leave ~13 GiB) or 8, the cache of 32,768 positions to 2,064,
+# weights leave ~13 GiB) or 8, the cache of 32,768 positions to 2,056 (8
+# steps, 16 before the pna phase joined the run),
 # weights random (qwen3's drawn again from the LM phase's seed: both
 # models do not fit at once).
 MESH_PHASES = (
-    MeshPhase("qwen1.5-32b decode_32k mesh 1x4", "qwen1.5-32b", "decode_32k", "1x4", 4, 2048, 16,
+    MeshPhase("qwen1.5-32b decode_32k mesh 1x4", "qwen1.5-32b", "decode_32k", "1x4", 4, 2048, 8,
               None, ("shard",)),
     MeshPhase("qwen3-moe-30b-a3b decode_32k mesh 1x4", "qwen3-moe-30b-a3b", "decode_32k", "1x4", 8,
-              2048, 16, None, ("shard", "slot")),
+              2048, 8, None, ("shard", "slot")),
 )
 # The recsys serving path: every recsys arch of the zoo at its published
 # widths (``CFG``), seeded random weights, at the family's serving cells
@@ -422,6 +448,11 @@ SOURCES = {
        for name in ("flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")},
     "flash_bwd_resident": ("src/repro_torch/csrc/flash_attention_bwd_resident.cu",
                            "none (XLA's gradient of src/repro/models/layers.py:97 attention)"),
+    # PNA's aggregation replaces no Pallas kernel: XLA's segment_sum and
+    # segment_max (and their gradients) in the reference.
+    **{name: ("src/repro_torch/csrc/segment_aggregate.cu",
+              "none (XLA segment_sum/segment_max of src/repro/models/pna.py:73 _aggregate)")
+       for name in ("segment_aggregate_fwd", "segment_aggregate_bwd")},
 }
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
                   "intersect_count_kernel")
@@ -2238,28 +2269,28 @@ def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
 # cache: a local and a global layer's prefill, a global and a local
 # layer's last decode step; qwen3-moe-30b-a3b and arctic-480b (global
 # layers): prefill and last decode step; gemma3-4b at decode_32k: a global
-# and a local layer's prefill of 32,752 tokens and last decode step (the
+# and a local layer's prefill of 32,760 tokens and last decode step (the
 # int8 cache hands a local layer its window of keys).  Decode rotates over
 # enough copies of its inputs to exceed the L2 cache, as each layer's own
 # cache would.
 FLASH_ROW_SHAPES = (
     ("gemma3-4b prefill, local layer (window 1024)", 8, 8, 4, 2048, 2048, 256, 1024, 1),
     ("gemma3-4b prefill, global layer", 8, 8, 4, 2048, 2048, 256, 2**30, 1),
-    ("gemma3-4b decode, global layer", 8, 8, 4, 1, 2064, 256, 2**30, 4),
-    ("gemma3-4b decode, local layer (window 1024)", 8, 8, 4, 1, 2064, 256, 1024, 4),
+    ("gemma3-4b decode, global layer", 8, 8, 4, 1, 2056, 256, 2**30, 4),
+    ("gemma3-4b decode, local layer (window 1024)", 8, 8, 4, 1, 2056, 256, 1024, 4),
     ("qwen3-moe-30b-a3b prefill", 8, 32, 4, 2048, 2048, 128, 2**30, 1),
-    ("qwen3-moe-30b-a3b decode", 8, 32, 4, 1, 2064, 128, 2**30, 4),
+    ("qwen3-moe-30b-a3b decode", 8, 32, 4, 1, 2056, 128, 2**30, 4),
     ("arctic-480b prefill", 8, 56, 8, 2048, 2048, 128, 2**30, 1),
-    ("arctic-480b decode (group 7)", 8, 56, 8, 1, 2064, 128, 2**30, 4),
-    ("gemma3-4b decode_32k prefill, global layer", 4, 8, 4, 32752, 32752, 256, 2**30, 1),
-    ("gemma3-4b decode_32k prefill, local layer (window 1024)", 4, 8, 4, 32752, 32752, 256, 1024,
+    ("arctic-480b decode (group 7)", 8, 56, 8, 1, 2056, 128, 2**30, 4),
+    ("gemma3-4b decode_32k prefill, global layer", 4, 8, 4, 32760, 32760, 256, 2**30, 1),
+    ("gemma3-4b decode_32k prefill, local layer (window 1024)", 4, 8, 4, 32760, 32760, 256, 1024,
      1),
     ("gemma3-4b decode_32k decode, global layer", 4, 8, 4, 1, 32768, 256, 2**30, 2),
     ("gemma3-4b decode_32k decode, local layer (its window of keys)", 4, 8, 4, 1, 1024, 256, 1024,
      8),
     ("qwen1.5-32b prefill", 4, 40, 40, 2048, 2048, 128, 2**30, 1),
-    ("qwen1.5-32b mesh 1x4 decode, one shard's 516 keys", 4, 40, 40, 1, 516, 128, 2**30, 4),
-    ("qwen3-moe-30b-a3b mesh 1x4 decode, one shard's 516 keys", 8, 32, 4, 1, 516, 128, 2**30, 8),
+    ("qwen1.5-32b mesh 1x4 decode, one shard's 514 keys", 4, 40, 40, 1, 514, 128, 2**30, 4),
+    ("qwen3-moe-30b-a3b mesh 1x4 decode, one shard's 514 keys", 8, 32, 4, 1, 514, 128, 2**30, 8),
 )
 # Above this many (query, key) pairs per (B, H) the plain version is timed
 # once: at a 32k-token prefill one call takes seconds.
@@ -2342,7 +2373,7 @@ def flash_rows(torch, dev, launches, checked_errs):
         pairs = visible_pairs(lq, lk, True, window)
         ops = 4 * b * h * d * pairs
         # Each input read once: q, and the K/V rows some query row sees
-        # (a local decode needs the window's 1024 of 2064); o written once.
+        # (a local decode needs the window's 1024 of 2056); o written once.
         visible_keys = lk - max(0, lk - lq - window + 1)
         kv_bytes = 2 * 2 * b * hkv * visible_keys * d
         nbytes = 2 * (q.numel() + got.numel()) + kv_bytes
@@ -3198,7 +3229,7 @@ def check_flash_bwd_cases(torch, dev) -> dict:
               f"({w['share']:.3g} of the limit); each kernel alone: " + ", ".join(
                   f"{n} {e['max_abs_err']:.3g} ({e['share']:.3g})"
                   for n, e in w["kernels"].items() if e["share"] > 0), flush=True)
-    print(f"phase attention backward cases: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_line("attention backward cases", time.perf_counter() - t0)
     return worst
 
 
@@ -3617,7 +3648,7 @@ def recsys_cpu_slice(torch, model, setup, batch) -> dict:
     return {"rows": CPU_TRAIN_ROWS, "loss_rel_err": lerr, "grad_err": worst}
 
 
-def train_trace(torch, model, opt, batch, micro, loss_fn) -> dict:
+def train_trace(torch, model, opt, batch, micro, loss_fn, groups=None) -> dict:
     """One train step under ``torch.profiler``, with CUDA events recorded on
     the stream around each microbatch's forward pass and around the
     optimizer: the step's host-clock s; its device time by part — the
@@ -3626,7 +3657,9 @@ def train_trace(torch, model, opt, batch, micro, loss_fn) -> dict:
     next forward or the optimizer; the block remat's replayed forward
     included), of which the attention backward's kernels (their own
     profiler events), and the optimizer; the kernels' total, the device's
-    idle share, and the step's loss."""
+    idle share, and the step's loss.  ``groups`` ({label: name parts})
+    adds the device ms of the kernels whose names hold any part, as
+    ``<label>_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3674,6 +3707,9 @@ def train_trace(torch, model, opt, batch, micro, loss_fn) -> dict:
                 "attention_backward_ms": sum(e.time_range.elapsed_us() for e in kernels
                                              if "flash_bwd" in e.name) / 1e3,
                 "idle_share": 1.0 - device_us / 1e6 / wall_s})
+    for label, parts in (groups or {}).items():
+        out[f"{label}_ms"] = sum(e.time_range.elapsed_us() for e in kernels
+                                 if any(part in e.name for part in parts)) / 1e3
     out["other_backward_ms"] = out["backward_ms"] - out["attention_backward_ms"]
     print(f"  traced step: {wall_s:.3f} s; stream ms: forward {out['forward_ms']:.1f}, backward "
           f"{out['backward_ms']:.1f} (attention backward kernels {out['attention_backward_ms']:.1f}, "
@@ -3808,10 +3844,548 @@ def sanitizer_phase(torch, svc, cq) -> dict:
     return {"queries": len(cq), "clean": True, "caught": caught}
 
 
+# ----------------------------------------------------------------------
+# PNA: full-batch ogb_products training through the aggregation kernels
+# ----------------------------------------------------------------------
+
+# The pna phase (after the train phases, on the emptied card): ogb_products
+# at its full graph (2,449,029 nodes; synth_graph at degree round(61,859,140
+# / 2,449,029) = 25 gives 61,225,725 edges, the one cut) and full width,
+# PNA_STEPS steps (the first warms up, the last is traced); its layer-1
+# aggregation kernel against its plain version's formulas in float64 in
+# destination ranges of at most PNA_RANGE_EDGES edges and PNA_RANGE_NODES
+# nodes (a node's edges are never split: node 0's 11.5 M edges make one
+# range), with dropped-record controls at node 0 and at the split node whose
+# in-degree is nearest PNA_CONTROL_EDGES; a step through the kernels against the same step
+# through the plain version at PNA_ROUTE_CELLS (minibatch_lg: one sampled
+# batch of 1,024 seeds over its 232,965-node graph at degree 492, built on
+# the host while the card trains ogb_products).
+PNA_STEPS = 4
+PNA_RANGE_EDGES = 8_000_000
+PNA_RANGE_NODES = 300_000  # ~40 (nodes, 75) float64 tensors of the reference: 7 GB
+PNA_CONTROL_EDGES = 100_000
+# The merge records left out by the dropped-record controls: one run's
+# (record 1) and the first past the merge's 32 warps (record 32, which a
+# mis-strided merge would skip).
+PNA_DROPPED_RECORDS = ((1, "dropped_run"), (32, "dropped_record_past_warp_32"))
+# The reference takes its edges this many at a time (each (edges, 75)
+# float64 temporary 1.2 GB).
+PNA_CHUNK_EDGES = 2_000_000
+PNA_ROUTE_CELLS = ("full_graph_sm", "molecule", "minibatch_lg")
+PNA_SEED = 0
+PNA_KERNELS = ("segment_aggregate_fwd", "segment_aggregate_bwd")
+# Operations a message and feature costs, float32 and float64: the
+# forward's add, relu, weight multiply and two compares, and its two
+# float64 sums (one of a square); the backward's recompute and dv (~11 with
+# the ties and the mask) and its float64 sum into d hd.
+AGG_FWD_OPS, AGG_BWD_OPS = (5, 3), (11, 1)
+# H100 SXM float64 rate outside the tensor cores (NVIDIA data sheet; the
+# measurement guide's table has no float64 row): the peak for the sums.
+FP64_OPS_PER_S = 34e12
+PNA_TRACE_GROUPS = {"aggregation_forward": ("seg_agg_fwd", "seg_agg_fill"),
+                    "aggregation_backward": ("seg_agg_bwd",),
+                    "matmul": ("gemm", "Gemm", "GEMM")}
+
+
+def pna_args(cell: str, dev, steps: int = 1) -> list:
+    return ["--arch", "pna", "--config", "full", "--cell", cell, "--steps", str(steps),
+            "--device", str(dev)]
+
+
+def plain_aggregate(hs, hd, csr, run_edges=None):
+    """``ops.segment_aggregate`` through the plain version on any device
+    (the route the card's parity runs compare against)."""
+    from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+
+    return segment_aggregate_ref(hs, hd, csr.src, csr.dst, csr.w, csr.n_nodes)
+
+
+def destination_ranges(indptr, budget: int, max_nodes: int) -> list:
+    """Node ranges [lo, hi) of at most ``max_nodes`` nodes whose edges
+    number at most ``budget`` (or one node alone past it), from the host's
+    indptr."""
+    ranges, lo = [], 0
+    n = len(indptr) - 1
+    while lo < n:
+        hi = int(np.searchsorted(indptr, indptr[lo] + budget, side="right")) - 1
+        hi = min(max(hi, lo + 1), n, lo + max_nodes)
+        ranges.append((lo, hi))
+        lo = hi
+    return ranges
+
+
+def aggregate_bytes(n: int, e: int, d: int) -> dict:
+    """Bytes each kernel's function must move, each input read once and
+    each output written once: forward hs, hd, the edges and indptr in,
+    mean, max, min, std and deg out; backward those inputs, the forward's
+    outputs and the four cotangents in, d hs and d hd out.  Besides: the
+    state this design saves between them (the tie counts and q's sign,
+    written by the forward and read by the backward), and the source rows
+    gathered once an edge."""
+    fp = 4 * n * d
+    inputs = 2 * fp + 3 * 4 * e + 4 * (n + 1)  # hs, hd, src/dst/w, indptr
+    outputs = 4 * fp + 4 * n  # mean..std, deg
+    return {"fwd": inputs + outputs, "bwd": inputs + outputs + 4 * fp + 2 * fp,
+            "saved": 2 * fp + n * d, "gathered": 4 * e * d}
+
+
+def dropped_record_edges(indptr, node: int, run_edges: int, k: int) -> tuple:
+    """The edges of ``node``'s k-th merge record (k >= 1: the head of the
+    k-th run after the one holding its first edge; record k is summed by
+    the merge's warp k mod 32), as positions in the sorted edges."""
+    start, end = int(indptr[node]), int(indptr[node + 1])
+    e0 = (start // run_edges + k) * run_edges
+    if e0 >= end:
+        raise ValueError(f"node {node} ({end - start} edges) has no record {k}")
+    return e0, min(e0 + run_edges, end)
+
+
+def aggregation_check(torch, dev, hs, hd, csr, run_edges) -> dict:
+    """Layer 1's aggregation at the path's graph: the kernels against the
+    plain version's formulas in float64 over destination ranges
+    (``_torch_parity.AggregateCheck``: max, min, deg and the tie counts bit
+    for bit, mean, std, d hs and d hd within the limits of the kernels'
+    float64 sums), the faulty controls beyond them (ties not averaged; at
+    node 0 and at the split node nearest PNA_CONTROL_EDGES in-edges, one
+    run's record dropped from the merge and the first record past its 32nd
+    warp dropped), and each kernel's time eager and as a graph replay
+    beside its bounds and the plain version's time on the largest range."""
+    from _torch_parity import AggregateCheck, dropped_edges_shares
+
+    from repro_torch.kernels.segment_aggregate import kernel as AK
+    from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+
+    n, d = hs.shape
+    e = csr.src.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(PNA_SEED + 1)
+    grads = [torch.randn((n, d), generator=gen, device=dev) for _ in range(4)]
+    saved = AK.segment_aggregate_fwd_cuda(hs, hd, csr, run_edges)
+    d_hs, d_hd = AK.segment_aggregate_bwd_cuda(hs, hd, csr, saved, *grads, run_edges=run_edges)
+    torch.cuda.synchronize()
+    indptr = csr.indptr.cpu().numpy().astype(np.int64)
+    ranges = destination_ranges(indptr, PNA_RANGE_EDGES, PNA_RANGE_NODES)
+    in_deg = np.diff(indptr)
+    split = np.nonzero((in_deg > 0) & ((indptr[1:] - 1) // run_edges > indptr[:-1] // run_edges))[0]
+    mid = int(split[np.argmin(np.abs(in_deg[split] - PNA_CONTROL_EDGES))])
+    planted = {x: {f"{label}_node{x}": dropped_record_edges(indptr, x, run_edges, k)
+                   for k, label in PNA_DROPPED_RECORDS} for x in (0, mid)}
+    check = AggregateCheck(hs, d_hs, chunk=PNA_CHUNK_EDGES)
+    controls = {}
+    t0 = time.perf_counter()
+    for lo, hi in ranges:
+        e0, e1 = int(indptr[lo]), int(indptr[hi])
+        src, dst, w = csr.src[e0:e1], csr.dst[e0:e1] - lo, csr.w[e0:e1]
+        with torch.no_grad():
+            ref = check.add(hd[lo:hi], src, dst, w, [g[lo:hi] for g in grads],
+                            tuple(t[lo:hi] for t in saved[:7]), d_hd[lo:hi], lo)
+            for x, records in planted.items():
+                if lo <= x < hi:
+                    for name, (r0, r1) in records.items():
+                        mean_share, d_hd_share = dropped_edges_shares(
+                            hs, hd[lo:hi], src, dst, w, ref, x - lo, r0 - e0, r1 - e0,
+                            saved.mean[x], d_hd[x])
+                        controls[name] = {"edges": [r0, r1], "mean": mean_share,
+                                          "d_hd": d_hd_share}
+        del ref
+        torch.cuda.empty_cache()
+    result = check.finish()
+    plain_check_s = time.perf_counter() - t0
+    shares = result["shares"]
+    if not check.within():
+        raise AssertionError(f"segment_aggregate: off the float64 reference beyond its derived "
+                             f"limit: {shares}")
+    low = {k: v for k, v in shares.items() if k.startswith("ties_control") and not v > 1.0}
+    low.update({f"{k} {f}": c[f] for k, c in controls.items() for f in ("mean", "d_hd")
+                if not c[f] > 1.0})
+    if low or len(controls) != 4:
+        raise AssertionError(f"segment_aggregate: faulty controls not caught: {low} "
+                             f"({len(controls)} of 4 planted)")
+    report = {"ranges": len(ranges), "largest_range_edges": max(int(indptr[h] - indptr[l])
+                                                                for l, h in ranges),
+              "node0_edges": int(in_deg[0]), "split_destinations": int(len(split)),
+              "control_node": mid, "control_node_edges": int(in_deg[mid]),
+              "shares_of_limit": shares, "controls": controls,
+              "max_abs_err": result["max_abs_err"], "plain_check_s": plain_check_s}
+    del check
+    torch.cuda.empty_cache()
+
+    # Times: each kernel eager and as a graph replay; the plain version on the
+    # largest range (node 0's), forward and forward + backward.
+    big = max(ranges, key=lambda r: indptr[r[1]] - indptr[r[0]])
+    lo, hi = big
+    e0, e1 = int(indptr[lo]), int(indptr[hi])
+    sub = (csr.src[e0:e1], csr.dst[e0:e1] - lo, csr.w[e0:e1])
+    plain_fwd = time_ms(lambda: segment_aggregate_ref(hs, hd[lo:hi], *sub, hi - lo), reps=2,
+                        warmup=1)
+    hs_g, hd_g = hs.detach().requires_grad_(True), hd[lo:hi].detach().requires_grad_(True)
+
+    def plain_both():
+        out = segment_aggregate_ref(hs_g, hd_g, *sub, hi - lo)
+        torch.autograd.grad(out[:4], (hs_g, hd_g), [g[lo:hi] for g in grads])
+
+    plain_bwd = time_ms(plain_both, reps=1, warmup=0)  # seconds at node 0 (its atomics)
+    fwd = lambda: AK.segment_aggregate_fwd_cuda(hs, hd, csr, run_edges)  # noqa: E731
+    bwd = lambda: AK.segment_aggregate_bwd_cuda(hs, hd, csr, saved, *grads,  # noqa: E731
+                                                run_edges=run_edges)
+    nbytes = aggregate_bytes(n, e, d)
+    errs = result["max_abs_err"]
+    rows = {}
+    for name, fn, (ops32, ops64), byts, plain_ms, err in (
+            ("segment_aggregate_fwd", fwd, AGG_FWD_OPS, nbytes["fwd"], plain_fwd,
+             max(errs["mean"], errs["std"])),
+            ("segment_aggregate_bwd", bwd, AGG_BWD_OPS, nbytes["bwd"], plain_bwd,
+             max(errs["d_hs"], errs["d_hd"]))):
+        bytes_ms = byts / MEM_BYTES_PER_S * 1e3
+        ops_ms = (ops32 / FP32_OPS_PER_S + ops64 / FP64_OPS_PER_S) * e * d * 1e3
+        rows[name] = {
+            "shape": f"N={n} E={e} d={d} run_edges={run_edges}", "ms": time_ms(fn, reps=5),
+            "device_ms": graph_ms(fn, reps=5), "plain_ms": plain_ms,
+            "plain_range": f"nodes [{lo}, {hi}), {e1 - e0} edges",
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations", "bytes": byts, "bytes_bound_ms": bytes_ms,
+            "ops_bound_ms": ops_ms, "saved_state_bytes": nbytes["saved"],
+            "with_saved_state_bound_ms": (byts + nbytes["saved"]) / MEM_BYTES_PER_S * 1e3,
+            "gather_bound_ms": (byts + nbytes["gathered"]) / MEM_BYTES_PER_S * 1e3,
+            "library_ms": None, "max_abs_err": err}
+    report["rows"] = rows
+    return report
+
+
+def plain_ties_whole(hs, hd, csr, run_edges=None):
+    """A faulty control: the plain version with each tied max's and min's
+    gradient given whole to every tied edge (the same values forward)."""
+    import torch
+
+    from repro_torch.kernels.segment_aggregate.ref import messages_ref, segment_aggregate_ref
+
+    mean, mx, mn, std, deg = segment_aggregate_ref(hs, hd, csr.src, csr.dst, csr.w, csr.n_nodes)
+    v = messages_ref(hs, hd, csr.src, csr.dst, csr.w)
+    idx = csr.dst.long()
+    pos = (csr.w > 0)[:, None]
+    out = []
+    for ext in (mx, mn):
+        tie = (pos & (v.detach() == ext.detach()[idx])).to(v.dtype)
+        whole = torch.zeros_like(ext).index_add(0, idx, v * tie)
+        out.append(ext.detach() + whole - whole.detach())
+    return mean, out[0], out[1], std, deg
+
+
+class AggregateRecorder:
+    """Wraps ``models.pna.segment_aggregate`` (the kernels): records each
+    call's ``hs``, ``hd`` and, through hooks, the gradients its outputs
+    receive (the backward's recompute under the layer checkpoint is the
+    call whose outputs get them)."""
+
+    def __init__(self, pna):
+        self.pna, self.original, self.calls = pna, pna.segment_aggregate, []
+        pna.segment_aggregate = self
+
+    def __call__(self, hs, hd, csr, run_edges=None):
+        outs = self.original(hs, hd, csr) if run_edges is None else \
+            self.original(hs, hd, csr, run_edges)
+        call = {"hs": hs.detach(), "hd": hd.detach(), "grads": [None] * 4}
+        self.calls.append(call)
+        for i, out in enumerate(outs[:4]):
+            if out.requires_grad:
+                out.register_hook(lambda g, i=i, call=call: call["grads"].__setitem__(i, g))
+        return outs
+
+    def restore(self):
+        self.pna.segment_aggregate = self.original
+
+
+def pna_route_check(torch, dev, cell: str, host_batch=None) -> dict:
+    """One step's loss and gradients at ``cell`` through the kernels against
+    the same step through the plain version, on the card: the loss within
+    TRAIN_LOSS_RTOL["float32"]; each leaf's gradients, max |a - b| / max |b|
+    (the train phases' metric), within TRAIN_GRAD_RTOL["float32"], or
+    FLOOR_MARGIN times that leaf's floor read in the run where that is
+    larger, and a faulty control (ties not averaged) beyond some leaf's
+    limit.  PNA's variance, Σv²/denom − mean², cancels where a node's
+    messages are close (with-replacement sampling repeats a source), and
+    its gradient divides by std ≥ sqrt(1e-5), so rounding alone moves such
+    nodes' gradients by percents, and four layers carry it on (1.2e-4 per
+    leaf between two summation orders of the plain version at
+    full_graph_sm on the CPU).  The floor of a leaf: the largest distance
+    from the plain route of the plain version with the backward in the
+    kernels' form (``_torch_parity.aggregate_in_kernel_form``: one product
+    for the std's term where autograd takes the difference of two large
+    ones), summed in float32 in the same and in the reverse order, and in
+    float64 as the kernels sum.  Each layer's aggregation is also held, with
+    the step's own inputs and cotangents, to the float64 reference
+    (``_torch_parity.AggregateCheck``)."""
+    from _torch_parity import AggregateCheck, aggregate_in_kernel_form
+
+    from repro_torch.kernels.segment_aggregate import kernel as AK
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.serve import to_device
+    from repro_torch.models import pna
+
+    setup = TL.graph_setup(TL.build_parser().parse_args(pna_args(cell, dev)))
+    batch = (setup.batch(0) if host_batch is None
+             else pna.with_csr(to_device(host_batch, dev)))
+    model = setup.init_model_fn(torch.Generator(device=dev).manual_seed(PNA_SEED))
+    model.requires_grad_(True)
+    recorder = AggregateRecorder(pna)
+    try:
+        loss_k = _grads_of(torch, model, [batch], pna.loss_fn)
+    finally:
+        recorder.restore()
+    grads = {"kernels": _host_grads(model)}
+    original = pna.segment_aggregate
+    losses = {}
+    floor_forms = [f"kernel form {o}" for o in ("sorted", "reversed", "float64")]
+    try:
+        for name, agg in (("plain", plain_aggregate), ("control", plain_ties_whole),
+                          *((f, aggregate_in_kernel_form(f.split()[-1])) for f in floor_forms)):
+            pna.segment_aggregate = agg
+            losses[name] = _grads_of(torch, model, [batch], pna.loss_fn)
+            grads[name] = _host_grads(model)
+    finally:
+        pna.segment_aggregate = original
+    for p in model.parameters():
+        p.grad = None
+    leaf = _rel_errs(torch, dev, grads["kernels"], grads["plain"])
+    control = _rel_errs(torch, dev, grads["control"], grads["plain"])
+    floors = [_rel_errs(torch, dev, grads[f], grads["plain"]) for f in floor_forms]
+    floor = {k: max(f[k] for f in floors) for k in leaf}
+    limit = {k: max(TRAIN_GRAD_RTOL["float32"], FLOOR_MARGIN * floor[k]) for k in leaf}
+    over = {k: leaf[k] / limit[k] for k in leaf}
+    worst = max(over, key=over.get)
+    control_over = max(control[k] / limit[k] for k in leaf)
+    loss_err = abs(loss_k - losses["plain"]) / abs(losses["plain"])
+    # Each layer's aggregation with the step's own inputs and cotangents.
+    csr = pna.csr_of(batch)
+    layers = [c for c in recorder.calls if all(g is not None for g in c["grads"])]
+    if len(layers) != model.cfg.n_layers:
+        raise AssertionError(f"pna {cell}: {len(layers)} aggregations received gradients")
+    shares = {}
+    for call in layers:
+        hs, hd = call["hs"], call["hd"]
+        g = [x.contiguous() for x in call["grads"]]
+        saved = AK.segment_aggregate_fwd_cuda(hs, hd, csr)
+        d_hs, d_hd = AK.segment_aggregate_bwd_cuda(hs, hd, csr, saved, *g)
+        check = AggregateCheck(hs, d_hs)
+        with torch.no_grad():
+            check.add(hd, csr.src, csr.dst, csr.w, g, tuple(saved[:7]), d_hd)
+        layer_shares = check.finish()["shares"]
+        if not check.within():
+            raise AssertionError(f"pna {cell}: a layer's aggregation beyond its limit: "
+                                 f"{layer_shares}")
+        for k, v in layer_shares.items():
+            shares[k] = max(shares.get(k, 0.0), v)
+    n, e = batch["feats"].shape[0], batch["edges"].shape[0]
+    print(f"  pna {cell} ({n:,} nodes, {e:,} edges): loss {loss_k:.6f} (plain "
+          f"{losses['plain']:.6f}, rel. {loss_err:.3g}); gradients per leaf (max |a - b| / max "
+          f"|b|): worst {leaf[worst]:.4g} at {worst} against its limit {limit[worst]:.4g} (floor "
+          f"{floor[worst]:.4g}); largest {max(leaf.values()):.4g}, largest floor "
+          f"{max(floor.values()):.4g}; control, ties not averaged, {control_over:.4g} of its "
+          f"limit; each layer's aggregation against float64: exact fields equal, shares of the "
+          f"derived limit " + ", ".join(f"{k} {v:.3g}" for k, v in shares.items()), flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL["float32"]:
+        raise AssertionError(f"pna {cell}: loss {loss_k} vs plain {losses['plain']}")
+    if not over[worst] <= 1.0:
+        raise AssertionError(f"pna {cell}: gradient {worst} off the plain route's by "
+                             f"{leaf[worst]:.4g} > {limit[worst]:.4g}")
+    if not control_over > 1.0:
+        raise AssertionError(f"pna {cell}: the faulty control was not caught ({control_over:.4g})")
+    return {"nodes": n, "edges": e, "loss_kernels": loss_k, "loss_plain": losses["plain"],
+            "loss_rel_err": loss_err, "grad_leaf_rel_err": leaf, "grad_leaf_floor": floor,
+            "grad_leaf_limit": limit, "grad_worst_leaf": worst,
+            "grad_leaf_max": max(leaf.values()),
+            "leaves_within_train_grad_rtol": sum(v <= TRAIN_GRAD_RTOL["float32"]
+                                                 for v in leaf.values()),
+            "leaves": len(leaf), "control_share_of_limit": control_over,
+            "layer_shares_of_limit": shares}
+
+
+PNA_GRAPH_CELLS = ("ogb_products", "minibatch_lg")
+PNA_GRAPH_DIR = ROOT / "build" / "pna_graphs"
+
+
+def write_pna_graphs(out_dir: str) -> None:
+    """Build ogb_products' full graph and minibatch_lg's first sampled
+    batch on the host as ``launch/train.py``'s ``graph_setup`` builds them
+    (numpy, the reference's calls), into ``<cell>.npz`` and their info into
+    ``<cell>.json`` under ``out_dir``.  Run in a process of its own
+    (``start_pna_graphs``): ~80 s of host work that overlaps the train
+    phases."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import train as TL
+
+    out = Path(out_dir)
+    for cell in PNA_GRAPH_CELLS:
+        setup = TL.graph_setup(TL.build_parser().parse_args(pna_args(cell, "cpu")))
+        t0 = time.perf_counter()
+        host = setup.host_batch(0)
+        info = dict(setup.info, host_batch_s=time.perf_counter() - t0)
+        np.savez(out / f"{cell}.npz", **host)
+        (out / f"{cell}.json").write_text(json.dumps(info, default=float))
+
+
+def start_pna_graphs():
+    """Start ``write_pna_graphs`` in its own process (killed at exit if it
+    still runs); returns the process."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(PNA_GRAPH_DIR, ignore_errors=True)
+    PNA_GRAPH_DIR.mkdir(parents=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.write_pna_graphs({str(PNA_GRAPH_DIR)!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def load_pna_graph(proc, cell: str) -> tuple:
+    """The host batch and info ``write_pna_graphs`` wrote for ``cell``,
+    after its process ends."""
+    t0 = time.perf_counter()
+    if proc.wait(timeout=600) != 0:
+        raise RuntimeError(f"building the pna graphs failed ({proc.returncode})")
+    with np.load(PNA_GRAPH_DIR / f"{cell}.npz") as z:
+        host = {k: z[k] for k in z.files}
+    info = json.loads((PNA_GRAPH_DIR / f"{cell}.json").read_text())
+    info["waited_s"] = time.perf_counter() - t0
+    return host, info
+
+
+def pna_phase(torch, dev, graphs) -> tuple:
+    """PNA through ``launch/train.py``'s own ``graph_setup`` and
+    ``launch.steps.train_step``: ogb_products at its full graph and width
+    (the host batch from ``graphs``, the process ``start_pna_graphs``
+    started; counters set to 0 just before the steps and read just after:
+    per step 2 forward launches a layer, the layer's recompute under the
+    checkpoint included, and 1 backward), its last step traced; then
+    ``aggregation_check`` at layer 1 and ``pna_route_check`` at
+    PNA_ROUTE_CELLS.  Returns its report, the kernels' launches and their
+    rows."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.segment_aggregate import kernel as AK
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.serve import to_device
+    from repro_torch.models import pna
+
+    report = {}
+    setup = TL.graph_setup(TL.build_parser().parse_args(pna_args("ogb_products", dev,
+                                                                 PNA_STEPS)))
+    host, info = load_pna_graph(graphs, "ogb_products")
+    t0 = time.perf_counter()
+    batch = pna.with_csr(to_device(host, dev))
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del host
+    host_s = info["host_batch_s"]
+    cfg = setup.cfg
+    n, e = batch["feats"].shape[0], batch["edges"].shape[0]
+    print(f"pna ogb_products: {n:,} nodes, {e:,} edges (the cell's {info['cell_edges']:,}: "
+          f"synth_graph at degree {info['degree']}), d_feat {cfg.d_feat}, d_hidden "
+          f"{cfg.d_hidden}, {cfg.n_layers} layers, {cfg.n_params():,} parameters; host graph "
+          f"{host_s:.1f}s (synth_graph {info['graph_s']:.1f}s) in its own process (waited "
+          f"{info['waited_s']:.1f}s for it), upload and sort {upload_s:.1f}s", flush=True)
+    model = setup.init_model_fn(torch.Generator(device=dev).manual_seed(PNA_SEED))
+    model.requires_grad_(True)
+    opt = S.train_state(model, setup.opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(PNA_STEPS - 1):
+        t0 = time.perf_counter()
+        losses.append(float(S.train_step(model, opt, batch, 1, pna.loss_fn)))
+        step_s.append(time.perf_counter() - t0)
+    trace = train_trace(torch, model, opt, batch, 1, pna.loss_fn, PNA_TRACE_GROUPS)
+    losses.append(trace.pop("loss"))
+    torch.cuda.synchronize()
+    launches = {k: B.LAUNCHES[k] for k in PNA_KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    design = {"segment_aggregate_fwd": 2 * cfg.n_layers * PNA_STEPS,
+              "segment_aggregate_bwd": cfg.n_layers * PNA_STEPS}
+    if launches != design:
+        raise AssertionError(f"pna: launches {launches}, designed {design}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"pna: losses {losses}")
+    steady = float(np.median(step_s[1:]))
+    flops = 3 * pna.matmul_flops(cfg, n)  # forward, and twice that in the backward
+    report["ogb_products"] = {
+        "nodes": n, "edges": e, "cell_edges": info["cell_edges"], "degree": info["degree"],
+        "host_graph_s": host_s, "synth_graph_s": info["graph_s"],
+        "graph_wait_s": info["waited_s"], "upload_sort_s": upload_s,
+        "losses": losses, "step_s": step_s, "step_s_median": steady,
+        "edges_per_s": e / steady, "nodes_per_s": n / steady, "peak_gib": peak,
+        "matmul_tflop_per_step": flops / 1e12, "launches": launches, "launches_design": design,
+        **trace}
+    if trace.get("device_ms") is not None:
+        trace["other_ms"] = trace["device_ms"] - sum(
+            trace[f"{k}_ms"] for k in PNA_TRACE_GROUPS) - trace["optimizer_ms"]
+        report["ogb_products"]["other_ms"] = trace["other_ms"]
+        print(f"  device ms by part: aggregation forward {trace['aggregation_forward_ms']:.1f} "
+              f"(recompute included), aggregation backward "
+              f"{trace['aggregation_backward_ms']:.1f}, matrix products {trace['matmul_ms']:.1f}, "
+              f"optimizer (stream) {trace['optimizer_ms']:.1f}, the rest {trace['other_ms']:.1f}",
+              flush=True)
+    print(f"  steps: losses {[round(x, 5) for x in losses]}; step {steady:.3f} s "
+          f"({e / steady:,.0f} "
+          f"edges/s, {n / steady:,.0f} nodes/s), peak {peak:.2f} GiB; launches {launches}",
+          flush=True)
+
+    # Layer 1's aggregation, kernel against plain, at the same graph.
+    with torch.no_grad():
+        h0 = torch.relu(model.encode(batch["feats"]))
+        layer = model.layers[0]
+        hs, hd = layer.w_src(h0).contiguous(), layer.w_dst(h0).contiguous()
+    csr = pna.csr_of(batch)
+    del opt, h0
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["layer1"] = aggregation_check(torch, dev, hs, hd, csr, AK.RUN_EDGES)
+    report["layer1"]["wall_s"] = time.perf_counter() - t0
+    lay = report["layer1"]
+    print(f"  layer 1 aggregation, kernels against the plain version over {lay['ranges']} "
+          f"destination ranges (largest {lay['largest_range_edges']:,} edges; node 0 "
+          f"{lay['node0_edges']:,}; {lay['split_destinations']:,} destinations span runs): max, "
+          f"min, deg and tie counts equal; shares of the derived limit "
+          + ", ".join(f"{k} {v:.3g}" for k, v in lay["shares_of_limit"].items())
+          + f" ({lay['wall_s']:.1f}s)", flush=True)
+    for name, row in lay["rows"].items():
+        print(f"  {name} {row['shape']}: ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; with the gathered source "
+              f"rows {row['gather_bound_ms']:.4f}) plain_ms={row['plain_ms']:.4f} on "
+              f"{row['plain_range']}", flush=True)
+    del batch, hs, hd, csr, model
+    torch.cuda.empty_cache()
+
+    # A step through the kernels against the plain version at the other cells.
+    mb_batch, report["minibatch_lg_graph"] = load_pna_graph(graphs, "minibatch_lg")
+    report["route"] = {}
+    for cell in PNA_ROUTE_CELLS:
+        report["route"][cell] = pna_route_check(
+            torch, dev, cell, mb_batch if cell == "minibatch_lg" else None)
+        torch.cuda.empty_cache()
+    return report, launches, lay["rows"]
+
+
+PHASE_S = {}  # each phase's wall time, also written to the run's JSON report
+
+
+def phase_line(name: str, seconds: float, tail: str = "") -> None:
+    """Print a phase's wall time on a line of its own and record it."""
+    PHASE_S[name] = seconds
+    print(f"phase {name}: {seconds:.1f}s{tail}", flush=True)
+
+
 def phase_done(name: str, t0: float) -> float:
-    """Print a phase's wall time on a line of its own; the time now."""
+    """``phase_line`` of the phase that began at ``t0``; the time now."""
     now = time.perf_counter()
-    print(f"phase {name}: {now - t0:.1f}s", flush=True)
+    phase_line(name, now - t0)
     return now
 
 
@@ -3880,6 +4454,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = phase_done(f"mesh {phase.name}", t0)
     print(f"attention launches over the LM phases: {launches}", flush=True)
+    # PNA's host graphs (~80 s of numpy in a process of its own) are built
+    # beside the train phases, after the host-bound decode phases.
+    pna_graphs = start_pna_graphs()
 
     # Training: the backward kernels' checks, then each train phase on an
     # empty card (gemma3-4b's state takes 62 GB), then the checkpoint
@@ -3890,16 +4467,25 @@ def main() -> int:
         t0 = time.perf_counter()
         train[phase.arch], phase_launches = train_phase(torch, dev, phase)
         train[phase.arch]["wall_s"] = time.perf_counter() - t0
-        print(f"phase train {phase.arch}: {train[phase.arch]['wall_s']:.1f}s", flush=True)
+        phase_line(f"train {phase.arch}", train[phase.arch]["wall_s"])
         for n, c in phase_launches.items():
             launches[n] = launches.get(n, 0) + c
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train["checkpoint"] = checkpoint_phase(torch, dev)
-    print(f"phase checkpoint: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_line("checkpoint", time.perf_counter() - t0)
     torch.cuda.empty_cache()
     print(f"backward launches over the train phases: "
           f"{ {n: launches[n] for n in BWD_KERNELS} }", flush=True)
+
+    # PNA on the emptied card: ogb_products at its full graph, then layer 1's
+    # aggregation kernel against plain and the other cells' steps.
+    t0 = time.perf_counter()
+    pna_report, pna_launches, pna_rows = pna_phase(torch, dev, pna_graphs)
+    pna_report["wall_s"] = time.perf_counter() - t0
+    launches.update(pna_launches)
+    phase_line("pna", pna_report["wall_s"])
+    torch.cuda.empty_cache()
 
     # The recsys serving path: the filtered retrieval's host fit, then each
     # arch's phase (which reads only the attention counters and scores the
@@ -3922,7 +4508,7 @@ def main() -> int:
         {k: v for k, v in r.items() if k not in ("ids", "brute")} for r in filt["filters"]]
     recsys["wall_s"] = time.perf_counter() - t0
     del filt
-    print(f"phase recsys: {recsys['wall_s']:.1f}s; attention launches now {launches}", flush=True)
+    phase_line("recsys", recsys["wall_s"], f"; attention launches now {launches}")
 
     # The search path: only the search kernels' counters are read.
     args = search.build_parser().parse_args([
@@ -3963,13 +4549,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sanitize = sanitizer_phase(torch, svc, next(iter(logs.values())).queries[:256])
     sanitize["wall_s"] = time.perf_counter() - t0
-    print(f"phase sanitizer: {sanitize['wall_s']:.1f}s", flush=True)
+    phase_line("sanitizer", sanitize["wall_s"])
 
     # The serving tier over the same fit: sharded engine, replays, chaos.
     t0 = time.perf_counter()
     tier = serving_tier(torch, svc, logs, corpus, N_QUERIES)
     tier["wall_s"] = time.perf_counter() - t0
-    print(f"phase serving tier: {tier['wall_s']:.1f}s", flush=True)
+    phase_line("serving tier", tier["wall_s"])
 
     # The clustering path: only the cluster_scores counter is read.
     t0 = time.perf_counter()
@@ -4005,6 +4591,10 @@ def main() -> int:
     for row in bert4rec_rows:  # the resident variant, then the general kernel
         entry = kernel_entry(f"flash_attention_{row['variant']}", launches, [row],
                              variant=row["variant"])
+        entry["device_ms"] = row["device_ms"]
+        kernels.append(entry)
+    for name, row in pna_rows.items():  # PNA's aggregation, split by edges
+        entry = kernel_entry(name, launches, [row], variant="edge runs")
         entry["device_ms"] = row["device_ms"]
         kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
@@ -4080,9 +4670,10 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
-        "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "sanitize": sanitize,
+        "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "pna": pna_report,
+        "sanitize": sanitize,
         "flash_cases": flash_errs, "flash_bwd_cases": bwd_errs, "ptxas": B.PTXAS, "kernels": kernels,
-        "wall_s": time.perf_counter() - t_start,
+        "phase_s": PHASE_S, "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))
     print(json.dumps({"kernels": [
         {k: v for k, v in entry.items() if k != "shapes"} for entry in kernels]}))

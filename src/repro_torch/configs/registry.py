@@ -1,6 +1,6 @@
 """--arch registry of the port.  Lazy imports keep ``import
-repro_torch.configs`` light.  It knows every arch of the JAX package and
-raises, naming the ported ones, for those not ported yet."""
+repro_torch.configs`` light.  It knows every arch of the JAX package
+(``NOT_PORTED`` lists any the port cannot run yet: none since PNA)."""
 
 import importlib
 
@@ -14,9 +14,10 @@ _MODULES = {
     "mind": "repro_torch.configs.mind",
     "dcn-v2": "repro_torch.configs.dcn_v2",
     "bert4rec": "repro_torch.configs.bert4rec",
+    "pna": "repro_torch.configs.pna",
 }
-# The JAX package's other archs (``repro.configs.registry``).
-NOT_PORTED = ("pna",)
+# The JAX package's archs (``repro.configs.registry``) the port cannot run.
+NOT_PORTED = ()
 
 ARCH_NAMES = tuple(_MODULES)
 

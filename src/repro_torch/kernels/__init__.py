@@ -8,6 +8,9 @@
                       block serving path.
 * ``cluster_score`` — the δ⁺ scoring gather of the device K-means
                       (``cluster_scores``) and ``embedding_bag``.
+* ``flash_attention`` — attention, forward and backward.
+* ``segment_aggregate`` — PNA's aggregation (mean, max, min, std, degree)
+                      over destination-sorted edges, forward and backward.
 
 Each kernel package has its plain PyTorch version (``ref.py``), its
 ctypes launcher (``kernel.py``) and the public wrapper (``ops.py``) that

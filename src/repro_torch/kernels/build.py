@@ -8,8 +8,10 @@ attention kernels, with the decode's combine) and
 ``flash_attention_sm90.cu`` (its bf16 tensor-core prefill kernel),
 ``flash_attention_bwd.cu`` (the attention's general backward: prep,
 dK/dV, dQ), ``flash_attention_bwd_sm90.cu`` (the bf16 tensor-core
-dK/dV and dQ) and ``flash_attention_bwd_resident.cu`` (the fp32 backward
-in one kernel at the resident forward's calls); the two sm90 sources
+dK/dV and dQ), ``flash_attention_bwd_resident.cu`` (the fp32 backward
+in one kernel at the resident forward's calls) and
+``segment_aggregate.cu`` (PNA's aggregation, forward and backward, split
+by edges); the two sm90 sources
 share ``sm90_common.cuh``, the two resident ones ``resident_common.cuh``.  Each
 source is compiled with ``nvcc`` for ``sm_90a`` on first use into its own
 shared library under ``build/repro_torch/`` at the repository root, named
@@ -21,8 +23,9 @@ fails, the build raises: there is no fallback.
 Each library exports plain C launchers (bound with ``ctypes``) that
 launch on the stream they are given and return ``cudaGetLastError()``.
 The launchers of :mod:`repro_torch.kernels.intersect.kernel`,
-:mod:`repro_torch.kernels.cluster_score.kernel` and
-:mod:`repro_torch.kernels.flash_attention.kernel` call them through
+:mod:`repro_torch.kernels.cluster_score.kernel`,
+:mod:`repro_torch.kernels.flash_attention.kernel` and
+:mod:`repro_torch.kernels.segment_aggregate.kernel` call them through
 :func:`lib`, raise through :func:`check`, and add one to their entry of
 :data:`LAUNCHES` per launch.
 """
@@ -51,7 +54,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("fold", "intersect", "cluster_score", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_resident")
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_resident",
+           "segment_aggregate")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,6 +103,13 @@ _SIGNATURES = {
         "flash_bwd_resident_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L),
                                       _F, _P),
     },
+    "segment_aggregate": {
+        "segment_aggregate_fwd_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
+                                         _P, _P, _P, _P, _P, _P, _P, _P, _P),
+        "segment_aggregate_bwd_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                                         _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _P, _P, _P, _P, _P),
+    },
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
@@ -137,6 +148,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dkdv_sm90": 0,
     "flash_bwd_dq_sm90": 0,
     "flash_bwd_resident": 0,
+    "segment_aggregate_fwd": 0,
+    "segment_aggregate_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -377,7 +377,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     args = build_parser().parse_args(argv)
     from repro_torch.configs.registry import get_arch
 
-    if get_arch(args.arch).family == "recsys":
+    family = get_arch(args.arch).family
+    if family == "gnn":  # as the JAX launcher, which serves no graph model
+        raise ValueError(f"{args.arch} has no serving path; train it with launch/train.py")
+    if family == "recsys":
         if args.mesh is not None:
             raise ValueError("--mesh serves an LM arch under a slot mesh; a recsys arch has none")
         model, cell = setup_recsys(args)

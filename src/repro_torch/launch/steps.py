@@ -17,8 +17,11 @@ bf16 gradient into a float32 sum as soon as autograd has accumulated it
 and frees it (a post-accumulate-grad hook): 4 bytes a bf16 parameter
 while the step runs, and no bf16 gradient kept between microbatches.
 
-The dry-run's ShapeDtypeStruct/sharding plans (``CellPlan``), the serve
-cells and ``_pna_cell`` are not ported.
+``_pna_cell``'s step is this step with one microbatch on PNA's
+``loss_fn``; its batches (a full graph, a sampled subgraph, a batch of
+molecules) are built by ``launch/train.py::graph_setup``.  The dry-run's
+ShapeDtypeStruct/sharding plans (``CellPlan``) and the serve cells are not
+ported.
 """
 
 from __future__ import annotations
@@ -81,12 +84,15 @@ def train_state(model: torch.nn.Module, opt_cfg: AdamWConfig) -> TrainState:
 
 def loss_fn_of(model: torch.nn.Module) -> Callable:
     """The ``loss_fn(model, batch)`` of the model's family: the LM's
-    (``models/transformer.py``) or its recsys module's."""
-    from repro_torch.models import transformer
+    (``models/transformer.py``), PNA's (``models/pna.py``) or its recsys
+    module's."""
+    from repro_torch.models import pna, transformer
     from repro_torch.models.recsys import recsys_module
 
     if isinstance(model, transformer.LM):
         return transformer.loss_fn
+    if isinstance(model, pna.PNA):
+        return pna.loss_fn
     return recsys_module(model.cfg.name).loss_fn
 
 

@@ -2,7 +2,9 @@
 transformer.init``) across to the port's :class:`~repro_torch.models.
 transformer.LM` (:func:`params_from_numpy`), and one of its recsys models
 (``repro.models.recsys.*.init``) across to the port's modules
-(:func:`recsys_from_numpy`); and back (:func:`params_to_numpy`, for the
+(:func:`recsys_from_numpy`), and one of PNA (``repro.models.pna.init``)
+across to :class:`~repro_torch.models.pna.PNA` (:func:`pna_from_numpy`);
+and back (:func:`params_to_numpy`, for the
 model's weights or for any tensors keyed by its parameter names, such as
 their gradients), with the optimizer state (:func:`opt_state_from_numpy`).
 
@@ -27,13 +29,15 @@ import torch
 
 from repro_torch.core.device_engine import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.pna import PNA, PNAConfig
 from repro_torch.models.recsys.bert4rec import BERT4Rec
 from repro_torch.models.recsys.dcnv2 import DCNv2
 from repro_torch.models.recsys.dien import DIEN
 from repro_torch.models.recsys.mind import MIND
 from repro_torch.models.transformer import LM, LMConfig
 
-__all__ = ["opt_state_from_numpy", "params_from_numpy", "params_to_numpy", "recsys_from_numpy"]
+__all__ = ["opt_state_from_numpy", "params_from_numpy", "params_to_numpy", "pna_from_numpy",
+           "recsys_from_numpy"]
 
 # (path in the tree, index on the stacked layer axis or None, the port's tensor)
 Leaf = Tuple[tuple, Optional[int], torch.Tensor]
@@ -101,10 +105,24 @@ def _recsys_leaves(model) -> List[Leaf]:
     return out
 
 
+def _pna_leaves(model: PNA) -> List[Leaf]:
+    out = _dense(("encode",), model.encode, None) + _dense(("decode",), model.decode, None)
+    for i, layer in enumerate(model.layers):
+        lay = ("layers",)
+        for name in ("w_src", "w_dst", "w_out"):
+            out += _dense(lay + (name,), getattr(layer, name), i)
+        out.append((lay + ("norm",), i, layer.norm))
+    return out
+
+
 def _leaves(model) -> List[Leaf]:
     """Every leaf of the JAX tree of ``model``'s arch, paired with the
     port's tensor that holds it."""
-    return _lm_leaves(model) if isinstance(model, LM) else _recsys_leaves(model)
+    if isinstance(model, LM):
+        return _lm_leaves(model)
+    if isinstance(model, PNA):
+        return _pna_leaves(model)
+    return _recsys_leaves(model)
 
 
 def _get(tree, path: tuple):
@@ -161,6 +179,14 @@ def recsys_from_numpy(tree: Mapping, name: str, cfg, device=None):
     return _load(_RECSYS[name](cfg, resolve_device(device)), tree)
 
 
+def pna_from_numpy(tree: Mapping, cfg: PNAConfig, device=None) -> PNA:
+    """The port's PNA holding the weights of ``tree``, the JAX ``init``'s
+    tree as numpy arrays (its layers stacked on a leading axis, as
+    ``jax.vmap`` made them).  ``device`` defaults to ``cuda`` and raises
+    without a GPU."""
+    return _load(PNA(cfg, resolve_device(device)), tree)
+
+
 def _set(tree: dict, path: tuple, value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
@@ -178,7 +204,8 @@ def _lists(tree):
 
 
 def params_to_numpy(model, values: Optional[Mapping[str, torch.Tensor]] = None) -> dict:
-    """The inverse of :func:`params_from_numpy` / :func:`recsys_from_numpy`:
+    """The inverse of :func:`params_from_numpy` / :func:`recsys_from_numpy`
+    / :func:`pna_from_numpy`:
     the JAX tree of ``model``'s arch as float32 numpy arrays, layers
     stacked, filled from the model's weights or from ``values`` (tensors
     keyed by the model's parameter names, e.g. their gradients)."""

@@ -582,3 +582,429 @@ FOLD_CASES = {
     "stages130": dict(seed=11, group_sizes=[500, 20, 256], seg_lens=[600, 20, 300],
                       arities=[131, 131, 66], hit_rate=0.995, query_of=[0, 1, 1]),
 }
+
+
+# -- PNA's aggregation (csrc/segment_aggregate.cu) ---------------------------
+
+# Graphs the aggregation is held on, on the CPU against the JAX package and
+# on the card against the plain version: (seed, nodes, edges, d, run edges
+# on the card).  Each draws destinations from a power law, so one node takes
+# many edges and many take none; half its edges repeat an earlier (src, dst)
+# pair (exact ties among positive maxima and minima); its feature values lie
+# on a grid of quarters (ties between sources too); a tenth of its edges are
+# masked (w = 0); and it adds single-edge nodes (variance exactly 0).
+AGGREGATE_CASES = [
+    (0, 60, 400, 16, 32),
+    (1, 300, 2500, 75, 64),
+    (2, 40, 30, 75, 2048),  # E smaller than one run
+    (3, 500, 6000, 16, 32),
+]
+U32 = 2.0**-24  # float32's unit roundoff
+U64 = 2.0**-53  # float64's
+AGG_EPS = 1e-5
+
+
+def aggregate_inputs(seed, n_nodes, n_edges, d):
+    """(hs, hd, src, dst, w) as numpy (float32, int32), as
+    ``AGGREGATE_CASES`` describes; the edges unsorted."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, n_nodes + 1, dtype=np.float64) ** -1.2
+    dst = rng.choice(n_nodes, size=n_edges, p=p / p.sum())
+    src = rng.integers(0, n_nodes, size=n_edges)
+    half = n_edges // 2
+    pick = rng.integers(0, max(half, 1), size=n_edges - half)
+    src[half:], dst[half:] = src[pick], dst[pick]  # repeated pairs
+    lonely = np.arange(n_nodes - min(5, n_nodes // 4, n_edges), n_nodes)
+    dst[np.isin(dst, lonely)] = 0
+    dst[: len(lonely)] = lonely  # single-edge nodes
+    w = (rng.random(n_edges) >= 0.1).astype(np.float32)
+    w[: len(lonely)] = 1.0
+    hs = (rng.integers(-4, 5, size=(n_nodes, d)) * 0.25).astype(np.float32)
+    hd = (rng.integers(-4, 5, size=(n_nodes, d)) * 0.25).astype(np.float32)
+    return hs, hd, src.astype(np.int32), dst.astype(np.int32), w
+
+
+def aggregate_grads(seed, n_nodes, d):
+    """Cotangents of (mean, max, min, std), each (N, d) float32."""
+    rng = np.random.default_rng(seed + 1000)
+    return [rng.standard_normal((n_nodes, d)).astype(np.float32) for _ in range(4)]
+
+
+def _chunks(e, chunk):
+    step = max(chunk or e, 1)
+    return [(e0, min(e0 + step, e)) for e0 in range(0, e, step)]
+
+
+def _edge_grad_factors(ref, grads):
+    """Per node: dv = a + b·(v − mean) + [v == max]·t_max + [v == min]·t_min
+    (float64; c of the std's term from q's sign)."""
+    import torch
+
+    g_mean, g_max, g_min, g_std = (g.double() for g in grads)
+    denom = torch.clamp_min(ref["deg"].double(), 1.0)[:, None]
+    q = ref["q"]
+    c = torch.where(q > 0, 1.0, torch.where(q == 0, 0.5, 0.0))
+    has = (ref["deg"] > 0)[:, None]
+    return {"a": g_mean / denom, "b": g_std * c / (denom * ref["std"]), "mean": ref["mean"],
+            "mx": ref["mx"], "mn": ref["mn"],
+            "t_max": torch.where(has & (ref["n_max"] > 0), g_max / ref["n_max"].clamp_min(1), 0.0),
+            "t_min": torch.where(has & (ref["n_min"] > 0), g_min / ref["n_min"].clamp_min(1), 0.0)}
+
+
+def _d_pre(f, idx, pre, v, w):
+    """The edges' d pre (float64) from the factors of :func:`_edge_grad_factors`."""
+    import torch
+
+    pos = (w > 0)[:, None]
+    dv = f["a"][idx] + f["b"][idx] * (v.double() - f["mean"][idx]) \
+        + (pos & (v == f["mx"][idx])) * f["t_max"][idx] \
+        + (pos & (v == f["mn"][idx])) * f["t_min"][idx]
+    return torch.where(pre > 0, dv * w.double()[:, None], 0.0)
+
+
+def aggregate_reference(hs, hd, src, dst, w, n_nodes, grads=None, mode="kernel", chunk=None):
+    """PNA's aggregation in float64 over one set of edges, with the limits
+    a float32 evaluation must keep to from it (torch tensors: ``hs`` every
+    source's row; ``hd``, ``grads`` and the result over the destinations'
+    rows, which may be a range of nodes renumbered from 0; the edges
+    ``chunk`` at a time, so the (E, d) temporaries stay within a chunk's).
+
+    Each message v = relu(hs[src] + hd[dst])·w is formed in float32, as
+    the plain version and the kernels form it, so max, min, deg and the tie
+    counts are theirs exactly; the sums, mean, q, std and, given ``grads``
+    (the cotangents of mean, max, min, std), ``d_hs`` and ``d_hd`` are
+    taken in float64, the gradients in the form dv = g_mean/denom +
+    g_std·c·(v − mean)/(denom·std) + the tie terms (equal to autograd of
+    the plain version, checked on the CPU in float64).  Also returned: the
+    faulty control's gradients (ties not averaged: each tied max's and
+    min's gradient given whole to every tied edge), the limits of mean,
+    std and d hd, and the parts of d hs's limit (``d_src``, ``t_src``,
+    ``n_out``: they add over destination ranges; :func:`d_hs_limit`).
+
+    The limits hold a float32 evaluation against this reference; ``mode``
+    says how it sums.  ``"kernel"`` (csrc/segment_aggregate.cu): the sums
+    into a destination (of v, v² and d pre) in float64, mean, q and std
+    formed in float64, each output rounded to float32 once; d hs by float32
+    atomics.  ``"float32"`` (the plain version's index_add, JAX's
+    segment_sum): every sum in float32, in any order.
+
+    Derivation (u = 2^-24, u64 = 2^-53; per node, n its in-degree, A1 =
+    Σ|v|, A2 = Σv²).  A float sum of n terms with unit e in any order lies
+    within (n − 1)·e·Σ|terms| of the exact sum; the terms v² are exact in
+    float64 and rounded once in float32.  So a sum into a node is within
+    S·Σ|terms|, S = (n + 1)·(u64 for the reference + e for the side
+    tested).  mean = Σv/denom within LIM_mean = S·A1/denom + 2u·|mean|
+    (the division and the output's rounding).  q = Σv²/denom − mean²
+    within LIM_q = S·A2/denom + (2|mean| + M)·M + R, M the mean's error as
+    q sees it (LIM_mean in float32; S·A1/denom + 4u64·|mean| in float64)
+    and R q's own roundings (3u·(A2/denom + mean²) in float32, 4u64 of that
+    in float64).  std = sqrt(max(q, 0) + eps) within LIM_std = LIM_q/(std +
+    sqrt(eps)) + 4u·std.  A gradient per edge is w·[pre > 0]·dv; with T_e
+    its bound with every factor's magnitude and |v| + |mean| for |v −
+    mean| (c taken as 1 where |q| <= LIM_q, since c's branch may then
+    differ), the side tested is off by D_e = 8u·T_e (its float32 roundings
+    of dv) + w·[pre > 0]·|g_std|·c·(LIM_mean/(denom·std) + |v − mean|·
+    LIM_std/(denom·std·std_low)) (mean and std moved by their limits;
+    std_low = max(std − LIM_std, sqrt(eps))) + where |q| <= LIM_q the whole
+    std term at std_low.  d hd (d hs) sums a node's in-edges' (a source's
+    out-edges') values: within Σ D + (S_grad + u)·Σ T, S_grad the sum's S
+    and u its float32 output.  The tie sets and counts are equal on both
+    sides (checked bit for bit)."""
+    import torch
+
+    if mode not in ("kernel", "float32"):
+        raise ValueError(f"mode {mode!r}")
+    n_src, d = hs.shape
+    dev = hs.device
+    f64 = torch.float64
+    s1, s2, a1 = (torch.zeros((n_nodes, d), dtype=f64, device=dev) for _ in range(3))
+    deg = torch.zeros((n_nodes,), dtype=f64, device=dev)
+    n_in = torch.zeros((n_nodes, 1), dtype=f64, device=dev)
+    n_out = torch.zeros((n_src, 1), dtype=f64, device=dev)
+    mx = torch.full((n_nodes, d), -float("inf"), device=dev)
+    mn = torch.full((n_nodes, d), float("inf"), device=dev)
+    chunks = _chunks(src.shape[0], chunk)
+    for e0, e1 in chunks:
+        idx, sidx, wc = dst[e0:e1].long(), src[e0:e1].long(), w[e0:e1]
+        v = torch.relu(hs[sidx] + hd[idx]) * wc[:, None]
+        vd = v.double()
+        s1.index_add_(0, idx, vd)
+        s2.index_add_(0, idx, vd * vd)
+        a1.index_add_(0, idx, vd.abs())
+        deg.index_add_(0, idx, wc.double())
+        ones = torch.ones((e1 - e0, 1), dtype=f64, device=dev)
+        n_in.index_add_(0, idx, ones)
+        n_out.index_add_(0, sidx, ones)
+        pos = (wc > 0)[:, None]
+        rows = idx[:, None].expand(-1, d)
+        mx.scatter_reduce_(0, rows, torch.where(pos, v, -float("inf")), "amax")
+        mn.scatter_reduce_(0, rows, torch.where(pos, v, float("inf")), "amin")
+        del v, vd
+    has = (deg > 0)[:, None]
+    denom = torch.clamp_min(deg, 1.0)[:, None]
+    mean = s1 / denom
+    q = s2 / denom - mean * mean
+    std = torch.sqrt(torch.clamp_min(q, 0.0) + float(np.float32(AGG_EPS)))
+    ref = {"mean": mean, "mx": torch.where(has, mx, 0.0), "mn": torch.where(has, mn, 0.0),
+           "std": std, "deg": deg.float(), "q": q, "s1": s1}
+    n_max = torch.zeros((n_nodes, d), dtype=torch.int32, device=dev)
+    n_min = torch.zeros_like(n_max)
+    for e0, e1 in chunks:
+        idx, sidx, wc = dst[e0:e1].long(), src[e0:e1].long(), w[e0:e1]
+        v = torch.relu(hs[sidx] + hd[idx]) * wc[:, None]
+        pos = (wc > 0)[:, None]
+        n_max.index_add_(0, idx, ((v == ref["mx"][idx]) & pos).to(torch.int32))
+        n_min.index_add_(0, idx, ((v == ref["mn"][idx]) & pos).to(torch.int32))
+        del v
+    ref["n_max"], ref["n_min"] = torch.where(has, n_max, 0), torch.where(has, n_min, 0)
+
+    # The limits of the forward (the docstring's derivation).
+    e_side = U64 if mode == "kernel" else U32
+    s_in = (n_in + 1) * (U64 + e_side)
+    lim_mean = s_in * a1 / denom + 2 * U32 * mean.abs()
+    if mode == "kernel":
+        m_err = s_in * a1 / denom + 4 * U64 * mean.abs()
+        r_q = 4 * U64 * (s2 / denom + mean * mean)
+    else:
+        m_err = lim_mean
+        r_q = 3 * U32 * (s2 / denom + mean * mean)
+    lim_q = s_in * s2 / denom + (2 * mean.abs() + m_err) * m_err + r_q
+    lim_std = lim_q / (std + AGG_EPS**0.5) + 4 * U32 * std
+    ref["limits"] = {"mean": lim_mean, "std": lim_std}
+    ref["n_in"], ref["n_out"] = n_in, n_out
+    del s2, a1, m_err, r_q
+    if grads is None:
+        return ref
+
+    grads = [g.double() for g in grads]
+    f = _edge_grad_factors(ref, grads)
+    near0 = q.abs() <= lim_q
+    c = torch.where(near0, 1.0, torch.where(q > 0, 1.0, torch.where(q == 0, 0.5, 0.0)))
+    std_low = torch.clamp_min(std - lim_std, AGG_EPS**0.5)
+    g_abs = [g.abs() for g in grads]
+    t_mean = f["a"].abs()
+    t_std = g_abs[3] * c / (denom * std)
+    d_shift = g_abs[3] * c * lim_mean / (denom * std)
+    d_scale = g_abs[3] * c * lim_std / (denom * std * std_low)
+    d_near = near0 * g_abs[3] / (denom * std_low)
+    extra_max = torch.where(has & (ref["n_max"] > 1),
+                            grads[1] * (1 - 1 / ref["n_max"].clamp_min(1)), 0.0)
+    extra_min = torch.where(has & (ref["n_min"] > 1),
+                            grads[2] * (1 - 1 / ref["n_min"].clamp_min(1)), 0.0)
+    del lim_q, near0, c
+    zeros = torch.zeros((n_nodes, d), dtype=f64, device=dev)
+    d_hd, d_dst, t_dst, ctrl_hd = (zeros.clone() for _ in range(4))
+    d_hs, d_src, t_src, ctrl_hs = (torch.zeros((n_src, d), dtype=f64, device=dev)
+                                   for _ in range(4))
+    for e0, e1 in chunks:
+        idx, sidx, wc = dst[e0:e1].long(), src[e0:e1].long(), w[e0:e1]
+        pre = hs[sidx] + hd[idx]
+        v = torch.relu(pre) * wc[:, None]
+        dp = _d_pre(f, idx, pre, v, wc)
+        d_hd.index_add_(0, idx, dp)
+        d_hs.index_add_(0, sidx, dp)
+        pos = (wc > 0)[:, None]
+        wpos = wc.double()[:, None] * (pre > 0)
+        tmx, tmn = pos & (v == ref["mx"][idx]), pos & (v == ref["mn"][idx])
+        ex = wpos * (tmx * extra_max[idx] + tmn * extra_min[idx])
+        ctrl_hd.index_add_(0, idx, ex)
+        ctrl_hs.index_add_(0, sidx, ex)
+        del dp, ex
+        vd = v.double()
+        del pre, v
+        m_e = mean[idx]
+        mag = vd.abs() + m_e.abs()
+        t_e = wpos * (t_mean[idx] + t_std[idx] * mag + tmx * f["t_max"][idx].abs()
+                      + tmn * f["t_min"][idx].abs())
+        del tmx, tmn
+        d_e = 8 * U32 * t_e + wpos * (d_shift[idx] + (vd - m_e).abs() * d_scale[idx]
+                                      + d_near[idx] * mag)
+        del vd, m_e, mag, wpos
+        d_dst.index_add_(0, idx, d_e)
+        t_dst.index_add_(0, idx, t_e)
+        d_src.index_add_(0, sidx, d_e)
+        t_src.index_add_(0, sidx, t_e)
+        del d_e, t_e
+    ref.update(d_hs=d_hs, d_hd=d_hd, ctrl_hs=d_hs + ctrl_hs, ctrl_hd=d_hd + ctrl_hd,
+               d_src=d_src, t_src=t_src, factors=f)
+    ref["limits"]["d_hd"] = d_dst + ((n_in + 1) * (U64 + e_side) + U32) * t_dst
+    return ref
+
+
+def d_hs_limit(d_src, t_src, n_out):
+    """d hs's limit from the parts :func:`aggregate_reference` returns
+    (summed over the destination ranges): float32 sums (the kernels'
+    atomics) of each source's out-edges."""
+    return d_src + ((n_out + 1) * (U64 + U32) + U32) * t_src
+
+
+def share_of_limit(got, want, limit) -> float:
+    """max |got − want| / limit over the elements (0/0 counts 0)."""
+    import torch
+
+    err = (got.double() - want.double()).abs()
+    ratio = torch.where(err > 0, err / limit.double().clamp_min(1e-300), 0.0)
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def dropped_edges_shares(hs, hd, src, dst, w, ref, node, e0, e1, got_mean, got_d_hd):
+    """Faulty controls at ``node``: its edges ``e0:e1`` (positions in the
+    edge arrays, all into ``node``) left out of its sums, as a merge that
+    drops one run's record, or a record past the 32nd warp, would leave
+    them.  Returns the shares of the limits by which the kernels' mean
+    (over the sums and deg without those edges) and d hd (without their
+    d pre) lie from the faulty values."""
+    import torch
+
+    idx, sidx, wc = dst[e0:e1].long(), src[e0:e1].long(), w[e0:e1]
+    if not bool((idx == node).all()):
+        raise ValueError("the dropped edges must all go into the node")
+    pre = hs[sidx] + hd[idx]
+    v = torch.relu(pre) * wc[:, None]
+    s1 = ref["s1"][node] - v.double().sum(0)
+    deg = float(ref["deg"][node]) - float(wc.double().sum())
+    mean = s1 / max(deg, 1.0)
+    d_hd = ref["d_hd"][node] - _d_pre(ref["factors"], idx, pre, v, wc).sum(0)
+    lim = ref["limits"]
+    return (share_of_limit(got_mean, mean, lim["mean"][node]),
+            share_of_limit(got_d_hd, d_hd, lim["d_hd"][node]))
+
+
+class AggregateCheck:
+    """Holds the aggregation kernels' results over one graph to
+    :func:`aggregate_reference` in its "kernel" mode, one destination
+    range at a time (all nodes at once by default): max, min, deg and the
+    tie counts bit for bit (raises otherwise), mean, std, d hd and, at
+    :meth:`finish`, d hs within their limits.  Records the shares of the limits, the faulty
+    control's (ties not averaged) and the largest absolute errors."""
+
+    def __init__(self, hs, d_hs, chunk=None):
+        import torch
+
+        self.hs, self.d_hs, self.chunk = hs, d_hs, chunk
+        z = lambda: torch.zeros(hs.shape, dtype=torch.float64, device=hs.device)  # noqa: E731
+        self.ref_hs, self.ctrl_hs, self.d_src, self.t_src = z(), z(), z(), z()
+        self.n_out = torch.zeros((hs.shape[0], 1), dtype=torch.float64, device=hs.device)
+        self.shares = {"mean": 0.0, "std": 0.0, "d_hd": 0.0, "ties_control_d_hd": 0.0}
+        self.errs = {"mean": 0.0, "std": 0.0, "d_hd": 0.0}
+
+    def add(self, hd, src, dst, w, grads, got, d_hd, lo=0):
+        """One destination range: ``hd``, ``grads`` (of mean, max, min,
+        std), ``got`` (the kernels' mean, max, min, std, deg, n_max, n_min)
+        and ``d_hd`` over the range's rows; the range's edges with ``dst``
+        renumbered from 0 (``lo`` its first node, for messages).  Returns
+        the reference."""
+        import torch
+
+        ref = aggregate_reference(self.hs, hd, src, dst, w, hd.shape[0], grads, "kernel",
+                                  self.chunk)
+        mean, mx, mn, std, deg, n_max, n_min = got
+        for name, x, key in (("max", mx, "mx"), ("min", mn, "mn"), ("deg", deg, "deg"),
+                             ("n_max", n_max, "n_max"), ("n_min", n_min, "n_min")):
+            if not torch.equal(x, ref[key]):
+                raise AssertionError(f"segment_aggregate: {name} differs from the plain "
+                                     f"version in nodes [{lo}, {lo + hd.shape[0]})")
+        lim = ref["limits"]
+        for name, x, y in (("mean", mean, ref["mean"]), ("std", std, ref["std"]),
+                           ("d_hd", d_hd, ref["d_hd"])):
+            self.shares[name] = max(self.shares[name], share_of_limit(x, y, lim[name]))
+            if x.numel():
+                self.errs[name] = max(self.errs[name], float((x.double() - y).abs().max()))
+        self.shares["ties_control_d_hd"] = max(self.shares["ties_control_d_hd"],
+                                               share_of_limit(d_hd, ref["ctrl_hd"], lim["d_hd"]))
+        self.ref_hs += ref["d_hs"]
+        self.ctrl_hs += ref["ctrl_hs"]
+        self.d_src += ref["d_src"]
+        self.t_src += ref["t_src"]
+        self.n_out += ref["n_out"]
+        return ref
+
+    def finish(self) -> dict:
+        """d hs's share and its control's, after every range; the shares
+        and the largest absolute errors."""
+        lim = d_hs_limit(self.d_src, self.t_src, self.n_out)
+        self.shares["d_hs"] = share_of_limit(self.d_hs, self.ref_hs, lim)
+        self.shares["ties_control_d_hs"] = share_of_limit(self.d_hs, self.ctrl_hs, lim)
+        self.errs["d_hs"] = float((self.d_hs.double() - self.ref_hs).abs().max()) \
+            if self.d_hs.numel() else 0.0
+        return {"shares": dict(self.shares), "max_abs_err": dict(self.errs)}
+
+    def within(self) -> bool:
+        """Whether every share is within its limit (after :meth:`finish`)."""
+        if "d_hs" not in self.shares:
+            self.finish()
+        return all(self.shares[k] <= 1.0 for k in ("mean", "std", "d_hd", "d_hs"))
+
+
+def aggregate_in_kernel_form(order: str = "sorted"):
+    """PNA's aggregation in plain PyTorch, with the backward in the form
+    the kernels compute it (``csrc/segment_aggregate.cu``: dv = g_mean/
+    denom + g_std·c·(v − mean)/(denom·std) + the tie terms, one product for
+    the std's term where autograd of the plain version takes the
+    difference of two large terms): a rounding-only variant of the plain
+    route, a floor a whole step's comparison is read against.  ``order``:
+    ``"sorted"`` and ``"reversed"`` sum in float32, each destination's
+    edges in their order or the reverse; ``"float64"`` sums as the kernels
+    do (mean, q and std from float64 sums, rounded once; d hd summed in
+    float64; d hs in float32).  Returns ``agg(hs, hd, csr, run_edges=None)``
+    as ``ops.segment_aggregate``."""
+    import torch
+
+    from repro_torch.kernels.segment_aggregate.ref import (messages_ref, segment_aggregate_ref,
+                                                           tie_counts_ref)
+
+    if order not in ("sorted", "reversed", "float64"):
+        raise ValueError(f"order {order!r}")
+    wide = order == "float64"
+
+    class KernelForm(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, hs, hd, src, dst, w, n):
+            outs = list(segment_aggregate_ref(hs, hd, src, dst, w, n))
+            v = messages_ref(hs, hd, src, dst, w)
+            n_max, n_min = tie_counts_ref(v, dst, w, outs[1], outs[2], outs[4])
+            denom = torch.clamp_min(outs[4], 1.0)[:, None]
+            if wide:
+                vd = v.double()
+                zeros = torch.zeros(hs.shape, dtype=torch.float64, device=hs.device)
+                mean = zeros.index_add(0, dst.long(), vd) / denom.double()
+                q = zeros.index_add(0, dst.long(), vd * vd) / denom.double() - mean * mean
+                std = torch.sqrt(torch.clamp_min(q, 0.0) + float(np.float32(AGG_EPS)))
+                outs[0], outs[3] = mean.float(), std.float()
+            else:
+                sq = torch.zeros_like(hs).index_add(0, dst.long(), v * v)
+                q = sq / denom - outs[0] * outs[0]
+            ctx.save_for_backward(hs, hd, src, dst, w, *outs, n_max, n_min, q)
+            ctx.mark_non_differentiable(outs[4])
+            return tuple(outs)
+
+        @staticmethod
+        def backward(ctx, g_mean, g_max, g_min, g_std, _):
+            hs, hd, src, dst, w, mean, mx, mn, std, deg, n_max, n_min, q = ctx.saved_tensors
+            idx, sidx = dst.long(), src.long()
+            pre = hs[sidx] + hd[idx]
+            v = torch.relu(pre) * w[:, None]
+            denom = torch.clamp_min(deg, 1.0)[:, None]
+            c = torch.where(q > 0, 1.0, torch.where(q == 0, 0.5, 0.0)).float()
+            has = (deg > 0)[:, None]
+            t_max = torch.where(has & (n_max > 0), g_max / n_max.clamp_min(1), 0.0)
+            t_min = torch.where(has & (n_min > 0), g_min / n_min.clamp_min(1), 0.0)
+            pos = (w > 0)[:, None]
+            dv = (g_mean / denom)[idx] + (g_std * c / (denom * std))[idx] * (v - mean[idx]) + \
+                (pos & (v == mx[idx])) * t_max[idx] + (pos & (v == mn[idx])) * t_min[idx]
+            d_pre = torch.where(pre > 0, dv * w[:, None], 0.0)
+            acc = d_pre.double() if wide else d_pre
+            d_hd = torch.zeros(hd.shape, dtype=acc.dtype, device=hd.device).index_add(
+                0, idx, acc).float()
+            return (torch.zeros_like(hs).index_add(0, sidx, d_pre), d_hd,
+                    None, None, None, None)
+
+    def agg(hs, hd, csr, run_edges=None):
+        src, dst, w = csr.src, csr.dst, csr.w
+        if order == "reversed":
+            e = src.shape[0]
+            back = torch.arange(e - 1, -1, -1, device=src.device)
+            perm = torch.argsort(dst.long() * e + back)
+            src, dst, w = src[perm], dst[perm], w[perm]
+        return KernelForm.apply(hs, hd, src, dst, w, csr.n_nodes)
+    return agg

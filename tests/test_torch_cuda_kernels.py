@@ -52,6 +52,17 @@ log-sum-exp against ``bwd_prep_ref``'s within
 
 ``moe_apply`` on the card is held against its CPU run, routing included
 (near-ties apart).
+
+PNA's aggregation (``csrc/segment_aggregate.cu``, forward and backward,
+split by edges) is held against its plain version's formulas in float64
+on the card (``_torch_parity.AggregateCheck``), through the autograd
+function of ``ops.segment_aggregate`` (one launch of each a call), at
+``_torch_parity.AGGREGATE_CASES`` (each at its own run length, E below one
+run among them), a destination with more than 10⁶ incoming edges (hundreds
+of runs merged), and graphs whose every node has degree 0: max, min, deg
+and the tie counts bit for bit, mean, std and both gradients within the
+limits of the kernels' float64 sums; a rerun of the forward gives the
+same bits.
 """
 
 from pathlib import Path
@@ -60,7 +71,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_BWD_CASES, FLASH_BWD_TOL, FLASH_CASES, FLASH_VARIANTS,
+from _torch_parity import (AGGREGATE_CASES, FLASH_BWD_CASES, FLASH_BWD_TOL, FLASH_CASES,
+                           FLASH_VARIANTS, AggregateCheck, aggregate_grads, aggregate_inputs,
                            FOLD_CASES, RESIDENT_BWD_CASES, VARIANT_LAUNCHES, attention_ref_chunked,
                            bwd_rounding_terms, flash_bwd_close, flash_close,
                            flash_inputs, fold_emulation,
@@ -78,6 +90,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attentio
 from repro_torch.kernels.intersect import kernel as K
 from repro_torch.kernels.intersect import ops, ref
 from repro_torch.kernels.intersect.ref import PAD
+from repro_torch.kernels.segment_aggregate import kernel as AK
+from repro_torch.kernels.segment_aggregate.ops import edge_csr, segment_aggregate
 
 SHAPES = [(1, 16, 64), (8, 128, 128), (5, 100, 300), (16, 128, 512), (3, 257, 1000),
           (4, 33, 0), (0, 8, 8), (6, 0, 5), (7, 1, 1)]
@@ -1091,3 +1105,61 @@ def test_mesh_decode_on_the_card_equals_its_plain_version(cuda_device, dims, b, 
         ca, cw = getattr(card, codes).cpu().int(), getattr(plain_cache, codes).int()
         assert torch.equal(ca[same], cw[same]), codes
         assert int((ca - cw).abs().max()) <= 1, codes
+
+
+def _aggregate_on_card(dev, hs, hd, src, dst, w, n, run_edges):
+    """The kernel pair against the float64 reference on the card, on one
+    graph (numpy inputs), through ``_torch_parity.AggregateCheck``; returns
+    the shares of the limits."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    csr = edge_csr(t(src), t(dst), t(w), n)
+    grads = [t(g) for g in aggregate_grads(7, n, hs.shape[1])]
+    a, b = t(hs).requires_grad_(True), t(hd).requires_grad_(True)
+    B.reset_launch_counts()
+    got = segment_aggregate(a, b, csr, run_edges)
+    torch.autograd.backward(got[:4], grads)
+    torch.cuda.synchronize()
+    assert (B.LAUNCHES["segment_aggregate_fwd"], B.LAUNCHES["segment_aggregate_bwd"]) == (1, 1)
+    saved = AK.segment_aggregate_fwd_cuda(t(hs), t(hd), csr, run_edges)
+    again = AK.segment_aggregate_fwd_cuda(t(hs), t(hd), csr, run_edges)
+    for x, y in zip(saved, again, strict=True):
+        assert torch.equal(x, y)  # the same bits run to run
+    for x, y in zip(got, saved, strict=False):
+        assert torch.equal(x.detach(), y)
+    check = AggregateCheck(t(hs), a.grad)
+    check.add(t(hd), csr.src, csr.dst, csr.w, grads, (*saved[:7],), b.grad)
+    shares = check.finish()["shares"]
+    assert check.within(), shares
+    return shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", AGGREGATE_CASES, ids=lambda c: f"seed{c[0]}_d{c[3]}_run{c[4]}")
+def test_segment_aggregate_equals_plain(cuda_device, case):
+    seed, n, e, d, run_edges = case
+    _aggregate_on_card(cuda_device, *aggregate_inputs(seed, n, e, d), n, run_edges)
+
+
+@pytest.mark.cuda
+def test_segment_aggregate_past_a_million_edges_into_one_node(cuda_device):
+    n, e, d = 3000, 1_200_000, 75
+    hs, hd, src, dst, w = aggregate_inputs(11, n, e, d)
+    dst[: 1_050_000] = 0  # node 0 spans ~1,026 runs of 1,024 edges
+    _aggregate_on_card(cuda_device, hs, hd, src, dst, w, n, AK.RUN_EDGES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edges", [0, 5000], ids=["no_edges", "all_masked"])
+def test_segment_aggregate_with_every_degree_zero(cuda_device, edges):
+    n, d = 200, 16
+    hs, hd, src, dst, w = aggregate_inputs(12, n, max(edges, 1), d)
+    src, dst, w = src[:edges], dst[:edges], np.zeros(edges, np.float32)
+    _aggregate_on_card(cuda_device, hs, hd, src, dst, w, n, 64)
+
+
+@pytest.mark.cuda
+def test_segment_aggregate_past_128_features(cuda_device):
+    """d = 150: the forward walks each run once for every 32 features, the
+    backward (4 a lane) twice, the second time for the last 22."""
+    hs, hd, src, dst, w = aggregate_inputs(13, 400, 20000, 150)
+    _aggregate_on_card(cuda_device, hs, hd, src, dst, w, 400, 64)

@@ -167,8 +167,9 @@ def test_init_draws_the_reference_distributions():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_arch("pna")
+    assert get_arch("pna").family == "gnn"  # ported for training; serving it is refused,
+    with pytest.raises(ValueError, match="no serving path"):  # as the JAX launcher does
+        serve.main(["--arch", "pna", "--device", "cpu"])
     assert get_arch("qwen1.5-32b").cfg.name == "qwen1.5-32b"  # ported with the model axis
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-2")

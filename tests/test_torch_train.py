@@ -7,7 +7,7 @@ reference's scenarios: round trip, retention and atomicity, corruption;
 bf16 tensors bit for bit), the trainer (a restart continues bit for bit
 like an uninterrupted run on the CPU) and the launcher
 (``launch/train.py --config smoke --device cpu`` trains and writes
-checkpoints; ``pna`` raises)."""
+checkpoints; ``pna`` takes no LM cut: its run is ``tests/test_torch_pna.py``'s)."""
 
 import os
 import shutil
@@ -309,8 +309,11 @@ def test_launcher_cells_cuts_and_refusals(tmp_path):
     smoke = launcher.train_setup(launcher.build_parser().parse_args(
         ["--arch", "gemma3-4b", "--steps", "7", "--device", "cpu"]))
     assert smoke.opt_cfg == opt.AdamWConfig(lr=1e-3, total_steps=7)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launcher.main(["--arch", "pna", "--steps", "1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="depth"):  # PNA is ported; an LM's cut is refused
+        launcher.main(["--arch", "pna", "--layers", "2", "--steps", "1", "--device", "cpu"])
+    with pytest.raises(ValueError, match="nodes"):
+        launcher.train_setup(launcher.build_parser().parse_args(
+            ["--arch", "dien", "--nodes", "100", "--device", "cpu"]))
     with pytest.raises(ValueError, match="train"):
         launcher.train_setup(launcher.build_parser().parse_args(
             ["--arch", "dien", "--cell", "serve_p99", "--device", "cpu"]))
