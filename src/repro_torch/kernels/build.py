@@ -104,11 +104,13 @@ _SIGNATURES = {
                                       _F, _P),
     },
     "segment_aggregate": {
-        "segment_aggregate_fwd_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
-                                         _P, _P, _P, _P, _P, _P, _P, _P, _P),
-        "segment_aggregate_bwd_launch": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
-                                         _P, _P, _P, _P, _P, _P, _P, _P,
-                                         _P, _P, _P, _P, _P, _P, _P, _P),
+        **{name: (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _P, _P)
+           for name in ("segment_aggregate_fwd_launch", "segment_aggregate_fwd_registers_launch")},
+        **{name: (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                  _P, _P, _P, _P, _P, _P, _P, _P,
+                  _P, _P, _P, _P, _P, _P, _P, _P)
+           for name in ("segment_aggregate_bwd_launch", "segment_aggregate_bwd_registers_launch")},
     },
 }
 
@@ -127,7 +129,10 @@ _SIGNATURES = {
 # forward's calls: one kernel, given the forward's log-sum-exp), or
 # ``flash_bwd_prep`` and then either ``flash_bwd_dkdv_sm90`` and
 # ``flash_bwd_dq_sm90`` (bf16 tensor cores) or ``flash_bwd_dkdv`` and
-# ``flash_bwd_dq`` (the general backward), once each a call.
+# ``flash_bwd_dq`` (the general backward), once each a call.  PNA's
+# aggregation counts ``segment_aggregate_fwd`` and ``_bwd`` (the ring
+# design, the main path) and ``segment_aggregate_fwd_registers`` and
+# ``_bwd_registers`` (the register design, forced), one a call each.
 LAUNCHES: Dict[str, int] = {
     "segment_fold": 0,
     "intersect_members_kernel": 0,
@@ -150,6 +155,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_resident": 0,
     "segment_aggregate_fwd": 0,
     "segment_aggregate_bwd": 0,
+    "segment_aggregate_fwd_registers": 0,
+    "segment_aggregate_bwd_registers": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,15 @@ the launch reports a CUDA error, and adds one to
 per call.  The edges come as an :class:`~repro_torch.kernels.
 segment_aggregate.ref.EdgeCSR` (sorted by destination); ``run_edges`` is
 the edges a warp takes (the split by edges, not by nodes).
+
+The public launchers run the ring design: one walk of each run, the
+source rows copied asynchronously into a ring in shared memory.  The
+private ``_registers_forced_fwd`` and ``_registers_forced_bwd`` run the
+first design (rows gathered into registers, the forward walking each run
+once for every 32 features) on the same inputs, to time it beside the
+ring; they count as ``segment_aggregate_fwd_registers`` and
+``segment_aggregate_bwd_registers`` and are never on the main path.  Both
+designs give the same forward and ``d hd`` bits.
 """
 
 from __future__ import annotations
@@ -25,9 +34,9 @@ __all__ = ["FwdSaved", "RUN_EDGES", "n_runs", "segment_aggregate_bwd_cuda",
            "segment_aggregate_fwd_cuda"]
 
 # Edges a warp walks: at ogb_products 59,791 runs; node 0's 11.5 M edges
-# merge from 11,228 records.  On the card at ogb_products the forward ran
-# fastest at 1024 of 512, 1024, 2048 and 4096 edges, the backward within
-# 4 % of its fastest (512).
+# merge from 11,228 records.  On the card at ogb_products the register
+# design's forward ran fastest at 1024 of 512, 1024, 2048 and 4096 edges,
+# its backward within 4 % of its fastest (512).
 RUN_EDGES = 1024
 MAX_INDEX = 2**31 - 1
 
@@ -80,7 +89,19 @@ def segment_aggregate_fwd_cuda(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
     """The forward; same contract as
     :func:`repro_torch.kernels.segment_aggregate.ref.segment_aggregate_ref`
     on the sorted edges, plus the backward's tie counts and q's sign."""
-    name = "segment_aggregate_fwd"
+    return _fwd("segment_aggregate_fwd", "segment_aggregate_fwd_launch", hs, hd, csr,
+                run_edges)
+
+
+def _registers_forced_fwd(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
+                          run_edges: int = RUN_EDGES) -> FwdSaved:
+    """The forward through the register design (off the main path)."""
+    return _fwd("segment_aggregate_fwd_registers", "segment_aggregate_fwd_registers_launch",
+                hs, hd, csr, run_edges)
+
+
+def _fwd(name: str, entry: str, hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
+         run_edges: int) -> FwdSaved:
     _check(name, hs, hd, csr, run_edges)
     n, d = hs.shape
     e = csr.src.shape[0]
@@ -97,7 +118,7 @@ def segment_aggregate_fwd_cuda(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
                torch.empty((slots, 2 * d), dtype=torch.int32, device=dev))  # tie counts
     if n == 0:
         return out
-    status = lib("segment_aggregate").segment_aggregate_fwd_launch(
+    status = getattr(lib("segment_aggregate"), entry)(
         hs.data_ptr(), hd.data_ptr(), csr.src.data_ptr(), csr.dst.data_ptr(), csr.w.data_ptr(),
         csr.indptr.data_ptr(), n, e, d, run_edges, *(t.data_ptr() for t in records),
         *(t.data_ptr() for t in out), stream_of(dev))
@@ -113,15 +134,28 @@ def segment_aggregate_bwd_cuda(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
     """``(d hs, d hd)`` (N, d) float32 from the gradients of ``mean, max,
     min, std`` and the forward's :class:`FwdSaved` (the same ``run_edges``
     or any other: the backward recomputes each edge's message)."""
-    name = "segment_aggregate_bwd"
+    return _bwd("segment_aggregate_bwd", "segment_aggregate_bwd_launch", hs, hd, csr, saved,
+                (g_mean, g_max, g_min, g_std), run_edges)
+
+
+def _registers_forced_bwd(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR, saved: FwdSaved,
+                          g_mean: torch.Tensor, g_max: torch.Tensor, g_min: torch.Tensor,
+                          g_std: torch.Tensor, run_edges: int = RUN_EDGES):
+    """The backward through the register design (off the main path)."""
+    return _bwd("segment_aggregate_bwd_registers", "segment_aggregate_bwd_registers_launch",
+                hs, hd, csr, saved, (g_mean, g_max, g_min, g_std), run_edges)
+
+
+def _bwd(name: str, entry: str, hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
+         saved: FwdSaved, grads: tuple, run_edges: int):
     _check(name, hs, hd, csr, run_edges)
     n, d = hs.shape
     e = csr.src.shape[0]
     dev = hs.device
-    for t in (*saved, g_mean, g_max, g_min, g_std):
+    for t in (*saved, *grads):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: saved tensors and gradients must be contiguous on {dev}")
-    for t in (g_mean, g_max, g_min, g_std):
+    for t in grads:
         if t.shape != (n, d) or t.dtype != torch.float32:
             raise ValueError(f"{name}: gradients (N, d) float32 expected")
     d_hs = torch.zeros((n, d), dtype=torch.float32, device=dev)
@@ -129,11 +163,11 @@ def segment_aggregate_bwd_cuda(hs: torch.Tensor, hd: torch.Tensor, csr: EdgeCSR,
     rec = torch.empty((max(2 * n_runs(e, run_edges), 1), d), dtype=torch.float64, device=dev)
     if n == 0:
         return d_hs, d_hd
-    status = lib("segment_aggregate").segment_aggregate_bwd_launch(
+    status = getattr(lib("segment_aggregate"), entry)(
         hs.data_ptr(), hd.data_ptr(), csr.src.data_ptr(), csr.dst.data_ptr(), csr.w.data_ptr(),
         csr.indptr.data_ptr(), n, e, d, run_edges, *(t.data_ptr() for t in saved),
-        g_mean.data_ptr(), g_max.data_ptr(), g_min.data_ptr(), g_std.data_ptr(),
-        rec.data_ptr(), d_hs.data_ptr(), d_hd.data_ptr(), stream_of(dev))
+        *(g.data_ptr() for g in grads), rec.data_ptr(), d_hs.data_ptr(), d_hd.data_ptr(),
+        stream_of(dev))
     check(status, name)
     LAUNCHES[name] += 1
     return d_hs, d_hd

@@ -598,6 +598,7 @@ AGGREGATE_CASES = [
     (1, 300, 2500, 75, 64),
     (2, 40, 30, 75, 2048),  # E smaller than one run
     (3, 500, 6000, 16, 32),
+    (4, 12, 7, 33, 32),  # fewer edges than the ring kernels keep in flight
 ]
 U32 = 2.0**-24  # float32's unit roundoff
 U64 = 2.0**-53  # float64's
@@ -876,12 +877,14 @@ class AggregateCheck:
     range at a time (all nodes at once by default): max, min, deg and the
     tie counts bit for bit (raises otherwise), mean, std, d hd and, at
     :meth:`finish`, d hs within their limits.  Records the shares of the limits, the faulty
-    control's (ties not averaged) and the largest absolute errors."""
+    control's (ties not averaged) and the largest absolute errors.  ``others``
+    ({label: d hs}) holds further d hs of the same inputs to the same limit
+    (another kernel design's, whose forward and d hd are the same bits)."""
 
-    def __init__(self, hs, d_hs, chunk=None):
+    def __init__(self, hs, d_hs, chunk=None, others=None):
         import torch
 
-        self.hs, self.d_hs, self.chunk = hs, d_hs, chunk
+        self.hs, self.d_hs, self.chunk, self.others = hs, d_hs, chunk, dict(others or {})
         z = lambda: torch.zeros(hs.shape, dtype=torch.float64, device=hs.device)  # noqa: E731
         self.ref_hs, self.ctrl_hs, self.d_src, self.t_src = z(), z(), z(), z()
         self.n_out = torch.zeros((hs.shape[0], 1), dtype=torch.float64, device=hs.device)
@@ -923,17 +926,189 @@ class AggregateCheck:
         """d hs's share and its control's, after every range; the shares
         and the largest absolute errors."""
         lim = d_hs_limit(self.d_src, self.t_src, self.n_out)
-        self.shares["d_hs"] = share_of_limit(self.d_hs, self.ref_hs, lim)
         self.shares["ties_control_d_hs"] = share_of_limit(self.d_hs, self.ctrl_hs, lim)
-        self.errs["d_hs"] = float((self.d_hs.double() - self.ref_hs).abs().max()) \
-            if self.d_hs.numel() else 0.0
+        for label, d_hs in (("d_hs", self.d_hs),
+                            *((f"d_hs {k}", v) for k, v in self.others.items())):
+            self.shares[label] = share_of_limit(d_hs, self.ref_hs, lim)
+            self.errs[label] = float((d_hs.double() - self.ref_hs).abs().max()) \
+                if d_hs.numel() else 0.0
         return {"shares": dict(self.shares), "max_abs_err": dict(self.errs)}
 
     def within(self) -> bool:
         """Whether every share is within its limit (after :meth:`finish`)."""
         if "d_hs" not in self.shares:
             self.finish()
-        return all(self.shares[k] <= 1.0 for k in ("mean", "std", "d_hd", "d_hs"))
+        return all(self.shares[k] <= 1.0 for k in ("mean", "std", "d_hd", "d_hs",
+                                                     *(f"d_hs {k}" for k in self.others)))
+
+
+# The kernels' split by edges (csrc/segment_aggregate.cu): runs of
+# ``run_edges`` edges, a head and a tail record a run, and the merge of a
+# destination that spans runs strided over MERGE_WARPS warps, then across
+# the warps in their order.
+MERGE_WARPS = 32
+
+
+def record_edges(indptr, node: int, run_edges: int, k: int) -> tuple:
+    """The edges of ``node``'s k-th merge record (k >= 1: the head of the
+    k-th run after the one holding its first edge; record k is summed by
+    the merge's warp k mod MERGE_WARPS), as positions [e0, e1) in the
+    sorted edges."""
+    start, end = int(indptr[node]), int(indptr[node + 1])
+    e0 = (start // run_edges + k) * run_edges
+    if e0 >= end:
+        raise ValueError(f"node {node} ({end - start} edges) has no record {k}")
+    return e0, min(e0 + run_edges, end)
+
+
+class _Running:
+    """A destination's running statistics as a warp keeps them: the sums
+    in float64 (added in order), max and min with their tie counts, deg in
+    float32, the backward's sum of d pre in float64."""
+
+    def __init__(self, d):
+        self.s1, self.s2, self.acc = np.zeros(d), np.zeros(d), np.zeros(d)
+        self.mx, self.mn = np.zeros(d, np.float32), np.zeros(d, np.float32)
+        self.nmx, self.nmn = np.zeros(d, np.int64), np.zeros(d, np.int64)
+        self.deg = np.float32(0.0)
+
+    def add(self, v, wt):
+        x = v.astype(np.float64)
+        self.s1 = self.s1 + x
+        self.s2 = self.s2 + x * x
+        self.deg = np.float32(self.deg + wt)
+        if wt > 0:
+            self.merge(v, np.ones_like(self.nmx), v, np.ones_like(self.nmn))
+
+    def merge(self, mx, nmx, mn, nmn):
+        """Adds another part's max and min with their counts (0: none)."""
+        for ext, cnt, new, c2, better in ((self.mx, self.nmx, mx, nmx, np.greater),
+                                          (self.mn, self.nmn, mn, nmn, np.less)):
+            take = (c2 > 0) & ((cnt == 0) | better(new, ext))
+            tie = (c2 > 0) & ~take & (new == ext)
+            cnt[tie] += c2[tie]
+            ext[take], cnt[take] = new[take], c2[take]
+
+    def join(self, other):
+        self.s1, self.s2, self.acc = self.s1 + other.s1, self.s2 + other.s2, self.acc + other.acc
+        self.deg = np.float32(self.deg + other.deg)
+        self.merge(other.mx, other.nmx, other.mn, other.nmn)
+
+
+def aggregate_in_runs(hs, hd, csr, grads, run_edges, drop=None):
+    """The kernel pair's arithmetic on the CPU in numpy, in the order the
+    kernels take it: each run walked edge by edge (the same IEEE float32
+    operations form each message and d pre), a destination inside a run
+    finished there, the others through head and tail records merged over
+    MERGE_WARPS warps in a fixed order; d hs added edge by edge in float32
+    (the kernels' atomics, in one of their orders).  ``drop`` = (node, k)
+    leaves that node's k-th merge record out of its merge, forward and
+    backward (a faulty control).  Returns the forward's fields (mean, max,
+    min, std, deg, n_max, n_min, vcode) and (d hs, d hd), numpy."""
+    hs, hd = np.asarray(hs, np.float32), np.asarray(hd, np.float32)
+    src, dst = np.asarray(csr.src).astype(np.int64), np.asarray(csr.dst).astype(np.int64)
+    w, indptr = np.asarray(csr.w, np.float32), np.asarray(csr.indptr).astype(np.int64)
+    g_mean, g_max, g_min, g_std = (np.asarray(g, np.float32) for g in grads)
+    n, d = hd.shape
+    e = len(src)
+    runs = -(-e // run_edges) if e else 0
+    eps = np.float64(np.float32(AGG_EPS))
+    mean, mx, mn, std = (np.zeros((n, d), np.float32) for _ in range(4))
+    deg = np.zeros(n, np.float32)
+    n_max, n_min = np.zeros((n, d), np.int32), np.zeros((n, d), np.int32)
+    vcode = np.full((n, d), 1, np.int8)  # q == 0 at the nodes with no edges
+    std[:] = np.float32(np.sqrt(eps))
+
+    def finish(node, a):
+        denom = np.float64(max(a.deg, np.float32(1.0)))
+        m = a.s1 / denom
+        q = a.s2 / denom - m * m
+        has = a.deg > 0
+        mean[node], std[node] = m.astype(np.float32), np.sqrt(np.maximum(q, 0.0) + eps)
+        vcode[node] = np.where(q > 0, 2, np.where(q == 0, 1, 0))
+        mx[node] = np.where(a.nmx > 0, a.mx, np.float32(-1e30)) if has else 0.0
+        mn[node] = np.where(a.nmn > 0, a.mn, np.float32(1e30)) if has else 0.0
+        n_max[node], n_min[node] = (a.nmx, a.nmn) if has else (0, 0)
+        deg[node] = a.deg
+
+    def walk(edge, done, records):
+        """Every run once: ``edge(a, k)`` adds edge k to the running state,
+        ``done(node, a)`` finishes a destination inside a run."""
+        for r in range(runs):
+            lo, hi = r * run_edges, min((r + 1) * run_edges, e)
+            head_open = lo > 0 and dst[lo - 1] == dst[lo]
+            tail_open = hi < e and dst[hi] == dst[hi - 1]
+            cur, is_first, a = dst[lo], True, _Running(d)
+            for k in range(lo, hi):
+                if dst[k] != cur:
+                    if is_first and head_open:
+                        records[2 * r] = a
+                    else:
+                        done(cur, a)
+                    cur, is_first, a = dst[k], False, _Running(d)
+                edge(a, k)
+            if is_first and head_open:
+                records[2 * r] = a
+            elif tail_open:
+                records[2 * r + 1] = a
+            else:
+                done(cur, a)
+
+    def merge(records, done):
+        for b in range(1, runs):
+            x = dst[b * run_edges]
+            if dst[b * run_edges - 1] != x or indptr[x] < (b - 1) * run_edges:
+                continue  # not spanning, or an earlier boundary has it
+            n_rec = (indptr[x + 1] - 1) // run_edges - b + 2
+            warps = [_Running(d) for _ in range(MERGE_WARPS)]
+            for k in range(n_rec):
+                if drop is not None and (x, k) == tuple(drop):
+                    continue
+                slot = 2 * (b - 1) + 1 if k == 0 else 2 * (b - 1 + k)
+                warps[k % MERGE_WARPS].join(records[slot])
+            total = _Running(d)
+            for part in warps:  # the fixed order
+                total.join(part)
+            done(x, total)
+
+    def forward_edge(a, k):
+        pre = hs[src[k]] + hd[dst[k]]
+        a.add(np.where(pre > 0, pre, np.float32(0.0)) * w[k], w[k])
+
+    records = {}
+    walk(forward_edge, finish, records)
+    merge(records, finish)
+
+    # The backward: each destination's factors from the forward's fields.
+    denom = np.maximum(deg, np.float32(1.0))[:, None]
+    half_c = np.float32(0.5) * vcode.astype(np.float32)
+    fa = g_mean / denom
+    fb = (g_std * half_c) / (denom * std)
+    has = (deg > 0)[:, None]
+    tmx = np.where(has & (n_max > 0), g_max / np.maximum(n_max, 1).astype(np.float32), 0.0)
+    tmn = np.where(has & (n_min > 0), g_min / np.maximum(n_min, 1).astype(np.float32), 0.0)
+    tmx, tmn = tmx.astype(np.float32), tmn.astype(np.float32)
+    d_hs, d_hd = np.zeros((n, d), np.float32), np.zeros((n, d), np.float32)
+
+    def backward_edge(a, k):
+        t, s, wt = dst[k], src[k], w[k]
+        pre = hs[s] + hd[t]
+        v = np.where(pre > 0, pre, np.float32(0.0)) * wt
+        dv = fa[t] + fb[t] * (v - mean[t])
+        if wt > 0:
+            dv = np.where(v == mx[t], dv + tmx[t], dv)
+            dv = np.where(v == mn[t], dv + tmn[t], dv)
+        dpre = np.where(pre > 0, dv * wt, np.float32(0.0)).astype(np.float32)
+        d_hs[s] += dpre
+        a.acc = a.acc + dpre.astype(np.float64)
+
+    def put_d_hd(node, a):
+        d_hd[node] = a.acc.astype(np.float32)
+
+    records = {}
+    walk(backward_edge, put_d_hd, records)
+    merge(records, put_d_hd)
+    return (mean, mx, mn, std, deg, n_max, n_min, vcode), (d_hs, d_hd)
 
 
 def aggregate_in_kernel_form(order: str = "sorted"):

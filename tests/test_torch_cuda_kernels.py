@@ -58,11 +58,13 @@ split by edges) is held against its plain version's formulas in float64
 on the card (``_torch_parity.AggregateCheck``), through the autograd
 function of ``ops.segment_aggregate`` (one launch of each a call), at
 ``_torch_parity.AGGREGATE_CASES`` (each at its own run length, E below one
-run among them), a destination with more than 10⁶ incoming edges (hundreds
-of runs merged), and graphs whose every node has degree 0: max, min, deg
-and the tie counts bit for bit, mean, std and both gradients within the
-limits of the kernels' float64 sums; a rerun of the forward gives the
-same bits.
+run and below the ring's rows among them), at d = 1, 32, 33, 75, 128 and
+150, a destination with more than 10⁶ incoming edges (hundreds of runs
+merged), and graphs whose every node has degree 0: max, min, deg and the
+tie counts bit for bit, mean, std and both gradients within the limits
+of the kernels' float64 sums; a rerun of the forward gives the same bits.
+The register design, forced on the same inputs, gives the ring design's
+forward and d hd bit for bit and its d hs within the same limit.
 """
 
 from pathlib import Path
@@ -1109,8 +1111,10 @@ def test_mesh_decode_on_the_card_equals_its_plain_version(cuda_device, dims, b, 
 
 def _aggregate_on_card(dev, hs, hd, src, dst, w, n, run_edges):
     """The kernel pair against the float64 reference on the card, on one
-    graph (numpy inputs), through ``_torch_parity.AggregateCheck``; returns
-    the shares of the limits."""
+    graph (numpy inputs), through ``_torch_parity.AggregateCheck``; the
+    register design forced on the same inputs gives the same forward and
+    d hd bits, and its d hs within the same limit.  Returns the shares of
+    the limits."""
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     csr = edge_csr(t(src), t(dst), t(w), n)
     grads = [t(g) for g in aggregate_grads(7, n, hs.shape[1])]
@@ -1126,7 +1130,15 @@ def _aggregate_on_card(dev, hs, hd, src, dst, w, n, run_edges):
         assert torch.equal(x, y)  # the same bits run to run
     for x, y in zip(got, saved, strict=False):
         assert torch.equal(x.detach(), y)
-    check = AggregateCheck(t(hs), a.grad)
+    forced = AK._registers_forced_fwd(t(hs), t(hd), csr, run_edges)
+    for name, x, y in zip(AK.FwdSaved._fields, forced, saved, strict=True):
+        assert torch.equal(x, y), f"the register design's {name}"
+    f_hs, f_hd = AK._registers_forced_bwd(t(hs), t(hd), csr, forced, *grads, run_edges=run_edges)
+    torch.cuda.synchronize()
+    assert torch.equal(f_hd, b.grad)  # d hd: the same float64 sums in the same order
+    assert (B.LAUNCHES["segment_aggregate_fwd_registers"],
+            B.LAUNCHES["segment_aggregate_bwd_registers"]) == (1, 1)
+    check = AggregateCheck(t(hs), a.grad, others={"registers": f_hs})
     check.add(t(hd), csr.src, csr.dst, csr.w, grads, (*saved[:7],), b.grad)
     shares = check.finish()["shares"]
     assert check.within(), shares
@@ -1159,7 +1171,18 @@ def test_segment_aggregate_with_every_degree_zero(cuda_device, edges):
 
 @pytest.mark.cuda
 def test_segment_aggregate_past_128_features(cuda_device):
-    """d = 150: the forward walks each run once for every 32 features, the
-    backward (4 a lane) twice, the second time for the last 22."""
+    """d = 150: the ring kernels (4 features a lane) walk each run twice,
+    the second time for the last 22; the register design's forward once
+    for every 32 features."""
     hs, hd, src, dst, w = aggregate_inputs(13, 400, 20000, 150)
     _aggregate_on_card(cuda_device, hs, hd, src, dst, w, 400, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, run_edges", [(1, 64), (32, 64), (33, 100), (75, 64), (128, 32)],
+                         ids=lambda x: str(x))
+def test_segment_aggregate_at_each_lane_width(cuda_device, d, run_edges):
+    """1 to 4 features a lane, the tail of d masked (33: one live lane in
+    the second chunk), runs of a length that is not a multiple of 32."""
+    hs, hd, src, dst, w = aggregate_inputs(14, 500, 30000, d)
+    _aggregate_on_card(cuda_device, hs, hd, src, dst, w, 500, run_edges)
