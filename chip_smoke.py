@@ -65,7 +65,7 @@
    (``repro_torch.launch.serve``), in the phases of ``LM_PHASES`` (run
    right after step 8, before step 4, while the card holds nothing else):
    gemma3-4b at its full width with the bf16 cache (8 prompts of 2048
-   tokens, 8 greedy steps),
+   tokens, 8 greedy steps; the other LM and mesh phases 4),
    then the serving cell ``decode_32k`` (the int8 KV cache) for
    qwen3-moe-30b-a3b at full width and depth, gemma3-4b at the cell's
    cache length of 32,768 and arctic-480b at full width cut to 2 layers,
@@ -114,7 +114,8 @@
    ``_torch_parity.FLASH_BWD_CASES``, ``RESIDENT_BWD_CASES`` and the
    training shapes (``BWD_TRAIN_SHAPES``: gemma3-4b's local and global
    layer at 4,096 tokens in bf16, BERT4Rec's call at 32,768 rows in fp32,
-   past one launch chunk), each call through the route
+   past one launch chunk, qwen3-moe-30b-a3b's layer at the mesh step's
+   microbatch of 2 rows of 4,096 tokens in bf16), each call through the route
    ``kernel.bwd_route`` names (``BWD_ROUTE_KERNELS``, one launch of each
    a call): for fp32, not causal, no window (BERT4Rec's call) the
    resident kernel ``flash_bwd_resident`` alone
@@ -150,7 +151,27 @@
    the loss on the first batch must fall.  Then the checkpoint restart on
    dcn-v2 through the ``Trainer`` (restored state and next batch
    bit-equal; resumed losses within ``CKPT_LOSS_RTOL`` of the
-   uninterrupted run's).  After the search path (step 4) it runs the
+   uninterrupted run's).  Before it, training under the slot mesh
+   (``train_mesh_phase``): qwen3-moe-30b-a3b at full width cut to 2 layers
+   (``TRAIN_MESH``: 4 rows of 4,096 tokens in 2 microbatches) under a 2 x 2
+   mesh of slots of the card through ``launch/train.py --mesh`` and
+   ``launch.steps``, its first step's loss and per-leaf gradients against
+   the same mesh step through the plain attention with the kernel route's
+   experts (``TRAIN_GRAD_RTOL``; model slot 1's outputs left out of
+   ``_sum_slots`` beyond it), the two data slots' shares of that gradient
+   (``launch.steps.data_slot_grads``) through
+   ``dist.compression.compressed_psum_tree`` (within n_slots · scale / 2,
+   ``deq + err == v`` bit for bit, the scales against the CPU's), two
+   steps (launches as designed; the first timed with nothing wrapped, the
+   second traced with CUDA events around the MoE, its expert products and
+   the slots' sum), and
+   dcn-v2 at 65,536 rows under 4 x 1 against its single-device step; then
+   the dry run (``dryrun_phase``): ``roofline.analyze_plan`` on the plans
+   of gemma3-4b's train phase and of that mesh step, traced on the host by
+   a process of its own beside the train phases (``start_dryrun``), each
+   bound no longer than the measured step (times the slots the card runs)
+   and its placed bytes within the measured peak, and the production-mesh
+   row of qwen3-moe-30b-a3b's ``train_4k``.  After the search path (step 4) it runs the
    sanitizer on the warm fold (``analysis/sanitize.py``: clean, and a
    planted ``.item()`` and ``torch.nonzero`` caught).  Then PNA
    (``pna_phase``, on the emptied card), through ``launch/train.py``'s
@@ -346,18 +367,22 @@ class LMPhase(NamedTuple):
 # requests of 2048 tokens (past the 1024 window, so the local layers skip
 # key tiles) and 8 greedy steps, then the zoo's own serving cell
 # ``decode_32k`` (its overrides: the int8 KV cache) for qwen3-moe-30b-a3b at
-# full width and depth, for gemma3-4b at the cell's cache length (4 x
-# 32,760 prompt tokens + 8 steps fill 32,768 positions) and for
+# full width and depth, for gemma3-4b near the cell's cache length (4 x
+# 32,760 prompt tokens + 4 steps: 32,764 of its 32,768 positions) and for
 # arctic-480b at full width with its depth cut to 2 layers (its 35 take
 # 888 GiB).  Cuts: the cell's batch of 128 to 8 or 4, the MoE phases'
-# cache of 32,768 positions to 2,056, weights random; the steps from 16 to
-# 8 since the pna phase joined the run (each replay's decode calls halve).
+# cache of 32,768 positions to 2,052, weights random; the steps from 16 to
+# 8 when the pna phase joined the run, and but for the first phase to 4
+# when the train_mesh and dryrun phases did (each replay's decode calls
+# halve).  The first phase keeps 8: at 4 its ragged-tail control read
+# 0.0173, within LOGIT_RTOL (the last 4 steps' keys past a whole tile
+# move its logits less), so every check stays.
 LM_PHASES = (
     LMPhase("gemma3-4b", "gemma3-4b", None, 8, 2048, 8, None, ("window", "tail")),
-    LMPhase("qwen3-moe-30b-a3b decode_32k", "qwen3-moe-30b-a3b", "decode_32k", 8, 2048, 8, None,
+    LMPhase("qwen3-moe-30b-a3b decode_32k", "qwen3-moe-30b-a3b", "decode_32k", 8, 2048, 4, None,
             ("gates",)),
-    LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32760, 8, None, ("window",)),
-    LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 8, 2, ("gates",)),
+    LMPhase("gemma3-4b decode_32k", "gemma3-4b", "decode_32k", 4, 32760, 4, None, ("window",)),
+    LMPhase("arctic-480b decode_32k", "arctic-480b", "decode_32k", 8, 2048, 4, 2, ("gates",)),
 )
 
 
@@ -382,18 +407,19 @@ class MeshPhase(NamedTuple):
 # (64 layers, 35.2 B parameters, 65.6 GiB in bf16) and qwen3-moe-30b-a3b at
 # full width and depth, each at ``decode_32k`` (the int8 KV cache) under a
 # 1 x 4 mesh of slots of the card: every decode step splits the cache's
-# 2,056 positions over the 4 model slots (514 each: one split-K launch a
+# 2,052 positions over the 4 model slots (513 each: one split-K launch a
 # shard with visible keys, one combine a layer), and qwen3's 128 experts
 # run 32 a slot.  Cuts: the cell's batch of 128 to 4 (qwen1.5-32b: its
-# weights leave ~13 GiB) or 8, the cache of 32,768 positions to 2,056 (8
-# steps, 16 before the pna phase joined the run),
+# weights leave ~13 GiB) or 8, the cache of 32,768 positions to 2,052 (4
+# steps: 16 before the pna phase joined the run, 8 before the train_mesh
+# and dryrun phases did),
 # weights random (qwen3's drawn again from the LM phase's seed: both
 # models do not fit at once).
 MESH_PHASES = (
-    MeshPhase("qwen1.5-32b decode_32k mesh 1x4", "qwen1.5-32b", "decode_32k", "1x4", 4, 2048, 8,
+    MeshPhase("qwen1.5-32b decode_32k mesh 1x4", "qwen1.5-32b", "decode_32k", "1x4", 4, 2048, 4,
               None, ("shard",)),
     MeshPhase("qwen3-moe-30b-a3b decode_32k mesh 1x4", "qwen3-moe-30b-a3b", "decode_32k", "1x4", 8,
-              2048, 8, None, ("shard", "slot")),
+              2048, 4, None, ("shard", "slot")),
 )
 # The recsys serving path: every recsys arch of the zoo at its published
 # widths (``CFG``), seeded random weights, at the family's serving cells
@@ -2095,7 +2121,9 @@ def mesh_phase(torch, dev, phase: MeshPhase):
                             "visible_keys": keys, "plan": plan})
     combine_splits = sum(p["plan"][3] for p in shard_plans if p["plan"])
     single_plan = decode_plan(1, length + 1, None, args.requests * cfg.n_kv_heads, sms)
-    trace = decode_trace(torch, model, prompts, dev, cache_len=cache_len, mesh=mesh)
+    # the cache holds the prompt and the run's steps: a warm step and the rest traced
+    trace = decode_trace(torch, model, prompts, dev, steps=min(4, args.decode_steps - 1),
+                         cache_len=cache_len, mesh=mesh)
     decode_ms = [t * 1e3 for t in report["decode_step_s"]]
     out = {
         "arch": cfg.name, "cell": phase.cell, "mesh": mesh.shape, "n_layers": cfg.n_layers,
@@ -2278,7 +2306,8 @@ def visible_pairs(lq: int, lk: int, causal: bool, window) -> int:
 # B, H, Hkv, Lq, Lk, D, window, input copies).  gemma3-4b with the bf16
 # cache: a local and a global layer's prefill, a global and a local
 # layer's last decode step; qwen3-moe-30b-a3b and arctic-480b (global
-# layers): prefill and last decode step; gemma3-4b at decode_32k: a global
+# layers): prefill and last decode step, and qwen3-moe-30b-a3b's training
+# forward at the train_mesh phase's microbatch; gemma3-4b at decode_32k: a global
 # and a local layer's prefill of 32,760 tokens and last decode step (the
 # int8 cache hands a local layer its window of keys).  Decode rotates over
 # enough copies of its inputs to exceed the L2 cache, as each layer's own
@@ -2289,18 +2318,20 @@ FLASH_ROW_SHAPES = (
     ("gemma3-4b decode, global layer", 8, 8, 4, 1, 2056, 256, 2**30, 4),
     ("gemma3-4b decode, local layer (window 1024)", 8, 8, 4, 1, 2056, 256, 1024, 4),
     ("qwen3-moe-30b-a3b prefill", 8, 32, 4, 2048, 2048, 128, 2**30, 1),
-    ("qwen3-moe-30b-a3b decode", 8, 32, 4, 1, 2056, 128, 2**30, 4),
+    ("qwen3-moe-30b-a3b decode", 8, 32, 4, 1, 2052, 128, 2**30, 4),
     ("arctic-480b prefill", 8, 56, 8, 2048, 2048, 128, 2**30, 1),
-    ("arctic-480b decode (group 7)", 8, 56, 8, 1, 2056, 128, 2**30, 4),
+    ("arctic-480b decode (group 7)", 8, 56, 8, 1, 2052, 128, 2**30, 4),
     ("gemma3-4b decode_32k prefill, global layer", 4, 8, 4, 32760, 32760, 256, 2**30, 1),
     ("gemma3-4b decode_32k prefill, local layer (window 1024)", 4, 8, 4, 32760, 32760, 256, 1024,
      1),
-    ("gemma3-4b decode_32k decode, global layer", 4, 8, 4, 1, 32768, 256, 2**30, 2),
+    ("gemma3-4b decode_32k decode, global layer", 4, 8, 4, 1, 32764, 256, 2**30, 2),
     ("gemma3-4b decode_32k decode, local layer (its window of keys)", 4, 8, 4, 1, 1024, 256, 1024,
      8),
     ("qwen1.5-32b prefill", 4, 40, 40, 2048, 2048, 128, 2**30, 1),
-    ("qwen1.5-32b mesh 1x4 decode, one shard's 514 keys", 4, 40, 40, 1, 514, 128, 2**30, 4),
-    ("qwen3-moe-30b-a3b mesh 1x4 decode, one shard's 514 keys", 8, 32, 4, 1, 514, 128, 2**30, 8),
+    ("qwen1.5-32b mesh 1x4 decode, one shard's 513 keys", 4, 40, 40, 1, 513, 128, 2**30, 4),
+    ("qwen3-moe-30b-a3b mesh 1x4 decode, one shard's 513 keys", 8, 32, 4, 1, 513, 128, 2**30, 8),
+    ("qwen3-moe-30b-a3b train_4k forward, train_mesh's microbatch", 2, 32, 4, 4096, 4096, 128,
+     2**30, 1),
 )
 # Above this many (query, key) pairs per (B, H) the plain version is timed
 # once: at a 32k-token prefill one call takes seconds.
@@ -2922,13 +2953,16 @@ def recsys_phase(torch, dev, name: str, filt: dict) -> tuple:
 # causal, window).  gemma3-4b's local and global layer at one 4,096-token
 # sequence (train_4k, one microbatch), BERT4Rec's encoder call at 32,768
 # rows of 200 positions (its train_batch in slices: B·H = 65,536 passes
-# one launch chunk of 65,535).
+# one launch chunk of 65,535), and qwen3-moe-30b-a3b's layer at the
+# train_mesh phase's microbatch (2 rows of 4,096 tokens, group 8, D 128).
 BWD_TRAIN_SHAPES = (
     ("gemma3-4b train_4k, local layer (window 1024)", "bfloat16", 1, 8, 4, 4096, 4096, 256,
      True, 1024),
     ("gemma3-4b train_4k, global layer", "bfloat16", 1, 8, 4, 4096, 4096, 256, True, None),
     ("bert4rec train_batch slice of 32,768 rows", "float32", 32768, 2, 2, 200, 200, 32, False,
      None),
+    ("qwen3-moe-30b-a3b train_4k, train_mesh's microbatch", "bfloat16", 2, 32, 4, 4096, 4096,
+     128, True, None),
 )
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
                "flash_bwd_dq_sm90", "flash_bwd_resident")
@@ -3658,7 +3692,7 @@ def recsys_cpu_slice(torch, model, setup, batch) -> dict:
     return {"rows": CPU_TRAIN_ROWS, "loss_rel_err": lerr, "grad_err": worst}
 
 
-def train_trace(torch, model, opt, batch, micro, loss_fn, groups=None) -> dict:
+def train_trace(torch, model, opt, batch, micro, loss_fn, groups=None, mesh=None) -> dict:
     """One train step under ``torch.profiler``, with CUDA events recorded on
     the stream around each microbatch's forward pass and around the
     optimizer: the step's host-clock s; its device time by part — the
@@ -3669,7 +3703,7 @@ def train_trace(torch, model, opt, batch, micro, loss_fn, groups=None) -> dict:
     profiler events), and the optimizer; the kernels' total, the device's
     idle share, and the step's loss.  ``groups`` ({label: name parts})
     adds the device ms of the kernels whose names hold any part, as
-    ``<label>_ms``."""
+    ``<label>_ms``; ``mesh`` is the step's slot mesh (None: one device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3694,7 +3728,8 @@ def train_trace(torch, model, opt, batch, micro, loss_fn, groups=None) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            loss = float(S.train_step(model, opt, batch, micro, marked(loss_fn, "forward")))
+            loss = float(S.train_step(model, opt, batch, micro, marked(loss_fn, "forward"),
+                                      mesh=mesh))
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
     finally:
@@ -4553,6 +4588,503 @@ def pna_phase(torch, dev, graphs) -> tuple:
     return report, launches, lay["rows"]
 
 
+# Training under the slot mesh (train_mesh_phase): (a) qwen3-moe-30b-a3b at
+# full width (d 2,048, 32/4 heads of 128, 128 experts top-8 of d 768,
+# vocab 151,936) with train_4k's overrides (remat "full", 4,096 tokens a
+# row) under a 2 x 2 mesh of slots of the card, so both axes are real: 2
+# data slots of 2 rows and 64 experts on each model slot.  Cuts: depth 48
+# -> 2 layers, the batch 256 -> 4 rows in 2 microbatches (1.87 B
+# parameters: bf16 weights, float32 masters, bf16 moments, float32
+# gradient sums).  (c) dcn-v2 at train_batch's 65,536 rows under 4 x 1
+# (pure data parallelism) against its single-device step.
+TRAIN_MESH = TrainPhase("qwen3-moe-30b-a3b", "train_4k", 4, 2, 2, 1e-4, None, 2)
+TRAIN_MESH_SHAPE = "2x2"
+DATA_PARALLEL = TrainPhase("dcn-v2", "train_batch", 65536, 1, 1, 3e-4, None, None)
+DATA_PARALLEL_SHAPE = "4x1"
+# The spans of the mesh step's forward passes timed by CUDA events
+# (label: the layers' function), the remat's replay included.
+MESH_TRAIN_SPANS = {"moe": "_moe_apply_sharded", "expert products": "_expert_ffn",
+                    "slot sums": "_sum_slots"}
+
+
+def mesh_train_args(phase: TrainPhase, shape: str, dev) -> list:
+    argv = ["--arch", phase.arch, "--config", "full", "--cell", phase.cell,
+            "--batch", str(phase.batch), "--microbatches", str(phase.microbatches),
+            "--steps", str(phase.steps), "--mesh", shape, "--device", str(dev)]
+    return argv + (["--layers", str(phase.layers)] if phase.layers else [])
+
+
+class StreamSpans:
+    """CUDA events recorded on the stream around calls of the layers'
+    functions named in ``MESH_TRAIN_SPANS`` (no host sync): each label's
+    summed stream ms, read after a sync; also the dropped (token, k)
+    slots of every sharded MoE call, summed on the device, of ``slots``
+    (token, k) slots in all (the remat's replayed calls included)."""
+
+    def __init__(self, torch, L):
+        self.torch, self.L, self.marks, self.real = torch, L, [], {}
+        self.dropped, self.slots = None, 0
+
+    def __enter__(self):
+        torch = self.torch
+        for label, name in MESH_TRAIN_SPANS.items():
+            real = getattr(self.L, name)
+            self.real[name] = real
+
+            def timed(*args, _real=real, _label=label, **kwargs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = _real(*args, **kwargs)
+                end.record()
+                self.marks.append((_label, start, end))
+                if _label == "moe":
+                    n = (~out[2].keep).sum()
+                    self.dropped = n if self.dropped is None else self.dropped + n
+                    self.slots += out[2].keep.numel()
+                return out
+            setattr(self.L, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.L, name, real)
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {label: 0.0 for label in MESH_TRAIN_SPANS}
+        for label, start, end in self.marks:
+            out[label] += start.elapsed_time(end)
+        return out
+
+
+# Leaves of at most this many elements are also reduced on the CPU and
+# held to the card bit for bit where both took the same scale (the
+# embedding, the head and the expert stacks are compared by their scales
+# alone: a CPU reduction of them took ~1 min).
+ALLREDUCE_CPU_ELEMS = 1 << 24
+
+
+def compressed_allreduce_check(torch, dev, slots: list) -> dict:
+    """(b): the step's data slots' gradient trees through
+    ``compressed_psum_tree`` leaf by leaf on the card: per leaf
+    |compressed - the plain sum| <= n_slots · scale / 2 and each slot's
+    ``deq + err == v`` bit for bit (``compress_decompress``).  Against the
+    port's plain CPU result: each leaf's shared scale ``amax / 127`` as the
+    card computes it against the CPU's from the same ``amax`` (on a CUDA
+    tensor PyTorch may take the division as a multiply by the reciprocal:
+    counted, not failed, as the bound holds either way), and the whole
+    reduction on the CPU for leaves of at most ``ALLREDUCE_CPU_ELEMS``
+    elements, equal bit for bit where the scales are."""
+    from repro_torch.dist import compression as C
+
+    n = len(slots)
+    worst_share, scales_off, cpu_leaves = 0.0, [], 0
+    t0 = time.perf_counter()
+    for name in slots[0]:
+        vs = [s[name] for s in slots]
+        total, errs = C.compressed_psum_tree([{name: v} for v in vs],
+                                             [{name: torch.zeros_like(v)} for v in vs])
+        plain = vs[0].clone()
+        for v in vs[1:]:
+            plain += v
+        amax = vs[0].abs().max()
+        for v in vs[1:]:
+            amax = torch.maximum(amax, v.abs().max())
+        scale = C._scale(amax)
+        scale_cpu = C._scale(amax.cpu())
+        err = float((total[name] - plain).abs().max())
+        bound = n * float(scale) / 2
+        if not err <= bound:
+            raise AssertionError(f"compressed all-reduce of {name}: |compressed - sum| {err} > "
+                                 f"{n} x scale / 2 = {bound}")
+        worst_share = max(worst_share, err / bound)
+        for v in vs:
+            deq, e = C.compress_decompress(v, torch.zeros_like(v))
+            if not torch.equal(deq + e, v):
+                raise AssertionError(f"{name}: deq + err != v on the card")
+        same_scale = torch.equal(scale.cpu(), scale_cpu)
+        if not same_scale:
+            scales_off.append(name)
+        if vs[0].numel() <= ALLREDUCE_CPU_ELEMS:
+            cpu_total, _ = C.compressed_psum_tree([{name: v.cpu()} for v in vs],
+                                                  [{name: torch.zeros_like(v.cpu())} for v in vs])
+            if same_scale and not torch.equal(total[name].cpu(), cpu_total[name]):
+                raise AssertionError(f"{name}: the card's reduction differs from the CPU's at "
+                                     f"the same scale")
+            cpu_leaves += 1
+        del total, errs, plain
+    out = {"slots": n, "leaves": len(slots[0]), "worst_share_of_bound": worst_share,
+           "scales_off_cpu": scales_off, "leaves_reduced_on_cpu": cpu_leaves,
+           "s": time.perf_counter() - t0}
+    print(f"  (b) compressed all-reduce over {n} data slots, {len(slots[0])} leaves: "
+          f"|compressed - sum| at most {worst_share:.4f} of n x scale / 2; deq + err == v bit "
+          f"for bit; scales 1 ulp off the CPU's at {len(scales_off)} leaves {scales_off}; "
+          f"{cpu_leaves} leaves reduced on the CPU too, equal where the scales are "
+          f"({out['s']:.1f} s)", flush=True)
+    return out
+
+
+def data_parallel_check(torch, dev) -> dict:
+    """(c): dcn-v2 at ``train_batch``'s rows under 4 x 1 against the same
+    step on one device: the loss within ``TRAIN_LOSS_RTOL["float32"]``,
+    every gradient element within ``TRAIN_GRAD_RTOL["float32"]`` of (its
+    magnitude + the tree's largest), the CPU parity tests' metric."""
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TL
+
+    phase = DATA_PARALLEL
+    setup = TL.train_setup(TL.build_parser().parse_args(
+        mesh_train_args(phase, DATA_PARALLEL_SHAPE, dev)))
+    model = setup.init_model_fn(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    model.requires_grad_(True)
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    batch = serve.to_device(setup.pipeline.batch(PipelineState(0)), dev)
+    t0 = time.perf_counter()
+    loss_m, mesh_grads = S.step_grads(model, params, batch, 1, setup.loss_fn, setup.mesh)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_1, one_grads = S.step_grads(model, params, batch, 1, setup.loss_fn)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    scale = max(float(g.abs().max()) for g in one_grads.values())
+    worst = max(float(((mesh_grads[k] - g).abs() / (g.abs() + scale)).max())
+                for k, g in one_grads.items())
+    lerr = abs(float(loss_m) - float(loss_1)) / abs(float(loss_1))
+    print(f"  (c) {phase.arch} {phase.batch:,} rows under {DATA_PARALLEL_SHAPE} against one "
+          f"device: loss {float(loss_m):.6f} ({float(loss_1):.6f}, rel. {lerr:.3g}), "
+          f"gradients {worst:.3g} (limit {TRAIN_GRAD_RTOL['float32']}); step's gradients "
+          f"{mesh_s:.3f} s under the mesh, {one_s:.3f} s on one device", flush=True)
+    if lerr > TRAIN_LOSS_RTOL["float32"] or worst > TRAIN_GRAD_RTOL["float32"]:
+        raise AssertionError(f"{phase.arch} under {DATA_PARALLEL_SHAPE}: loss {lerr:.3g}, "
+                             f"gradients {worst:.3g} off the single-device step")
+    return {"arch": phase.arch, "rows": phase.batch, "mesh": DATA_PARALLEL_SHAPE,
+            "loss_rel_err": lerr, "grad_err": worst, "mesh_grads_s": mesh_s,
+            "one_device_grads_s": one_s}
+
+
+def train_mesh_phase(torch, dev) -> tuple:
+    """Training under the slot mesh through ``launch/train.py``'s own
+    ``train_setup`` (``--mesh``) and ``launch.steps``: (a) ``TRAIN_MESH``
+    under ``TRAIN_MESH_SHAPE``, the first step's loss and per-leaf
+    gradients (``step_grads``) through the kernels against the same mesh
+    step through the plain attention (``TRAIN_LOSS_RTOL`` /
+    ``TRAIN_GRAD_RTOL["bfloat16"]``; the faulty control, model slot 1's
+    expert outputs left out of ``_sum_slots``, beyond the gradients'
+    limit, as the train phases' controls are held; its loss error is
+    reported); (b) the data slots' shares of the same step's gradient
+    (``data_slot_grads``) through the compressed all-reduce; then
+    ``phase.steps`` steps, counters set to 0 just before and read just
+    after (the sm90 forward twice a layer a microbatch under the block
+    remat, the sm90 backward once), the first with nothing wrapped (its
+    time: the step), the second traced (stream ms by part, the dropped
+    slots); (c) ``data_parallel_check``.  Returns its report and
+    the attention kernels' launches."""
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TL
+    from repro_torch.models import layers as L
+
+    phase = TRAIN_MESH
+    setup = TL.train_setup(TL.build_parser().parse_args(
+        mesh_train_args(phase, TRAIN_MESH_SHAPE, dev)))
+    setup.opt_cfg = dataclasses.replace(setup.opt_cfg, lr=phase.lr, warmup_steps=TRAIN_WARMUP,
+                                        total_steps=phase.steps)
+    cfg, mesh, micro = setup.cfg, setup.mesh, setup.microbatches
+    t0 = time.perf_counter()
+    model = setup.init_model_fn(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    model.requires_grad_(True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    batches = [serve.to_device(setup.pipeline.batch(PipelineState(s)), dev)
+               for s in range(phase.steps)]
+    seq = setup.pipeline.seq_len
+    bwd_kernels = BWD_ROUTE_KERNELS[FK.bwd_route(cfg.adtype, cfg.n_heads, cfg.n_kv_heads, seq,
+                                                 seq, cfg.head_dim, True, None)]
+    report = {"arch": phase.arch, "cell": phase.cell, "mesh": TRAIN_MESH_SHAPE,
+              "rows": phase.batch, "microbatches": micro, "layers": cfg.n_layers,
+              "params": cfg.n_params(), "init_s": init_s}
+    print(f"train_mesh {phase.arch} [{phase.cell}: {phase.batch} rows x {seq} tokens in {micro} "
+          f"microbatches, {cfg.n_layers} layers, under {mesh!r}]: {cfg.n_params() / 1e9:.3f} B "
+          f"parameters, init {init_s:.1f}s", flush=True)
+
+    # (a) the first step's gradients, kernel route against the plain route
+    # (which, and the control, take the kernel route's experts at every MoE
+    # call: RoutingReplay; its own flips must be near-ties).
+    B.reset_launch_counts()
+    chosen = []
+    real_routing = L.top_k_routing
+
+    def recorded(probs, top_k):
+        gates, experts = real_routing(probs, top_k)
+        chosen.append(experts)
+        return gates, experts
+
+    L.top_k_routing = recorded
+    try:
+        loss_k, grads = S.step_grads(model, params, batches[0], micro, setup.loss_fn, mesh)
+    finally:
+        L.top_k_routing = real_routing
+    first = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    passes = cfg.n_layers * micro
+    if first != {n: passes * (n in bwd_kernels) for n in BWD_KERNELS}:
+        raise AssertionError(f"train_mesh: first step's backward launches {first}, want "
+                             f"{passes} of each of {bwd_kernels}")
+    kernel_grads = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    slots = S.data_slot_grads(model, params, batches[0], micro, mesh, setup.loss_fn)
+    report["allreduce"] = compressed_allreduce_check(torch, dev, slots)
+    del slots
+    replay = RoutingReplay(chosen, cfg.n_layers)
+    L.top_k_routing = replay
+    try:
+        loss_p, grads = with_attention(L, plain_route_attention, lambda: S.step_grads(
+            model, params, batches[0], micro, setup.loss_fn, mesh))
+    finally:
+        L.top_k_routing = real_routing
+    if replay.layer_calls != len(chosen):
+        raise AssertionError(f"train_mesh: the plain route made {replay.layer_calls} MoE calls, "
+                             f"the kernel route {len(chosen)}")
+    ties = [f for f in replay.flips if f["gap"] > f["bound"]]
+    if ties:
+        raise AssertionError(f"train_mesh: routing flips beyond a near-tie: {ties[:4]}")
+    plain_grads = {n: g.cpu() for n, g in grads.items()}
+    del grads
+    real_sum = L._sum_slots
+    L._sum_slots = lambda outs, device: real_sum(outs[:1] + outs[2:], device)
+    L.top_k_routing = RoutingReplay(chosen, cfg.n_layers)
+    try:
+        loss_c, grads = S.step_grads(model, params, batches[0], micro, setup.loss_fn, mesh)
+    finally:
+        L._sum_slots, L.top_k_routing = real_sum, real_routing
+    del chosen
+    ctrl_errs = _rel_errs(torch, dev, grads, plain_grads)
+    del grads
+    errs = _rel_errs(torch, dev, kernel_grads, plain_grads)
+    del kernel_grads, plain_grads
+    loss_k, loss_p, loss_c = float(loss_k), float(loss_p), float(loss_c)
+    worst, ctrl_worst = max(errs, key=errs.get), max(ctrl_errs, key=ctrl_errs.get)
+    loss_err, ctrl_loss_err = abs(loss_k - loss_p) / abs(loss_p), abs(loss_c - loss_p) / abs(
+        loss_p)
+    report["first_step"] = {
+        "loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_err": loss_err,
+        "grad_rel_err_max": errs[worst], "grad_worst_leaf": worst,
+        "grad_rel_err_median": float(np.median(list(errs.values()))),
+        "control": "model slot 1's expert outputs left out of _sum_slots",
+        "control_loss_rel_err": ctrl_loss_err, "control_grad_rel_err_max": ctrl_errs[ctrl_worst],
+        "control_worst_leaf": ctrl_worst, "limit": TRAIN_GRAD_RTOL["bfloat16"],
+        "loss_limit": TRAIN_LOSS_RTOL["bfloat16"], "moe_calls": replay.layer_calls,
+        "routing_flips": len(replay.flips)}
+    print(f"  (a) first step under the mesh: loss {loss_k:.6f} (plain route {loss_p:.6f}, rel. "
+          f"{loss_err:.3g}, limit {TRAIN_LOSS_RTOL['bfloat16']}); gradients' relative max error "
+          f"per leaf: max {errs[worst]:.4g} ({worst}), median "
+          f"{report['first_step']['grad_rel_err_median']:.4g}, limit "
+          f"{TRAIN_GRAD_RTOL['bfloat16']}; {len(replay.flips)} near-tie routing flips of the "
+          f"plain route in {replay.layer_calls} MoE calls; control (slot 1 left out of the sum) "
+          f"loss rel. "
+          f"{ctrl_loss_err:.3g}, gradients {ctrl_errs[ctrl_worst]:.4g} ({ctrl_worst})",
+          flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL["bfloat16"]:
+        raise AssertionError(f"train_mesh: first loss {loss_k} vs plain {loss_p}")
+    if not errs[worst] <= TRAIN_GRAD_RTOL["bfloat16"]:
+        raise AssertionError(f"train_mesh: gradient {worst} off the plain route's by "
+                             f"{errs[worst]:.4g}")
+    if not ctrl_errs[ctrl_worst] > TRAIN_GRAD_RTOL["bfloat16"]:
+        raise AssertionError(f"train_mesh: the faulty control was not caught (gradients "
+                             f"{ctrl_errs[ctrl_worst]:.4g})")
+
+    # The steps, through the kernels under the mesh.
+    opt = S.train_state(model, setup.opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(S.train_step(model, opt, batches[0], micro, setup.loss_fn, mesh=mesh))]
+    step_s = time.perf_counter() - t0
+    with StreamSpans(torch, L) as spans:
+        trace = train_trace(torch, model, opt, batches[1], micro, setup.loss_fn, mesh=mesh)
+        traced = spans.ms()
+        dropped = int(spans.dropped) if spans.dropped is not None else 0
+        routed = spans.slots
+    losses.append(trace.pop("loss"))
+    launches = {n: B.LAUNCHES[n] for n in (*BWD_KERNELS, "flash_attention_sm90",
+                                           "flash_attention_kernel")}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    design = {n: passes * phase.steps * (n in bwd_kernels) for n in BWD_KERNELS}
+    design["flash_attention_sm90"] = 2 * passes * phase.steps  # the forward and its replay
+    got = {n: launches[n] for n in design}
+    if got != design:
+        raise AssertionError(f"train_mesh: launches {got}, designed {design}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_mesh: losses {losses}")
+    tokens = phase.batch * seq
+    dispatch = traced["moe"] - traced["expert products"] - traced["slot sums"]
+    report.update({
+        "losses": losses, "step_s": step_s, "tokens_per_s": tokens / step_s, "peak_gib": peak,
+        "dropped_slots_traced_step": dropped, "routed_slots_traced_step": routed,
+        "launches": launches, "launches_design": design,
+        "traced_spans_ms": traced, "moe_dispatch_ms": dispatch,
+        **trace})
+    print(f"  steps: losses {[round(x, 5) for x in losses]}; step {step_s:.3f} s "
+          f"({tokens / step_s:,.0f} tokens/s), peak {peak:.2f} GiB; traced step stream ms: "
+          f"forward {trace['forward_ms']:.1f} (MoE {traced['moe']:.1f}: dispatch {dispatch:.1f}, "
+          f"expert products {traced['expert products']:.1f}, slot sums "
+          f"{traced['slot sums']:.1f}), backward {trace['backward_ms']:.1f} (attention backward "
+          f"kernels {trace.get('attention_backward_ms') or float('nan'):.1f}), optimizer "
+          f"{trace['optimizer_ms']:.1f}; dropped slots {dropped} of {routed} (the traced "
+          f"step's MoE calls, the remat's replays included); launches {launches}", flush=True)
+    del opt, model, batches
+    torch.cuda.empty_cache()
+    report["data_parallel"] = data_parallel_check(torch, dev)
+    return report, {n: launches[n] for n in (*BWD_KERNELS, "flash_attention_sm90")}
+
+
+# The dry run's plans of the cells the card runs (dryrun_phase): gemma3-4b's
+# train_4k as TRAIN_PHASES cuts it on 1 x 1, and TRAIN_MESH on its 2 x 2
+# mesh; and the production-mesh row of qwen3-moe-30b-a3b's train_4k.  Their
+# traces on the meta device run in a process of their own beside the train
+# phases (start_dryrun).
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_PRODUCTION = ("qwen3-moe-30b-a3b", "train_4k")
+
+
+def _cut_spec(phase: TrainPhase):
+    """The arch's spec with its train cell cut as ``phase`` cuts it (rows,
+    microbatches, depth)."""
+    from repro_torch.configs.registry import get_arch
+
+    spec = get_arch(phase.arch)
+    cell = spec.cells[phase.cell]
+    cell = dataclasses.replace(cell, batch=phase.batch,
+                               extra={**cell.extra, "microbatches": phase.microbatches})
+    cfg = spec.cfg if phase.layers is None else dataclasses.replace(spec.cfg,
+                                                                    n_layers=phase.layers)
+    return dataclasses.replace(spec, cfg=cfg, cells={**spec.cells, phase.cell: cell})
+
+
+def write_dryrun(out_dir: str) -> None:
+    """The dry run's plans, analysed on the host (``roofline.analyze_plan``;
+    no card): ``plans.json`` (each plan's report, its placed bytes a slot
+    and on one card) and ``production.json`` (``launch.dryrun.run_cell``'s
+    row).  Run in a process of its own (``start_dryrun``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist.fault_tolerance import ShardSlot, SlotMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline import analyze_plan, placed_bytes
+
+    import os
+
+    os.nice(10)  # planning yields to the host-bound train phases beside it
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    plans = {}
+    for label, phase, shape in (("gemma3-4b train_4k 1x1", TRAIN_PHASES[0], "1x1"),
+                                (f"train_mesh {TRAIN_MESH_SHAPE}", TRAIN_MESH, TRAIN_MESH_SHAPE)):
+        dims = tuple(int(n) for n in shape.split("x"))
+        meta = torch.device("meta")
+        mesh = SlotMesh([ShardSlot(i, meta) for i in range(dims[0] * dims[1])], dims,
+                        ("data", "model"))
+        one = SlotMesh([ShardSlot(0, meta)], (1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        spec = _cut_spec(phase)
+        plan = build_cell(spec, phase.cell, mesh)
+        report = analyze_plan(plan, mesh, mesh_name=shape, cell=spec.cells[phase.cell])
+        plans[label] = {**report.to_dict(), "bound_time_s": report.bound_time_s,
+                        "placed_bytes_per_slot": placed_bytes(plan, mesh),
+                        "placed_bytes_one_card": placed_bytes(build_cell(spec, phase.cell, one),
+                                                              one)[0],
+                        "analysis_s": time.perf_counter() - t0}
+    (out / "plans.json").write_text(json.dumps(plans, default=float))
+    arch, cell = DRYRUN_PRODUCTION
+    row = dryrun.run_cell(get_arch(arch), cell, make_production_mesh(), "single_pod_16x16",
+                          verbose=False)
+    (out / "production.json").write_text(json.dumps(row, default=float))
+
+
+def start_dryrun():
+    """Start ``write_dryrun`` in its own process (killed at exit if it
+    still runs); returns the process."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"chip_smoke.write_dryrun({str(DRYRUN_DIR)!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def dryrun_phase(proc, train: dict) -> dict:
+    """The dry run against the card: each plan's roofline terms (FLOPs a
+    chip, placed bytes, collective bytes; ``roofline/analysis.py``) beside
+    the step time and peak memory the card measured.  The card runs every
+    slot of a plan's mesh, so its step is held to be no shorter than the
+    slots' bound (``chips x bound_time_s``) and its peak to hold at least
+    the plan's placed bytes on one card.  Prints the production-mesh row of
+    ``DRYRUN_PRODUCTION``."""
+    t0 = time.perf_counter()
+    if proc.wait(timeout=900) != 0:
+        raise RuntimeError(f"the dry run's process failed ({proc.returncode})")
+    waited = time.perf_counter() - t0
+    plans = json.loads((DRYRUN_DIR / "plans.json").read_text())
+    row = json.loads((DRYRUN_DIR / "production.json").read_text())
+    measured = {"gemma3-4b train_4k 1x1": (train["gemma3-4b"]["step_s_median"],
+                                           train["gemma3-4b"]["peak_gib"]),
+                f"train_mesh {TRAIN_MESH_SHAPE}": (train["mesh"]["step_s"],
+                                                   train["mesh"]["peak_gib"])}
+    out = {"waited_s": waited, "plans": plans, "production": row}
+    for label, r in plans.items():
+        step_s, peak_gib = measured[label]
+        card_bound = r["chips"] * r["bound_time_s"]
+        coll = r["coll_bytes_per_chip"]
+        print(f"dryrun {label}: a chip {r['flops_per_chip']:.4g} FLOPs (compute "
+              f"{r['compute_s'] * 1e3:.2f} ms), {r['bytes_per_chip'] / 2**30:.2f} GiB placed "
+              f"(memory {r['memory_s'] * 1e3:.2f} ms), collectives {coll['total'] / 2**20:.1f} "
+              f"MiB ({r['collective_s'] * 1e3:.2f} ms) -> {r['dominant']}, bound "
+              f"{r['bound_time_s'] * 1e3:.2f} ms x {r['chips']} chips = {card_bound:.4f} s on "
+              f"one card against the measured step {step_s:.4f} s; placed on one card "
+              f"{r['placed_bytes_one_card'] / 2**30:.2f} GiB against the measured peak "
+              f"{peak_gib:.2f} GiB; model FLOPs {r['model_flops_total']:.4g} (useful "
+              f"{r['useful_flop_ratio']:.3f}, roofline {r['roofline_fraction']:.3f})",
+              flush=True)
+        if not card_bound <= step_s:
+            raise AssertionError(f"dryrun {label}: bound {card_bound} s > measured {step_s} s")
+        if not r["placed_bytes_one_card"] <= peak_gib * 2**30:
+            raise AssertionError(f"dryrun {label}: placed bytes {r['placed_bytes_one_card']} > "
+                                 f"the measured peak {peak_gib} GiB")
+        out[label] = {"card_bound_s": card_bound, "measured_step_s": step_s,
+                      "measured_peak_gib": peak_gib}
+    if row.get("status") != "OK":
+        raise AssertionError(f"dryrun production row: {row}")
+    print(f"dryrun production row {row['arch']}/{row['shape']} on {row['mesh']}: a chip "
+          f"{row['flops_per_chip']:.4g} FLOPs, {row['bytes_per_chip'] / 2**30:.2f} GiB placed, "
+          f"collectives {row['coll_bytes_per_chip']['total'] / 2**30:.2f} GiB -> "
+          f"{row['dominant']}; compute {row['compute_s']:.3f} s, memory "
+          f"{row['memory_s'] * 1e3:.2f} ms, collective {row['collective_s']:.3f} s; useful "
+          f"{row['useful_flop_ratio']:.3f}, roofline {row['roofline_fraction']:.3f} (traced in "
+          f"{row['compile_s']:.1f} s)", flush=True)
+    return out
+
+
 PHASE_S = {}  # each phase's wall time, also written to the run's JSON report
 
 
@@ -4634,9 +5166,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = phase_done(f"mesh {phase.name}", t0)
     print(f"attention launches over the LM phases: {launches}", flush=True)
-    # PNA's host graphs (~80 s of numpy in a process of its own) are built
-    # beside the train phases, after the host-bound decode phases.
+    # PNA's host graphs (~80 s of numpy in a process of its own) and the dry
+    # run's traces on the meta device (~70 s) run beside the train phases,
+    # after the host-bound decode phases.
     pna_graphs = start_pna_graphs()
+    dryrun_proc = start_dryrun()
 
     # Training: the backward kernels' checks, then each train phase on an
     # empty card (gemma3-4b's state takes 62 GB), then the checkpoint
@@ -4651,6 +5185,19 @@ def main() -> int:
         for n, c in phase_launches.items():
             launches[n] = launches.get(n, 0) + c
         torch.cuda.empty_cache()
+    # Training under the slot mesh (qwen3-moe's MoE over a 2 x 2 mesh, the
+    # compressed all-reduce, dcn-v2 under 4 x 1), then the dry run's plans
+    # of the cells the card just ran against its measurements.
+    t0 = time.perf_counter()
+    train["mesh"], phase_launches = train_mesh_phase(torch, dev)
+    train["mesh"]["wall_s"] = time.perf_counter() - t0
+    phase_line("train_mesh", train["mesh"]["wall_s"])
+    for n, c in phase_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_phase(dryrun_proc, train)
+    phase_line("dryrun", time.perf_counter() - t0)
     t0 = time.perf_counter()
     train["checkpoint"] = checkpoint_phase(torch, dev)
     phase_line("checkpoint", time.perf_counter() - t0)
@@ -4853,7 +5400,7 @@ def main() -> int:
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
         "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "pna": pna_report,
-        "sanitize": sanitize,
+        "sanitize": sanitize, "dryrun": dry,
         "flash_cases": flash_errs, "flash_bwd_cases": bwd_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "phase_s": PHASE_S, "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))

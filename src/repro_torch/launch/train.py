@@ -25,6 +25,20 @@ directory resumes from the latest.  On ``cuda`` (the default) attention
 and its gradient run the hand-written kernels; ``--device cpu`` runs
 their plain PyTorch versions.
 
+``--mesh DATAxMODEL`` (e.g. ``2x2``) trains under a ``(data, model)``
+mesh of DATA·MODEL slots of the device (``launch/serve.py``'s
+``build_mesh``), the counterpart of the reference's ``--production``
+(which trains under the ``CellPlan`` shardings of the production mesh):
+each data slot takes its block of the batch's rows and the MoE dispatches
+over the model slots' experts (``launch.steps.train_step``'s mesh path).
+A mesh whose data slots do not divide the batch (and its microbatches),
+or whose model slots do not divide an MoE's experts, is refused.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --mesh 2x2 \\
+        --steps 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --config full \\
+        --cell train_4k --layers 2 --batch 4 --microbatches 2 --mesh 2x2 --steps 2
+
 ``pna`` trains as the JAX launcher's gnn branch does (no checkpoints, a
 loss printed every 5 steps): ``--config smoke`` on a 1,000-node graph at
 degree 8 (16 features, 5 classes) with AdamW at lr 5e-3 over the run;
@@ -89,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cut a pna cell's graph to this many nodes, at the cell's degree")
     ap.add_argument("--microbatches", type=int, default=None,
                     help="sequential microbatches a step (default: the cell's, else 1)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train under a (data, model) mesh of slots of the device, e.g. 2x2 "
+                         "(default: no mesh)")
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_train_ckpt"))
@@ -111,6 +128,7 @@ class TrainSetup:
     microbatches: int
     loss_fn: object
     device: torch.device
+    mesh: object = None
 
 
 def train_cell(spec, cell_name: Optional[str]):
@@ -178,6 +196,7 @@ def train_setup(args: argparse.Namespace) -> TrainSetup:
     rows = pipeline.batch_per_shard
     if micro < 1 or rows % micro:
         raise ValueError(f"{micro} microbatches do not divide a batch of {rows}")
+    mesh = train_mesh(args.mesh, dev, rows, micro, cfg)
     steps = args.steps
     tcfg = TrainerConfig(total_steps=steps, ckpt_every=max(steps // 3, 5), log_every=5,
                          ckpt_dir=f"{args.ckpt_dir}_{spec.name}")
@@ -187,7 +206,27 @@ def train_setup(args: argparse.Namespace) -> TrainSetup:
         opt_cfg = AdamWConfig(lr=SMOKE_LR if args.config == "smoke" else AdamWConfig.lr,
                               total_steps=steps, moment_dtype=moment_dtype)
     return TrainSetup(spec, cfg, lambda g: M.init(cfg, g, dev), pipeline, opt_cfg, tcfg, micro,
-                      M.loss_fn, dev)
+                      M.loss_fn, dev, mesh)
+
+
+def train_mesh(spec: Optional[str], device, rows: int, micro: int, cfg):
+    """The ``--mesh`` slot mesh (None without one).  Refuses a mesh whose
+    data slots do not divide the batch's rows into whole microbatches, or
+    whose model slots do not divide an MoE's experts."""
+    if spec is None:
+        return None
+    from repro_torch.launch.serve import build_mesh
+
+    mesh = build_mesh(spec, device)
+    data, model = mesh.dims
+    if rows % (data * micro):
+        raise ValueError(f"--mesh {spec}: {data} data slots do not divide a batch of {rows} "
+                         f"rows into {micro} microbatch(es) each")
+    moe = getattr(cfg, "moe", None)
+    if moe is not None and moe.n_experts % model:
+        raise ValueError(f"--mesh {spec}: {model} model slots do not divide "
+                         f"{moe.n_experts} experts")
+    return mesh
 
 
 @dataclasses.dataclass
@@ -234,6 +273,8 @@ def graph_setup(args: argparse.Namespace) -> GraphSetup:
         raise ValueError("--layers cuts an LM's depth; PNA's 4 layers stay")
     if args.microbatches not in (None, 1):
         raise ValueError("a PNA step is one batch (_pna_cell): no microbatches")
+    if args.mesh is not None:
+        raise ValueError("--mesh trains an LM or recsys arch; PNA's step runs its whole graph")
     cell = train_cell(spec, args.cell)
     dev = resolve_device(args.device)
     base = spec.smoke_cfg if args.config == "smoke" else spec.cfg
@@ -329,7 +370,8 @@ def train_graph(setup: GraphSetup, model=None, log_fn=print) -> Dict[str, object
 
 def make_trainer(setup: TrainSetup) -> Trainer:
     return Trainer(setup.loss_fn, setup.init_model_fn, setup.pipeline, setup.trainer_cfg,
-                   opt_cfg=setup.opt_cfg, device=setup.device, microbatches=setup.microbatches)
+                   opt_cfg=setup.opt_cfg, device=setup.device, microbatches=setup.microbatches,
+                   mesh=setup.mesh)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
@@ -352,7 +394,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     print(f"{setup.cfg.name} [{args.config}{', ' + args.cell if args.cell else ''}]: "
           f"{setup.cfg.n_params() / 1e6:.3f} M parameters, batch "
           f"{setup.pipeline.batch_per_shard} in {setup.microbatches} microbatch(es), "
-          f"{args.steps} steps on {setup.device}")
+          f"{args.steps} steps on {setup.device}"
+          + ("" if setup.mesh is None else f" under {setup.mesh!r}"))
     trainer.run()
     print(f"done; checkpoints in {setup.trainer_cfg.ckpt_dir}")
     return {"history": trainer.history, "ckpt_dir": setup.trainer_cfg.ckpt_dir}

@@ -46,8 +46,9 @@ class Trainer:
     there (the loop makes it trainable); the pipeline provides
     ``batch(PipelineState, shard) -> dict of np arrays``.  Each step runs
     :func:`repro_torch.launch.steps.train_step` (``microbatches``
-    sequential microbatches, AdamW on float32 masters).  ``device``
-    defaults to ``cuda`` and raises without a GPU.
+    sequential microbatches, AdamW on float32 masters), under ``mesh``
+    (a ``SlotMesh``) where given.  ``device`` defaults to ``cuda`` and
+    raises without a GPU.
     """
 
     def __init__(
@@ -59,6 +60,7 @@ class Trainer:
         opt_cfg: Optional[AdamWConfig] = None,
         device=None,
         microbatches: int = 1,
+        mesh=None,
     ):
         self.cfg = cfg
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=cfg.total_steps)
@@ -67,6 +69,7 @@ class Trainer:
         self.init_model_fn = init_model_fn
         self.device = resolve_device(device)
         self.microbatches = microbatches
+        self.mesh = mesh
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep_last=cfg.keep_last)
         self.monitor = StragglerMonitor(n_hosts=1,
                                         deadline_factor=cfg.straggler_deadline_factor)
@@ -105,7 +108,8 @@ class Trainer:
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in self.pipeline.batch(pstate).items()}
-            loss = float(train_step(model, opt, batch, self.microbatches, self.loss_fn))
+            loss = float(train_step(model, opt, batch, self.microbatches, self.loss_fn,
+                                    mesh=self.mesh))
             dt = time.perf_counter() - t0
             self.monitor.record([dt])
             self.history.append((step, loss, dt))

@@ -1186,3 +1186,83 @@ def test_segment_aggregate_at_each_lane_width(cuda_device, d, run_edges):
     the second chunk), runs of a length that is not a multiple of 32."""
     hs, hd, src, dst, w = aggregate_inputs(14, 500, 30000, d)
     _aggregate_on_card(cuda_device, hs, hd, src, dst, w, 500, run_edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(2, 2), (1, 4)], ids=["2x2", "1x4"])
+def test_mesh_train_step_on_the_card_equals_its_plain_route(cuda_device, dims):
+    """``launch.steps.step_grads`` under a slot mesh of the card on a small
+    MoE LM in bf16 (head dim 64: the sm90 forward and backward), the
+    expert-parallel MoE over the model slots: the loss within 2e-3 and
+    every gradient leaf within 5e-2 (max |a - b| / max |b|; the train
+    phases' bf16 limits) of the same step through the plain attention in
+    float32 (rounded to bf16 as the kernel's output is) with the kernel
+    route's experts at every MoE call (a bf16 near-tie may route a token
+    elsewhere otherwise), the sm90 backward once a layer a microbatch, and
+    the MoE dispatched under the whole mesh (its tokens split over the data
+    slots, each block over its slot's model slots)."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_moe_30b_a3b
+    from repro_torch.dist.fault_tolerance import ElasticMesh
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(qwen3_moe_30b_a3b.SMOKE, dtype="bfloat16", d_model=128, n_heads=4,
+                              n_kv_heads=2, head_dim=64, remat="full")
+    model = T.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    model.requires_grad_(True)
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 129), generator=gen)
+    batch = {"tokens": tokens[:, :-1].to(cuda_device), "targets": tokens[:, 1:].to(cuda_device)}
+    mesh = ElasticMesh(dims[1]).remesh([cuda_device] * (dims[0] * dims[1]))
+    calls = []
+    real = L._moe_apply_sharded
+
+    def counted(*args):
+        calls.append(args[-1].dims)
+        return real(*args)
+
+    def plain(q, k, v, causal=True, window=None):
+        out = attention_ref(q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+                            v.transpose(1, 2).float(), causal=causal, window=window)
+        return out.transpose(1, 2).to(q.dtype)
+
+    chosen, real_routing = [], L.top_k_routing
+
+    def recorded(probs, top_k):
+        gates, experts = real_routing(probs, top_k)
+        chosen.append(experts)
+        return gates, experts
+
+    def forced(probs, top_k):  # the kernel route's experts, this route's gates
+        experts = chosen[len(used)]
+        used.append(experts)
+        gates = probs.gather(1, experts)
+        return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), experts
+
+    used = []
+    L._moe_apply_sharded, L.top_k_routing = counted, recorded
+    try:
+        B.reset_launch_counts()
+        loss, grads = S.step_grads(model, params, batch, 2, T.loss_fn, mesh)
+        torch.cuda.synchronize()
+        launches = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+        original = L.attention
+        L.attention, L.top_k_routing = plain, forced
+        try:
+            plain_loss, plain_grads = S.step_grads(model, params, batch, 2, T.loss_fn, mesh)
+        finally:
+            L.attention = original
+    finally:
+        L._moe_apply_sharded, L.top_k_routing = real, real_routing
+    assert len(used) == len(chosen)
+    passes = cfg.n_layers * 2
+    assert launches == {n: passes * (n in BWD_ROUTE_KERNELS["sm90"]) for n in BWD_KERNELS}
+    assert calls and all(c == dims for c in calls)
+    assert abs(float(loss) - float(plain_loss)) <= 2e-3 * abs(float(plain_loss))
+    for name, want in plain_grads.items():
+        err = float((grads[name] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        assert err <= 5e-2, (name, err)
