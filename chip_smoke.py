@@ -58,7 +58,7 @@
    2**-8 times the plain attention of |v| on the sm90 variant, which
    rounds P to bf16), each case through the variant the launcher picks
    (``kernel.flash_route``: the bf16 tensor-core prefill ``sm90``, the
-   split-K ``decode`` with its combine, the fp32 ``resident`` kernel (K
+   split-K ``decode`` in one launch, the fp32 ``resident`` kernel (K
    and V of a head in shared memory; not causal, no window) or the
    ``general`` kernel) and read from the counters;
 9. drives the LM serving path through the launcher's own functions
@@ -72,7 +72,8 @@
    each with seeded random weights — counters set to 0 just before each
    phase's ``serve`` and the attention counters read just after (one call
    per layer per model call: the prefill's on the sm90 variant, the
-   decode steps' on the split-K variant and its combine) — then replays
+   decode steps' on the split-K variant, one launch whose last blocks
+   merge the splits) — then replays
    the same run with attention through the plain version (over query
    chunks where the whole score tensor would not fit), fed the kernel
    route's tokens and, with MoE, its experts (the plain route's own
@@ -116,18 +117,21 @@
    layer at 4,096 tokens in bf16, BERT4Rec's call at 32,768 rows in fp32,
    past one launch chunk, qwen3-moe-30b-a3b's layer at the mesh step's
    microbatch of 2 rows of 4,096 tokens in bf16), each call through the route
-   ``kernel.bwd_route`` names (``BWD_ROUTE_KERNELS``, one launch of each
-   a call): for fp32, not causal, no window (BERT4Rec's call) the
-   resident kernel ``flash_bwd_resident`` alone
-   (``csrc/flash_attention_bwd_resident.cu``, given the resident
-   forward's log-sum-exp; ``FLASH_BWD_TOL``; a rerun bit-identical), else
-   ``flash_bwd_prep`` (``csrc/flash_attention_bwd.cu``; delta alone where
-   the sm90 forward saved the log-sum-exp), then for bf16 at D in {64,
-   128, 256} the tensor-core ``flash_bwd_dkdv_sm90`` and
-   ``flash_bwd_dq_sm90`` (``csrc/flash_attention_bwd_sm90.cu``; limit
-   ``FLASH_BWD_TOL`` plus the rounding term of P and dS,
-   ``bwd_rounding_terms``), else the general ``flash_bwd_dkdv`` and
-   ``flash_bwd_dq`` (``FLASH_BWD_TOL``); the sm90 and resident cases also
+   ``kernel.bwd_route`` names (``kernel.bwd_launches``, one launch of each
+   a call; ``BWD_ROUTE_KERNELS`` given the forward's log-sum-exp): for
+   fp32, not causal, no window (BERT4Rec's call) the resident kernel
+   ``flash_bwd_resident`` alone (``csrc/flash_attention_bwd_resident.cu``,
+   given the resident forward's log-sum-exp; ``FLASH_BWD_TOL``; a rerun
+   bit-identical); for bf16 at D in {64, 128, 256}, given the sm90
+   forward's log-sum-exp, the tensor-core ``flash_bwd_dq_sm90`` computing
+   delta itself, then ``flash_bwd_dkdv_sm90`` reading it
+   (``csrc/flash_attention_bwd_sm90.cu``; limit ``FLASH_BWD_TOL`` plus the
+   rounding term of P and dS, ``bwd_rounding_terms``; dQ's delta within
+   D·2**-24·Σ|dO ∘ O| of a float64 rowsum; a rerun bit-identical; the
+   three launches it replaced, ``flash_bwd_prep`` first, held to the same
+   limit), else ``flash_bwd_prep`` (``csrc/flash_attention_bwd.cu``;
+   delta alone given the log-sum-exp) then the general ``flash_bwd_dkdv``
+   and ``flash_bwd_dq`` (``FLASH_BWD_TOL``); the sm90 and resident cases also
    through the general backward forced; each kernel alone against its
    plain part, the sm90 and resident forwards' log-sum-exp against the
    plain one, and the faulty controls that must land beyond their route's
@@ -233,8 +237,9 @@
 12. times each kernel against its plain version at the main path's
    shapes (the attention call at each phase's shapes, beside
    ``scaled_dot_product_attention`` with a boolean mask and as the fastest
-   single call; the decode variant's split kernel and combine one by
-   one; the fold, ``cluster_scores`` and attention also as device time
+   single call; the decode variant's one launch beside the two-kernel
+   call it replaced (bit for bit), its split kernel alone, and the
+   combine alone at the mesh shards' shapes; the fold, ``cluster_scores`` and attention also as device time
    from a CUDA-graph replay, without the host's launch cost;
    ``cluster_scores`` beside its first design, the ``general`` variant,
    re-timed on the same inputs), sums launches x (time - bound) over the
@@ -254,8 +259,10 @@
    bound at the tensor cores' TF32 rate over three products, and at both
    the general ones forced), beside the whole backward of the route and
    of the general kernels and ``scaled_dot_product_attention``'s
-   backward.  Each phase's wall time
-   is printed on a line of its own (``phase <name>: <s>s``);
+   backward (the sm90 route's dQ computing delta, and the whole route,
+   in turns with the three launches it replaced).  Each phase's wall time
+   is printed on a line of its own (``phase <name>: <s>s``), after a
+   check that the one-launch decode's counter buffer is all zeros;
 13. prints ``{"ok": true, "device": {...}}`` as its last line.
 
 Any mismatch or error raises and the script exits non-zero.  Without a
@@ -553,6 +560,14 @@ def graph_ms(fn, reps: int = 20) -> float:
     ms = start.elapsed_time(end) / reps
     del graph
     return ms
+
+
+def ab_turns(fn, old, reps: int = 20) -> dict:
+    """``fn`` against ``old``, the design it replaces, timed in turns (fn,
+    old, old, fn; ``time_ms`` each): the mean of each and the four turns."""
+    turns = [time_ms(fn, reps), time_ms(old, reps), time_ms(old, reps), time_ms(fn, reps)]
+    return {"ms": (turns[0] + turns[3]) / 2, "old_ms": (turns[1] + turns[2]) / 2,
+            "turns": turns}
 
 
 def max_abs_err(a, b) -> int:
@@ -1651,10 +1666,11 @@ def lm_phase(torch, dev, phase: LMPhase):
     calls = 1 + args.decode_steps
     expected = cfg.n_layers * calls
     # One call a layer a model call: the prefill's on the sm90 variant, each
-    # decode step's on the split-K variant and its combine.
+    # decode step's on the split-K variant, one launch whose last blocks
+    # merge the splits (no combine launch).
     design = {"flash_attention_kernel": expected, "flash_attention_sm90": cfg.n_layers,
               "flash_attention_decode": cfg.n_layers * args.decode_steps,
-              "flash_attention_combine": cfg.n_layers * args.decode_steps,
+              "flash_attention_combine": 0,
               "flash_attention_resident": 0, "flash_attention_general": 0}
     if launches != design:
         raise AssertionError(f"{phase.name}: attention launches {launches}, the design gives "
@@ -2342,8 +2358,11 @@ def flash_rows(torch, dev, launches, checked_errs):
     """The attention at the LM path's shapes (``FLASH_ROW_SHAPES``) in bf16
     (the model's strided layout).  Returns four entries: the attention call
     (``flash_attention_kernel``) at every shape, the sm90 variant at the
-    prefill shapes, and the decode variant's split kernel and combine, each
-    alone against its plain version, at the decode shapes."""
+    prefill shapes, the decode variant's one-launch call against the
+    two-kernel call at the single-device decode shapes and its split
+    kernel alone at every decode shape, and the combine kernel alone at
+    the mesh shard shapes (the only merges it does), each against its plain
+    version."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2352,7 +2371,7 @@ def flash_rows(torch, dev, launches, checked_errs):
     from repro_torch.kernels.flash_attention.ref import combine_ref, decode_partials_ref
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    call_rows, sm90_rows, decode_rows, combine_rows = [], [], [], []
+    call_rows, sm90_rows, fused_rows, decode_rows, combine_rows = [], [], [], [], []
     for n, (shape, b, h, hkv, lq, lk, d, window, copies) in enumerate(FLASH_ROW_SHAPES):
         sets = [flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=100 + n + c,
                              model_layout=True)
@@ -2432,19 +2451,23 @@ def flash_rows(torch, dev, launches, checked_errs):
         if route == "sm90":
             sm90_rows.append(row)  # the call is the variant's one launch
         else:
+            plan = FK.decode_plan(lq, lk, window, b * hkv, sms)
             decode_rows.append(decode_split_row(torch, FK, decode_partials_ref, sets, shape,
-                                                window, FK.decode_plan(lq, lk, window, b * hkv,
-                                                                       sms), q.numel() * 2 + kv_bytes,
-                                                ops))
-            combine_rows.append(decode_combine_row(torch, FK, combine_ref, sets[0], shape, window,
-                                                   decode_rows[-1]["plan"]))
+                                                window, plan, q.numel() * 2 + kv_bytes, ops))
+            if "mesh" in shape:  # a shard's partials: the mesh merges them with the combine
+                combine_rows.append(decode_combine_row(torch, FK, combine_ref, sets[0], shape,
+                                                       window, plan))
+            else:
+                fused_rows.append(decode_fused_row(torch, FK, sets, shape, window, plan,
+                                                   q.numel() * 2 + kv_bytes, ops, row))
         del sets, q, k, v, got, mask, plain, library, library_mask
         if big:
             del kr, vr
     entries = [kernel_entry("flash_attention_kernel", launches, call_rows,
                             variant=call_rows[0]["variant"]),
                kernel_entry("flash_attention_sm90", launches, sm90_rows, variant="sm90"),
-               kernel_entry("flash_attention_decode", launches, decode_rows, variant="decode"),
+               kernel_entry("flash_attention_decode", launches, fused_rows + decode_rows,
+                            variant="decode"),
                kernel_entry("flash_attention_combine", launches, combine_rows, variant="decode")]
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
                                     *(checked_errs[t]["max_abs_err"] for t in ("float32",
@@ -2479,6 +2502,57 @@ def decode_split_row(torch, FK, decode_partials_ref, sets, shape, window, plan, 
             "device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def decode_fused_row(torch, FK, sets, shape, window, plan, in_bytes, ops, call_row):
+    """The decode call's one launch (the split kernel, whose last block of
+    each (batch, KV head) merges the splits) against the two-kernel call it
+    replaces (``kernel._decode_two_kernels_forced``: the split kernel's
+    partials, then the combine) on the same inputs: equal bit for bit,
+    timed in turns and as graph replays, the counter buffer all zeros
+    after.  Its error against the plain attention is the call row's (the
+    same output); its plain version is the split's then the combine's.
+    Bound: the split kernel's bytes with the output in place of the
+    partials."""
+    from repro_torch.kernels.flash_attention.ref import combine_ref, decode_partials_ref
+
+    q, k, v = sets[0]
+    b, h, lq, _ = q.shape
+    hkv = k.shape[1]
+    got = FK.flash_attention_cuda(q, k, v, causal=True, window=window)
+    two = FK._decode_two_kernels_forced(q, k, v, causal=True, window=window)
+    if not torch.equal(got, two):
+        raise AssertionError(f"the one-launch decode at {shape} differs from the two-kernel "
+                             f"call: max |diff| {float((got.float() - two.float()).abs().max())}")
+    turn = iter(range(10**9))
+
+    def fused():
+        qq, kk, vv = sets[next(turn) % len(sets)]
+        return FK.flash_attention_cuda(qq, kk, vv, causal=True, window=window)
+
+    def forced():
+        qq, kk, vv = sets[next(turn) % len(sets)]
+        return FK._decode_two_kernels_forced(qq, kk, vv, causal=True, window=window)
+
+    turns = ab_turns(fused, forced)
+    device_ms, old_device_ms = graph_ms(fused), graph_ms(forced)
+    torch.cuda.synchronize()
+    if bool(FK.decode_counters(q.device).any()):
+        raise AssertionError(f"the decode counters are not all 0 after {shape}")
+    plain_ms = time_ms(lambda: combine_ref(*decode_partials_ref(q, k, v, True, window, plan), b, h,
+                                           hkv, lq, q.dtype), reps=3)
+    # q and the visible K/V rows read once, the output written once.
+    nbytes = in_bytes + 2 * got.numel()
+    bytes_ms, ops_ms = nbytes / MEM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"shape": f"{shape}: one launch, {plan[3]} splits merged by the last block",
+            "plan": plan, "bytes": nbytes, "ops": ops, "max_abs_err": call_row["max_abs_err"],
+            "ms": turns["ms"], "ms_turns": turns["turns"], "device_ms": device_ms,
+            "old_ms": turns["old_ms"], "old_device_ms": old_device_ms, "plain_ms": plain_ms,
+            "library_ms": call_row["library_ms"],
+            "library_device_ms": call_row["device_ms"]["library_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bit_equal_two_kernels": True}
 
 
 def decode_combine_row(torch, FK, combine_ref, qkv, shape, window, plan):
@@ -2966,10 +3040,12 @@ BWD_TRAIN_SHAPES = (
 )
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
                "flash_bwd_dq_sm90", "flash_bwd_resident")
-# The kernels one backward call launches on each route (kernel.bwd_route):
-# the fp32 resident kernel alone (given the forward's log-sum-exp), or
-# prep, then the bf16 tensor-core dK/dV and dQ, or the general pair.
-BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
+# The kernels one backward call launches on each route (kernel.bwd_route),
+# given the forward's log-sum-exp, in launch order (kernel.bwd_launches):
+# the fp32 resident kernel alone, the bf16 tensor-core dQ (computing delta)
+# then dK/dV, or prep (delta) then the general pair.  Without the
+# log-sum-exp, prep comes first on every route.
+BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"),
                      "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
                      "resident": ("flash_bwd_resident",)}
 # Flops a visible (row, key) pair and head, per unit of D, that each kernel
@@ -3141,10 +3217,11 @@ def check_flash_bwd_cases(torch, dev) -> dict:
 
     t0 = time.perf_counter()
     routes = ("float32 resident", "float32 general", "float32 general (forced)",
-              "bfloat16 sm90", "bfloat16 general", "bfloat16 general (forced)")
+              "bfloat16 sm90", "bfloat16 sm90 (forced, prep first)", "bfloat16 general",
+              "bfloat16 general (forced)")
     worst = {r: {"max_abs_err": 0.0, "share": 0.0, "cases": 0,
                  "kernels": {name: {"max_abs_err": 0.0, "share": 0.0}
-                             for name in (*BWD_KERNELS, "forward_lse")}}
+                             for name in (*BWD_KERNELS, "forward_lse", "dq_sm90 delta")}}
              for r in routes}
 
     def hold(key, label, name, got, want, extra=None, kernel=None):
@@ -3155,6 +3232,20 @@ def check_flash_bwd_cases(torch, dev) -> dict:
             raise AssertionError(f"{kernel or 'backward'} {label} ({key}): {exc}") from exc
         mine["max_abs_err"] = max(mine["max_abs_err"], err)
         mine["share"] = max(mine["share"], share)
+
+    def hold_delta(key, label, delta, out, dout):
+        """dQ's own delta = rowsum(dO ∘ O) against a float64 rowsum: fp32
+        sums of exact products (bf16 times bf16) over D terms, within
+        D·2**-24·Σ|dO ∘ O|."""
+        prod = (dout.double() * out.double()).reshape(delta.shape[0], delta.shape[1], -1)
+        err = (delta.double() - prod.sum(-1)).abs()
+        limit = prod.shape[-1] * 2.0**-24 * prod.abs().sum(-1)
+        share = float((err / limit.clamp_min(1e-300)).max())
+        mine = worst[key]["kernels"]["dq_sm90 delta"]
+        mine["max_abs_err"] = max(mine["max_abs_err"], float(err.max()))
+        mine["share"] = max(mine["share"], share)
+        if share > 1.0:
+            raise AssertionError(f"dQ's delta at {label} ({key}): {share:.3g} of its limit")
 
     def counted(fn, label, want):
         before = {name: B.LAUNCHES[name] for name in BWD_KERNELS}
@@ -3180,14 +3271,19 @@ def check_flash_bwd_cases(torch, dev) -> dict:
         sm90 = route == "sm90"
         dkdv = FK.bwd_dkdv_sm90_cuda if sm90 else FK.bwd_dkdv_cuda
         dq_fn = FK.bwd_dq_sm90_cuda if sm90 else FK.bwd_dq_cuda
-        names = BWD_ROUTE_KERNELS[route]
+        suffix = "_sm90" if sm90 else ""
         dk, dv = dkdv(q, k, v, dout, lse, delta, causal, window)
         want_k = plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dkdv", lse, delta)
         for name, g, w, t in zip(("dk", "dv"), (dk, dv), want_k, terms[1:], strict=True):
-            hold(key, label, name, g, w, t if sm90 else None, kernel=names[1])
+            hold(key, label, name, g, w, t if sm90 else None, kernel="flash_bwd_dkdv" + suffix)
         dq = dq_fn(q, k, v, dout, lse, delta, causal, window)
         (want_q,) = plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq", lse, delta)
-        hold(key, label, "dq", dq, want_q, terms[0] if sm90 else None, kernel=names[2])
+        hold(key, label, "dq", dq, want_q, terms[0] if sm90 else None,
+             kernel="flash_bwd_dq" + suffix)
+        if sm90 and lse_fwd is not None:  # dQ computing delta itself, given the forward's lse
+            dq2, delta3 = FK.bwd_dq_delta_sm90_cuda(q, k, v, out, dout, lse_fwd, causal, window)
+            hold_delta(key, label, delta3, out, dout)
+            hold(key, label, "dq", dq2, want_q, terms[0], kernel="flash_bwd_dq_sm90")
 
     def control(name, got, want, terms=(None, None, None)):
         """A faulty control's share of the limit; the least over its cases."""
@@ -3208,7 +3304,7 @@ def check_flash_bwd_cases(torch, dev) -> dict:
                                                  window, seed=500 + n)
         got = counted(lambda: FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window,
                                                           lse=lse_fwd),
-                      label, BWD_ROUTE_KERNELS[route])
+                      label, FK.bwd_launches(route, lse_fwd is not None))
         want = plain_bwd_parts(torch, q, k, v, out, dout, causal, window)
         plain_lse, plain_delta = plain_bwd_parts(torch, q, k, v, out, dout, causal, window,
                                                  "prep")
@@ -3242,6 +3338,17 @@ def check_flash_bwd_cases(torch, dev) -> dict:
                 control("group sum dropped (resident)", bad[1:], want[1:])
         else:
             kernels_alone(key, label, q, k, v, out, dout, causal, window, route, lse_fwd, terms)
+        if route == "sm90" and lse_fwd is not None:  # the three launches before dQ took delta
+            fkey = f"{dt} sm90 (forced, prep first)"
+            old = counted(lambda: FK._sm90_bwd_prep_forced(q, k, v, out, dout, causal, window,
+                                                           lse=lse_fwd),
+                          label, FK.bwd_launches("sm90", False))
+            for name, g, w, t in zip(("dq", "dk", "dv"), old, want, terms, strict=True):
+                hold(fkey, label, name, g, w, t)
+            worst[fkey]["cases"] += 1
+            again = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window, lse=lse_fwd)
+            if not all(torch.equal(a, c) for a, c in zip(got, again, strict=True)):
+                raise AssertionError(f"the sm90 backward at {label}: a rerun differs")
         if route != "general":  # the general backward on the same inputs
             gkey = f"{dt} general (forced)"
             forced = counted(lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window),
@@ -3336,6 +3443,7 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                   "prep (delta)": 2 * qb + stat,  # o, dO; delta
                   "dkdv": 2 * qb + 2 * kb + 2 * stat + 2 * kb,  # q, k, v, dO, lse, delta; dk, dv
                   "dq": 2 * qb + 2 * kb + 2 * stat + qb,  # ...; dq
+                  "dq (delta)": 3 * qb + 2 * kb + stat + qb + stat,  # q, o, dO, k, v, lse; dq, delta
                   # q, o, dO, k, v, lse; dq, dk, dv
                   "resident": 3 * qb + 2 * kb + stat + qb + 2 * kb}
         plain = {
@@ -3345,6 +3453,9 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                                             lse, delta),
             "dq": lambda: plain_bwd_parts(torch, q, k, v, out, dout, causal, window, "dq", lse,
                                           delta),
+            "dq (delta)": lambda: plain_bwd_parts(
+                torch, q, k, v, out, dout, causal, window, "dq", lse_fwd,
+                (dout.float() * out.float()).sum(-1).reshape(b * h, lq)),
         }
         # (kernel, its part, the call, whose row, the row's label suffix)
         calls = [("flash_bwd_prep", "prep",
@@ -3353,12 +3464,21 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                   lambda: FK.bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal, window), "general"),
                  ("flash_bwd_dq", "dq",
                   lambda: FK.bwd_dq_cuda(q, k, v, dout, lse, delta, causal, window), "general")]
+        # The sm90 route's dQ computing delta against the pair it replaces
+        # (prep's delta, then dQ reading it), in turns.
+        dq_delta = lambda: FK.bwd_dq_delta_sm90_cuda(q, k, v, out, dout, lse_fwd,  # noqa: E731
+                                                     causal, window)
+        prep_dq = lambda: FK.bwd_dq_sm90_cuda(  # noqa: E731
+            q, k, v, dout, lse_fwd,
+            FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd)[1], causal,
+            window)
         if route == "sm90":
-            calls = [("flash_bwd_prep", "prep (delta)",
-                      lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd),
-                      "sm90"),
+            calls = [("flash_bwd_dq_sm90", "dq (delta)", dq_delta, "sm90"),
                      ("flash_bwd_dkdv_sm90", "dkdv",
                       lambda: FK.bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window),
+                      "sm90"),
+                     ("flash_bwd_prep", "prep (delta)",
+                      lambda: FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse_fwd),
                       "sm90"),
                      ("flash_bwd_dq_sm90", "dq",
                       lambda: FK.bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window),
@@ -3379,6 +3499,14 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                                                     lse=lse_fwd)
         general = lambda: FK._general_bwd_forced(q, k, v, out, dout, causal, window)  # noqa: E731
         whole_ms, whole_device = time_ms(whole, reps=5), graph_ms(whole, reps=5)
+        old_whole = None
+        if route == "sm90":  # the three launches before dQ took delta: prep, dK/dV, dQ
+            old = lambda: FK._sm90_bwd_prep_forced(q, k, v, out, dout, causal,  # noqa: E731
+                                                   window, lse=lse_fwd)
+            turns = ab_turns(whole, old, reps=5)
+            whole_ms = turns["ms"]
+            old_whole = {"ms": turns["old_ms"], "turns": turns["turns"],
+                         "device_ms": graph_ms(old, reps=5)}
         if route != "general":
             general_ms, general_device = time_ms(general, reps=3), graph_ms(general, reps=3)
         else:
@@ -3393,12 +3521,18 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
               f"{dt}, {pairs} visible pair-heads, route {route}: the backward {whole_ms:.4f} ms "
               f"(graph {whole_device:.4f}), the general backward {general_ms:.4f} (graph "
               f"{general_device:.4f}), plain {whole_plain:.4f}, SDPA's backward "
-              f"{library_ms:.4f} (rel. max err {lib_share:.2g}); bound {whole_bound:.5f} ms "
+              f"{library_ms:.4f} (rel. max err {lib_share:.2g})"
+              + ("" if old_whole is None else
+                 f", the three-launch sm90 backward (prep first) {old_whole['ms']:.4f} (graph "
+                 f"{old_whole['device_ms']:.4f})")
+              + f"; bound {whole_bound:.5f} ms "
               f"({BWD_MIN_FLOPS}·D flops a pair-head at {rates[route] / 1e12:.0f} TFLOP/s; the "
               f"general backward's {general_bound:.5f} at {rates['general'] / 1e12:.0f}; bytes "
               f"{whole_bytes / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
         for name, part, kernel, which in calls:
             ops = 0 if part == "prep (delta)" else BWD_FLOPS[name] * d * pairs
+            if part == "dq (delta)":  # and delta: a multiply-add a row element
+                ops += 2 * d * b * h * lq
             bytes_ms = nbytes[part] / MEM_BYTES_PER_S * 1e3
             ops_ms = ops / (rates[which] if which == "resident" else peak) * 1e3
             key = f"{dt} {which}" + ("" if which == route else " (forced)")
@@ -3407,7 +3541,8 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                          + ("" if which == route else ", the general backward forced"),
                 "part": part, "ms": time_ms(kernel, reps=3 if which == "general" else 5),
                 "device_ms": graph_ms(kernel, reps=3 if which == "general" else 5),
-                "plain_ms": time_ms(plain[part.split()[0]], reps=reps, warmup=1), "ops": ops,
+                "plain_ms": time_ms(plain.get(part, plain[part.split()[0]]), reps=reps,
+                                    warmup=1), "ops": ops,
                 "bytes": nbytes[part], "visible_pair_heads": pairs,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3417,8 +3552,15 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                 "general_backward_ms": general_ms, "general_backward_device_ms": general_device,
                 "general_backward_bound_ms": general_bound,
                 "whole_backward_plain_ms": whole_plain, "whole_backward_bound_ms": whole_bound,
+                "whole_backward_three_launch": old_whole,
                 "max_abs_err": checked[key]["kernels"][name]["max_abs_err"],
             }
+            if part == "dq (delta)":  # the pair it replaces, in turns with it
+                turns = ab_turns(dq_delta, prep_dq, reps=5)
+                row.update(ms=turns["ms"], ms_turns=turns["turns"], old_ms=turns["old_ms"],
+                           old_device_ms=graph_ms(prep_dq, reps=5),
+                           delta_max_abs_err=checked[key]["kernels"]["dq_sm90 delta"][
+                               "max_abs_err"])
             own = ""
             if name == "flash_bwd_resident":
                 own_ms = RESIDENT_BWD_OWN_FLOPS * d * pairs / rates["resident"] * 1e3
@@ -3426,14 +3568,51 @@ def flash_bwd_rows(torch, dev, launches, checked) -> list:
                 own = (f"; its own {RESIDENT_BWD_OWN_FLOPS}·D products' bound "
                        f"{row['own_products_bound_ms']:.5f}")
             rows[name].append(row)
+            old = ("" if "old_ms" not in row else
+                   f" (prep then dq, the pair it replaces: ms={row['old_ms']:.4f} "
+                   f"device_ms={row['old_device_ms']:.4f})")
             print(f"{name} {row['shape']} [{part}]: ms={row['ms']:.4f} "
-                  f"device_ms={row['device_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f}{old} plain_ms={row['plain_ms']:.4f} "
                   f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
                   f"{0 if not ops else BWD_FLOPS[name]}·D flops a pair-head, bytes "
                   f"{bytes_ms:.5f}{own})", flush=True)
         del q, k, v, out, dout, lse, delta, lse_fwd, library
         torch.cuda.empty_cache()
     return [kernel_entry(name, launches, rows[name], variant="backward") for name in BWD_KERNELS]
+
+
+class Sm90Order:
+    """While active, records the order in which the sm90 backward's kernels
+    are called (``order``: their launch counters' names), through the
+    kernel module's functions, which the route calls by those names."""
+
+    WRAPPED = {"bwd_dq_delta_sm90_cuda": "flash_bwd_dq_sm90", "bwd_dq_sm90_cuda": "flash_bwd_dq_sm90",
+               "bwd_dkdv_sm90_cuda": "flash_bwd_dkdv_sm90", "bwd_prep_cuda": "flash_bwd_prep"}
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as FK
+
+        self.FK, self.order, self.real = FK, [], {}
+        for fn, counter in self.WRAPPED.items():
+            real = self.real[fn] = getattr(FK, fn)
+
+            def recorded(*args, real=real, counter=counter, **kwargs):
+                self.order.append(counter)
+                return real(*args, **kwargs)
+
+            setattr(FK, fn, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, real in self.real.items():
+            setattr(self.FK, fn, real)
+
+    def check(self, label: str, calls: int) -> None:
+        """``calls`` backward calls, each dQ (computing delta) then dK/dV."""
+        if self.order != list(BWD_ROUTE_KERNELS["sm90"]) * calls:
+            raise AssertionError(f"{label}: the sm90 backward's calls ran in the order "
+                                 f"{self.order[:6]}... ({len(self.order)} in all), want dQ then "
+                                 f"dK/dV in each of {calls}")
 
 
 class FaultyBackward:
@@ -3568,7 +3747,10 @@ def train_phase(torch, dev, phase: TrainPhase) -> tuple:
     # The first step's gradients, kernel route against the plain route.
     if lm or phase.arch == "bert4rec":
         B.reset_launch_counts()
-        loss_k = _grads_of(torch, model, route, setup.loss_fn)
+        with Sm90Order() as order:
+            loss_k = _grads_of(torch, model, route, setup.loss_fn)
+        if lm:
+            order.check(phase.arch, n_attn * len(route))
         first_launches = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
         if first_launches != {n: n_attn * len(route) * (n in bwd_kernels) for n in BWD_KERNELS}:
             raise AssertionError(f"{phase.arch}: first step's backward launches "
@@ -4829,11 +5011,13 @@ def train_mesh_phase(torch, dev) -> tuple:
 
     L.top_k_routing = recorded
     try:
-        loss_k, grads = S.step_grads(model, params, batches[0], micro, setup.loss_fn, mesh)
+        with Sm90Order() as order:
+            loss_k, grads = S.step_grads(model, params, batches[0], micro, setup.loss_fn, mesh)
     finally:
         L.top_k_routing = real_routing
     first = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
     passes = cfg.n_layers * micro
+    order.check("train_mesh", passes)
     if first != {n: passes * (n in bwd_kernels) for n in BWD_KERNELS}:
         raise AssertionError(f"train_mesh: first step's backward launches {first}, want "
                              f"{passes} of each of {bwd_kernels}")
@@ -5086,12 +5270,31 @@ def dryrun_phase(proc, train: dict) -> dict:
 
 
 PHASE_S = {}  # each phase's wall time, also written to the run's JSON report
+COUNTERS_ZERO_AFTER = []  # the phases after which the decode counters were checked all 0
 
 
 def phase_line(name: str, seconds: float, tail: str = "") -> None:
-    """Print a phase's wall time on a line of its own and record it."""
+    """Print a phase's wall time on a line of its own and record it, after
+    checking that the decode's counter buffer is all zeros."""
+    decode_counters_zero(name)
     PHASE_S[name] = seconds
     print(f"phase {name}: {seconds:.1f}s{tail}", flush=True)
+
+
+def decode_counters_zero(phase: str) -> None:
+    """Raise unless the one-launch decode's counter buffer on the card (once
+    a decode call has made it) is all zeros, as every decode launch leaves
+    it: each (batch, KV head)'s last block sets its counter back to 0."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    counters = FK.decode_counters(torch.device("cuda", 0))
+    if counters is not None and bool(counters.any()):
+        raise AssertionError(f"after {phase}: {int(counters.count_nonzero())} decode counters "
+                             f"are not 0")
+    if counters is not None:
+        COUNTERS_ZERO_AFTER.append(phase)
 
 
 def phase_done(name: str, t0: float) -> float:
@@ -5383,8 +5586,12 @@ def main() -> int:
               flush=True)
     for entry in (by_name["flash_attention_decode"], by_name["flash_attention_combine"]):
         for row in entry["shapes"]:
+            old = ("" if "old_ms" not in row else
+                   f" (two-kernel call: ms={row['old_ms']:.4f} "
+                   f"device_ms={row['old_device_ms']:.4f}; turns "
+                   f"{'/'.join(f'{t:.4f}' for t in row['ms_turns'])})")
             print(f"{entry['name']} {row['shape']}: ms={row['ms']:.4f} "
-                  f"device_ms={row['device_ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f}{old} "
                   f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
                   f"({row['bound_by']}) bytes={row['bytes']} max_abs_err={row['max_abs_err']:.3g}",
                   flush=True)
@@ -5402,7 +5609,8 @@ def main() -> int:
         "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "pna": pna_report,
         "sanitize": sanitize, "dryrun": dry,
         "flash_cases": flash_errs, "flash_bwd_cases": bwd_errs, "ptxas": B.PTXAS, "kernels": kernels,
-        "phase_s": PHASE_S, "wall_s": time.perf_counter() - t_start,
+        "phase_s": PHASE_S, "decode_counters_zero_after": COUNTERS_ZERO_AFTER,
+        "wall_s": time.perf_counter() - t_start,
     }, indent=1, default=float))
     print(json.dumps({"kernels": [
         {k: v for k, v in entry.items() if k != "shapes"} for entry in kernels]}))

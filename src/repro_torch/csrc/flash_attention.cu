@@ -640,15 +640,29 @@ extern "C" int flash_resident_launch(const void* q, const void* k, const void* v
 // NEG_INF, p = exp(s - m) in fp32 with the running max m of each key slot
 // of each warp, and the fp32 (m, l, acc) of those slots are merged in
 // shared memory into the split's partial: M = max m, L = Σ e^{m-M} l,
-// A = Σ e^{m-M} acc.  A second kernel merges the splits of each row in
-// split order (so the result does not depend on the order in which blocks
-// finish) and writes A / max(L, 1e-30) in the output dtype.  A split or
-// slot whose keys are all masked for a row holds m = NEG_INF and gets
-// weight e^{NEG_INF - M} = 0 beside the split that holds the row's
-// visible keys, exactly as masked keys do in the general kernel.
+// A = Σ e^{m-M} acc.  The splits of each row are then merged in split
+// order (so the result does not depend on the order in which blocks
+// finish) into A / max(L, 1e-30) in the output dtype, by one routine
+// (fa_merge_splits) that two callers share, so they give the same bits:
+//   - Fused (the single-device call): the last block of each (batch, KV
+//     head) to finish.  Each block, after writing its partial, counts
+//     itself on an int32 counter of its (batch, KV head) (fence, then
+//     atomicAdd: the partial is visible before the count); the block that
+//     sees n_splits - 1 fences, reads every split's partial through L2
+//     (__ldcg: L1 is not coherent across SMs), merges them into o and sets
+//     the counter back to 0 for the next launch.  One launch a call, no
+//     float atomics.
+//   - PartialsOnly, then flash_combine_kernel: the mesh decode, whose
+//     shards' partials come from separate launches (models/layers.py
+//     merges them across shards).
+// A split or slot whose keys are all masked for a row holds m = NEG_INF
+// and gets weight e^{NEG_INF - M} = 0 beside the split that holds the
+// row's visible keys, exactly as masked keys do in the general kernel.
 //
 // What bounds it on an H100: bytes.  Each visible K/V row is read once
-// per group for Lq·(H/Hkv) rows, about one operation per byte.
+// per group for Lq·(H/Hkv) rows, about one operation per byte.  The fused
+// tail adds a read of the (batch, KV head)'s partials, from L2, by one
+// block of n_splits.
 // ---------------------------------------------------------------------
 
 #define FD_WARPS 4
@@ -663,8 +677,130 @@ struct FdParams {
   float scale;
   int64_t j_begin, j_end;
   int chunk, n_splits;
-  int64_t bh0;  // the first (batch, KV head) of this launch
+  int64_t bh0;    // the first (batch, KV head) of this launch
+  int64_t so[3];  // Fused: the output's strides in elements: batch, head, position
 };
+
+enum FdMode { kPartialsOnly = 0, kFused = 1 };
+
+// S splits of the K units u = base + k·step (k < K) of a thread of
+// fa_merge_splits from L2: unit u is the V outputs V·u .. V·u + V - 1 (acc
+// is [n][rows][d], so they are elements V·u.. of each split); 0 past the
+// last unit or past the last split.
+template <int K, int S, int V>
+__device__ __forceinline__ void fa_merge_load(float (&x)[K][S][V], const float* acc,
+                                              int64_t split_stride, int base, int step, int s0,
+                                              int n, int units) {
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = base + k * step;
+      const bool in = u < units && s0 + j < n;
+      const float* at = acc + (s0 + j) * split_stride + (int64_t)V * u;
+      if constexpr (V == 4) {
+        const float4 q = in ? __ldcg(reinterpret_cast<const float4*>(at))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        x[k][j][0] = q.x;
+        x[k][j][1] = q.y;
+        x[k][j][2] = q.z;
+        x[k][j][3] = q.w;
+      } else {
+        x[k][j][0] = in ? __ldcg(at) : 0.0f;
+      }
+    }
+}
+
+// The merge of the n splits of one (batch, KV head) -- ml [n][rows][2]
+// (max, sum) and acc [n][rows][d], fp32 -- into o (batch b, KV head hk):
+// each row's weights w_s = e^{m_s - M} / max(Σ e^{m_s - M} l_s, 1e-30)
+// into w (2·rows·n floats of shared memory: the weights, then each l),
+// then the outputs of this thread's units (V consecutive outputs of a
+// row; unit u = first + k·step below rows·d / V; V divides d), each
+// Σ_s w_s acc_s by fmaf in split order, rounded once to T.  Every thread
+// of the block calls it (it holds two __syncthreads).  Partials are read
+// with __ldcg: the fused decode reads what other blocks wrote.
+//
+// The fused decode's last block merges while the rest of the card has
+// drained, with one warp on each scheduler, so the merge's time is its
+// chain of latencies and instructions (on an H100 a merge one output at a
+// time, one load after another, took longer than the combine launch it
+// replaces).  So a thread's first K·S·V partials are loaded before the
+// weights are formed, with 16-byte loads (V = 4), its K units advance
+// together S splits at a time, and each row's weights are one warp's (M
+// by shuffles: fmaxf gives the same bits in any order; the sum by one
+// lane, by fmaf in split order), with no block-wide barrier between their
+// steps.
+template <typename T, int K, int S, int V>
+__device__ __forceinline__ void fa_merge_splits(const float* ml, const float* acc, float* w,
+                                                T* o, const int64_t (&so)[3], int64_t b, int hk,
+                                                int groups, int lq, int rows, int d, int n,
+                                                int first, int step) {
+  const int64_t split_stride = (int64_t)rows * d;
+  const int units = rows * d / V;
+  float x[K][S][V];
+  fa_merge_load<K, S, V>(x, acc, split_stride, first, step, 0, n, units);
+  float* ls = w + rows * n;
+  const float2* ml2 = reinterpret_cast<const float2*>(ml);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += blockDim.x / 32) {
+    float* wr = w + r * n;
+    float* lr = ls + r * n;
+    float mx = FA_NEG_INF;
+    for (int s = lane; s < n; s += 32) {
+      const float2 m_l = __ldcg(ml2 + (int64_t)s * rows + r);
+      wr[s] = m_l.x;
+      lr[s] = m_l.y;
+      mx = fmaxf(mx, m_l.x);
+    }
+    mx = fa_warp_max(mx);
+    for (int s = lane; s < n; s += 32) wr[s] = expf(wr[s] - mx);
+    __syncwarp();
+    float inv = 0.0f;
+    if (lane == 0) {
+      float lsum = 0.0f;
+      for (int s = 0; s < n; ++s) lsum = fmaf(wr[s], lr[s], lsum);
+      inv = 1.0f / fmaxf(lsum, 1e-30f);
+    }
+    inv = __shfl_sync(FA_FULL, inv, 0);
+    for (int s = lane; s < n; s += 32) wr[s] *= inv;
+  }
+  __syncthreads();
+  for (int base = first; base < units; base += K * step) {
+    int wrow[K];
+    float a[K][V];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = base + k * step;
+      wrow[k] = u < units ? V * u / d * n : 0;
+#pragma unroll
+      for (int e = 0; e < V; ++e) a[k][e] = 0.0f;
+    }
+    for (int s0 = 0; s0 < n; s0 += S) {
+      if (base != first || s0 != 0)
+        fa_merge_load<K, S, V>(x, acc, split_stride, base, step, s0, n, units);
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (s0 + j < n)
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float ws = w[wrow[k] + s0 + j];
+#pragma unroll
+            for (int e = 0; e < V; ++e) a[k][e] = fmaf(ws, x[k][j][e], a[k][e]);
+          }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int u = base + k * step;
+      if (u >= units) continue;
+      const int r = V * u / d, c = V * u - r * d;
+      const int g = r / lq, i = r - g * lq;
+      T* dst = o + b * so[0] + (int64_t)(hk * groups + g) * so[1] + (int64_t)i * so[2] + c;
+#pragma unroll
+      for (int e = 0; e < V; ++e) fa_store(dst + e, a[k][e]);
+    }
+  }
+}
 
 __device__ __forceinline__ void fd_unpack(const uint4& x, float* f, const float*) {
   f[0] = __uint_as_float(x.x);
@@ -683,10 +819,11 @@ __device__ __forceinline__ void fd_unpack(const uint4& x, float* f, const __nv_b
   }
 }
 
-template <typename T, int LPK, int NU, int RR, int KT>
+template <typename T, int LPK, int NU, int RR, int KT, FdMode MODE>
 __global__ void __launch_bounds__(FD_THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc, FdParams p) {
+                    float* __restrict__ part_ml, float* __restrict__ part_acc, T* __restrict__ o,
+                    int* __restrict__ count, FdParams p) {
   constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte load
   constexpr int KPW = 32 / LPK;        // key slots of a warp
   constexpr int E = NU * VEC;          // elements of a row a lane holds
@@ -853,6 +990,29 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       part_ml[(part * p.rows + r) * 2 + 1] = lsum;
     }
   }
+  if constexpr (MODE == kFused) {
+    // The last of the (batch, KV head)'s n_splits blocks merges them all.
+    __shared__ int fd_last;
+    __syncthreads();  // the block's partial written, fd_smem free
+    if (threadIdx.x == 0) {
+      __threadfence();
+      fd_last = atomicAdd(count + bh, 1) == p.n_splits - 1;
+    }
+    __syncthreads();
+    if (!fd_last) return;
+    __threadfence();
+    const int64_t first_part = bh * p.n_splits * p.rows;
+    const float* ml = part_ml + first_part * 2;
+    const float* acc_bh = part_acc + first_part * p.d;
+    // Units of 4 outputs a thread: rows·d / (4·FD_THREADS), at most RR / 2
+    // (d <= 256): 1 unit 16 splits, or 2 units 8 splits, at a time (64
+    // partials in flight).  acc_bh is 16-byte aligned: the launcher pads
+    // the (max, sum) pairs before the accumulators.
+    constexpr int K = RR <= 2 ? 1 : 2, S = 16 / K;
+    fa_merge_splits<T, K, S, 4>(ml, acc_bh, fd_smem, o, p.so, b, hk, p.groups, p.lq, p.rows,
+                                p.d, p.n_splits, threadIdx.x, FD_THREADS);
+    if (threadIdx.x == 0) count[bh] = 0;
+  }
 }
 
 struct FcParams {
@@ -860,108 +1020,97 @@ struct FcParams {
   int64_t so[3];  // output strides in elements: batch, head, position
 };
 
-// One block per (batch·KV head, 256 outputs): the rows' split weights
-// e^{m_s - M} / max(L, 1e-30) are computed once into shared memory, then
-// each thread sums its output over the splits in split order.
+// One block per (batch·KV head, 256 outputs): the rows' split weights are
+// computed once into shared memory, then each thread sums its output over
+// the splits in split order (fa_merge_splits, the fused decode's merge).
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_combine_kernel(const float* __restrict__ part_ml, const float* __restrict__ part_acc,
                      T* __restrict__ o, FcParams p) {
-  extern __shared__ float fc_w[];  // [rows][n_splits]: m, then the weight
+  extern __shared__ float fc_w[];  // fa_merge_splits' weights, then each split's sum
   const int bh = blockIdx.x;
   const int hkv = p.h / p.groups;
-  const int b = bh / hkv, hk = bh % hkv;
-  const int n = p.n_splits;
-  const float* ml = part_ml + (int64_t)bh * n * p.rows * 2;
-  for (int idx = threadIdx.x; idx < p.rows * n; idx += blockDim.x) {
-    const int r = idx / n, s = idx % n;
-    fc_w[idx] = ml[((int64_t)s * p.rows + r) * 2];
-  }
-  __syncthreads();
-  if (threadIdx.x < p.rows) {
-    const int r = threadIdx.x;
-    float mx = FA_NEG_INF;
-    for (int s = 0; s < n; ++s) mx = fmaxf(mx, fc_w[r * n + s]);
-    float lsum = 0.0f;
-    for (int s = 0; s < n; ++s) {
-      const float w = expf(fc_w[r * n + s] - mx);
-      fc_w[r * n + s] = w;
-      lsum = fmaf(w, ml[((int64_t)s * p.rows + r) * 2 + 1], lsum);
-    }
-    const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-    for (int s = 0; s < n; ++s) fc_w[r * n + s] *= inv;
-  }
-  __syncthreads();
-  const int idx = blockIdx.y * blockDim.x + threadIdx.x;
-  if (idx >= p.rows * p.d) return;
-  const int r = idx / p.d, c = idx % p.d;
-  const int g = r / p.lq, i = r % p.lq;
-  const float* acc = part_acc + ((int64_t)bh * n * p.rows + r) * p.d + c;
-  const int64_t split_stride = (int64_t)p.rows * p.d;
-  float a = 0.0f;
-#pragma unroll 4
-  for (int s = 0; s < n; ++s) a = fmaf(fc_w[r * n + s], acc[s * split_stride], a);
-  fa_store(o + b * p.so[0] + (int64_t)(hk * p.groups + g) * p.so[1] + i * p.so[2] + c, a);
+  const int64_t first_part = (int64_t)bh * p.n_splits * p.rows;
+  fa_merge_splits<T, 1, 8, 1>(part_ml + first_part * 2, part_acc + first_part * p.d, fc_w, o,
+                              p.so, bh / hkv, bh % hkv, p.groups, p.lq, p.rows, p.d, p.n_splits,
+                              blockIdx.y * blockDim.x + threadIdx.x, p.rows * p.d);
 }
 
-template <typename T, int LPK, int NU>
+template <typename T, int LPK, int NU, FdMode MODE>
 static int decode_launch_lpk(const void* q, const void* k, const void* v, float* ml, float* acc,
-                             int64_t b, int64_t hkv, const FdParams& params,
-                             cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)FD_WARPS * (32 / LPK) * params.rows * (params.d + 2);
+                             void* o, int* count, int64_t b, int64_t hkv,
+                             const FdParams& params, cudaStream_t stream) {
+  // The key slots' partials; in Fused mode at least the last block's split
+  // weights and sums (2 x rows x n_splits floats), which reuse them.
+  size_t smem = sizeof(float) * (size_t)FD_WARPS * (32 / LPK) * params.rows * (params.d + 2);
+  const size_t weights = 2 * sizeof(float) * (size_t)params.rows * params.n_splits;
+  if (MODE == kFused && weights > smem) smem = weights;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // no opt-in: the plan stays below
   // B·Hkv in launches of at most FA_MAX_GRID_Y (gridDim.y's limit), on one
-  // stream: no host sync between them.
+  // stream: no host sync between them.  The counters are indexed by the
+  // global (batch, KV head), bh0 + blockIdx.y.
   FdParams p = params;
   for (p.bh0 = 0; p.bh0 < b * hkv; p.bh0 += FA_MAX_GRID_Y) {
     const int64_t rows = b * hkv - p.bh0 < FA_MAX_GRID_Y ? b * hkv - p.bh0 : FA_MAX_GRID_Y;
     const dim3 grid((unsigned)p.n_splits, (unsigned)rows);
     if (p.rows <= 2)
-      flash_decode_kernel<T, LPK, NU, 2, 8><<<grid, FD_THREADS, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+      flash_decode_kernel<T, LPK, NU, 2, 8, MODE><<<grid, FD_THREADS, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, ml, acc, (T*)o, count, p);
     else
-      flash_decode_kernel<T, LPK, NU, FD_MAX_ROWS, 4><<<grid, FD_THREADS, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, ml, acc, p);
+      flash_decode_kernel<T, LPK, NU, FD_MAX_ROWS, 4, MODE><<<grid, FD_THREADS, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, ml, acc, (T*)o, count, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-template <typename T>
+template <typename T, FdMode MODE>
 static int decode_launch_t(const void* q, const void* k, const void* v, float* ml, float* acc,
-                           int64_t b, int64_t hkv, const FdParams& p, cudaStream_t stream) {
+                           void* o, int* count, int64_t b, int64_t hkv, const FdParams& p,
+                           cudaStream_t stream) {
   const int nvec = p.d * (int)sizeof(T) / 16;  // 16-byte pieces of a row
-  if (nvec <= 4) return decode_launch_lpk<T, 4, 1>(q, k, v, ml, acc, b, hkv, p, stream);
-  if (nvec <= 8) return decode_launch_lpk<T, 8, 1>(q, k, v, ml, acc, b, hkv, p, stream);
-  if (nvec <= 16) return decode_launch_lpk<T, 16, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+  if (nvec <= 4)
+    return decode_launch_lpk<T, 4, 1, MODE>(q, k, v, ml, acc, o, count, b, hkv, p, stream);
+  if (nvec <= 8)
+    return decode_launch_lpk<T, 8, 1, MODE>(q, k, v, ml, acc, o, count, b, hkv, p, stream);
+  if (nvec <= 16)
+    return decode_launch_lpk<T, 16, 1, MODE>(q, k, v, ml, acc, o, count, b, hkv, p, stream);
   if constexpr (sizeof(T) == 4) {  // fp32 rows above 128 elements: two loads a lane
-    if (nvec > 32) return decode_launch_lpk<T, 32, 2>(q, k, v, ml, acc, b, hkv, p, stream);
+    if (nvec > 32)
+      return decode_launch_lpk<T, 32, 2, MODE>(q, k, v, ml, acc, o, count, b, hkv, p, stream);
   }
-  return decode_launch_lpk<T, 32, 1>(q, k, v, ml, acc, b, hkv, p, stream);
+  return decode_launch_lpk<T, 32, 1, MODE>(q, k, v, ml, acc, o, count, b, hkv, p, stream);
 }
 
-// Partials of the decode variant.  a: 23 int64, packed once per input
-// geometry by kernel.py (a call converts fewer arguments): b, h, hkv, lq,
-// lk, d, the 9 strides of q, k, v (each batch, head, position), causal,
+// The decode variant.  a: 26 int64, packed once per input geometry by
+// kernel.py (a call converts fewer arguments): b, h, hkv, lq, lk, d, the
+// 12 strides of q, k, v and o (each batch, head, position), causal,
 // has_window, window, j_begin, j_end, chunk, n_splits, dtype (0 = fp32,
 // 1 = bf16).  ml: (B·Hkv, n_splits, rows, 2) and acc: (B·Hkv, n_splits,
-// rows, D) fp32 scratch.  The launcher in kernel.py has checked
+// rows, D) fp32 scratch for the partials (acc 16-byte aligned in Fused
+// mode).  mode 0 (PartialsOnly): the
+// partials are the result (o and count are not read).  mode 1 (Fused): the
+// last block of each (batch, KV head) merges them into o (B, H, Lq, D) in
+// the input dtype; count: int32, at least B·Hkv of them, all 0 (each last
+// block sets its own back to 0).  The launcher in kernel.py has checked
 // rows = Lq·(H/Hkv) <= FD_MAX_ROWS, D·itemsize a multiple of 16 bytes,
 // 16-byte aligned bases and strides, and chosen [j_begin, j_end), chunk
 // and n_splits.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, void* ml,
-                                   void* acc, const int64_t* a, float scale, void* stream) {
+                                   void* acc, void* o, void* count, const int64_t* a,
+                                   float scale, int mode, void* stream) {
   const int64_t b = a[0], h = a[1], hkv = a[2], lq = a[3], lk = a[4], d = a[5];
   const int64_t* strides = a + 6;
-  const int causal = (int)a[15], has_window = (int)a[16];
-  const int64_t window = a[17], j_begin = a[18], j_end = a[19], chunk = a[20];
-  const int64_t n_splits = a[21];
-  const int dtype = (int)a[22];
+  const int causal = (int)a[18], has_window = (int)a[19];
+  const int64_t window = a[20], j_begin = a[21], j_end = a[22], chunk = a[23];
+  const int64_t n_splits = a[24];
+  const int dtype = (int)a[25];
   const int64_t esize = dtype == 0 ? 4 : 2;
   if (d < 1 || d > 256 || (d * esize) % 16 != 0 || hkv < 1 || h % hkv != 0 ||
       lq * (h / hkv) > FD_MAX_ROWS || chunk < 1 || n_splits < 1 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (mode != kPartialsOnly && mode != kFused) ||
+      (mode == kFused && (o == nullptr || count == nullptr || (uintptr_t)acc % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   if (lq <= 0 || b * h <= 0) return 0;
   FdParams p;
@@ -975,6 +1124,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
     p.sq[i] = strides[i];
     p.sk[i] = strides[3 + i];
     p.sv[i] = strides[6 + i];
+    p.so[i] = strides[9 + i];
   }
   p.causal = causal;
   p.has_window = has_window;
@@ -986,9 +1136,16 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
   p.n_splits = (int)n_splits;
   p.bh0 = 0;
   const cudaStream_t s = (cudaStream_t)stream;
+  float *mlf = (float*)ml, *accf = (float*)acc;
+  int* cnt = (int*)count;
   if (dtype == 0)
-    return decode_launch_t<float>(q, k, v, (float*)ml, (float*)acc, b, hkv, p, s);
-  return decode_launch_t<__nv_bfloat16>(q, k, v, (float*)ml, (float*)acc, b, hkv, p, s);
+    return mode == kFused
+               ? decode_launch_t<float, kFused>(q, k, v, mlf, accf, o, cnt, b, hkv, p, s)
+               : decode_launch_t<float, kPartialsOnly>(q, k, v, mlf, accf, o, cnt, b, hkv, p, s);
+  return mode == kFused
+             ? decode_launch_t<__nv_bfloat16, kFused>(q, k, v, mlf, accf, o, cnt, b, hkv, p, s)
+             : decode_launch_t<__nv_bfloat16, kPartialsOnly>(q, k, v, mlf, accf, o, cnt, b, hkv,
+                                                             p, s);
 }
 
 // The merge of the decode variant's partials into o.  a: 10 int64, b, h,
@@ -1012,7 +1169,7 @@ extern "C" int flash_combine_launch(const void* ml, const void* acc, void* o, co
   p.n_splits = (int)n_splits;
   for (int i = 0; i < 3; ++i) p.so[i] = strides[i];
   const dim3 grid((unsigned)(b * hkv), (unsigned)((p.rows * p.d + 255) / 256));
-  const size_t smem = sizeof(float) * (size_t)p.rows * p.n_splits;
+  const size_t smem = 2 * sizeof(float) * (size_t)p.rows * p.n_splits;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // the decode plan stays far below
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)

@@ -13,8 +13,12 @@
 //     writes each row of dQ once.
 // No atomics: every launch is deterministic.  Both read each row's
 // log-sum-exp (the sm90 forward's, csrc/flash_attention_sm90.cu, or the
-// general prep's where the forward took another variant) and
-// delta = rowsum(dO ∘ O) (the prep kernel, csrc/flash_attention_bwd.cu).
+// general prep's where the forward took another variant).  Given the
+// forward's log-sum-exp, dq runs first and computes delta = rowsum(dO ∘ O)
+// of its rows itself (bwd_row_delta), writing it for dkdv, which runs
+// second: two launches a backward.  Without it, the prep kernel
+// (csrc/flash_attention_bwd.cu) recomputes the log-sum-exp and writes
+// delta beside it, and dkdv and dq read both.
 //
 // Replaces no Pallas kernel: the JAX package trains through the jnp
 // `attention` (src/repro/models/layers.py:97-141, differentiated by XLA),
@@ -82,7 +86,12 @@
 // rounds dS to bf16 in place as the A fragments and accumulates
 // dQ += dS·K with K MN-major; then releases K.  The dQ accumulator (128
 // registers at D = 256) is written once, scaled, through its Q buffer by
-// TMA.
+// TMA.  Asked for delta (given O), each consumer thread first sums
+// dO ∘ O over a quarter of the columns of its two rows with 16-byte loads
+// from global memory, the 4 lanes of a row reduce with two shuffles and
+// one writes the row's delta: before the main loop, while the producer's
+// first K and V loads are in flight (the prep kernel's launch, which read
+// the same bytes on its own, goes).
 
 #include "sm90_common.cuh"
 
@@ -100,7 +109,13 @@ struct BwdParams {
   int slot_out[3];     // dq's, or dk's (dv's is slot_out2)
   int slot_out2[3];
   const float* lse;    // (B·H, Lq), natural units
-  const float* delta;  // (B·H, Lq)
+  const float* delta;  // (B·H, Lq); dq computing delta: null
+  // dq computing delta: O and dO ((B, H, Lq, D) bf16, their strides in
+  // elements: batch, head, position) and where each row's delta goes.
+  const __nv_bfloat16* o;  // null: delta is read
+  const __nv_bfloat16* g;
+  int64_t so[3], sg[3];
+  float* delta_out;
 };
 
 // The key j is visible to the query at position pos (queries aligned to
@@ -108,6 +123,48 @@ struct BwdParams {
 // -2^31.
 __device__ __forceinline__ bool bwd_visible(int j, int pos, const BwdParams& p, int window) {
   return j < p.lk && (!p.causal || j <= pos) && (!p.has_window || j > pos - window);
+}
+
+// delta = rowsum(dO ∘ O) of rows r0 and r0 + 8 of head hq of batch b (a
+// dq consumer thread's rows, lane / 4 apart), in fp32: the 4 lanes of a row
+// (lane % 4) each sum D/4 columns, its 16-byte chunks lane % 4, + 4, ...,
+// with fmaf in column order, then two xor shuffles add the four (each
+// lane gets the same bits).  Lane % 4 == 0 writes the row's delta to
+// p.delta_out for dkdv.  Rows at or past Lq read row 0 (a valid row) and
+// give 0; the loads are unconditional, so the warp stays converged for the
+// shuffles.
+template <int D>
+__device__ __forceinline__ void bwd_row_delta(const BwdParams& p, int b, int hq, int r0, int lane,
+                                              float (&dl)[2]) {
+  constexpr int CHUNKS = D / 32;  // 16-byte chunks (8 bf16) a lane takes of a row
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = r0 + 8 * rh;
+    const bool in = row < p.lq;
+    const int64_t at = in ? row : 0;
+    const __nv_bfloat16* orow = p.o + b * p.so[0] + hq * p.so[1] + at * p.so[2];
+    const __nv_bfloat16* grow = p.g + b * p.sg[0] + hq * p.sg[1] + at * p.sg[2];
+    float s = 0.0f;
+#pragma unroll
+    for (int u = 0; u < CHUNKS; ++u) {
+      const int col = 8 * (4 * u + lane % 4);
+      const uint4 ox = __ldg(reinterpret_cast<const uint4*>(orow + col));
+      const uint4 gx = __ldg(reinterpret_cast<const uint4*>(grow + col));
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ox);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gx);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
+        s = fmaf(gf.x, of.x, s);
+        s = fmaf(gf.y, of.y, s);
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    dl[rh] = in ? s : 0.0f;
+    if (in && lane % 4 == 0) p.delta_out[((int64_t)b * p.h + hq) * p.lq + row] = s;
+  }
+  __syncwarp();
 }
 
 // Write a 64 x D fp32 accumulator (wgmma layout), times `mul`, as bf16 into
@@ -544,14 +601,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const int col0 = 2 * (lane % 4);
     const int pos0 = rowbase + 16 * warp + lane / 4 + off;  // this thread's rows: pos0, pos0 + 8
     const int wg_lo = rowbase + off, wg_hi = wg_lo + SM90_ROWS - 1;
-    // Each row's lse (in the exp2 domain) and delta; rows past Lq see nothing.
+    // Each row's lse (in the exp2 domain) and delta, computed here when
+    // asked (p.o: while the first K and V tiles load) or read; rows past Lq
+    // see nothing.
     float lse2[2], dl[2];
+    if (p.o != nullptr) bwd_row_delta<D>(p, b, hq, rowbase + 16 * warp + lane / 4, lane, dl);
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
       const int row = rowbase + 16 * warp + lane / 4 + 8 * rh;
       const int64_t at = ((int64_t)b * p.h + hq) * p.lq + row;
       lse2[rh] = row < p.lq ? p.lse[at] * SM90_LOG2E : 0.0f;
-      dl[rh] = row < p.lq ? p.delta[at] : 0.0f;
+      if (p.o == nullptr) dl[rh] = row < p.lq ? p.delta[at] : 0.0f;
     }
     const uint32_t my_q = q_smem + wg * C::TILE, my_g = g_smem + wg * C::TILE;
 
@@ -617,7 +677,8 @@ struct BwdArgs {
 
 // a: b, h, hkv, lq, lk, d, causal, has_window, window, dtype, then the
 // strides (batch, head, position) of q, k, v, o, dO, dQ, dK, dV: 34 int64,
-// the general backward's layout (o's strides are not read here).
+// the general backward's layout (o's strides are read by dq computing
+// delta).
 static int bwd_parse(const int64_t* a, BwdArgs* out, BwdParams* p) {
   out->b = a[0];
   out->h = a[1];
@@ -650,6 +711,13 @@ static int bwd_parse(const int64_t* a, BwdArgs* out, BwdParams* p) {
   p->scale_log2 = 0.0f;
   p->lse = nullptr;
   p->delta = nullptr;
+  p->o = nullptr;
+  p->g = nullptr;
+  p->delta_out = nullptr;
+  for (int i = 0; i < 3; ++i) {
+    p->so[i] = out->st[3][i];
+    p->sg[i] = out->st[4][i];
+  }
   return 0;
 }
 
@@ -714,9 +782,12 @@ extern "C" int flash_bwd_dkdv_sm90_launch(const void* q, const void* k, const vo
   return (int)cudaGetLastError();
 }
 
+// dq: o null reads delta (prep's); o given computes each row's delta from
+// O and dO and writes it to delta (float32 (B·H, Lq) contiguous) for dkdv.
 extern "C" int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
-                                        const void* g, const void* lse, const void* delta,
-                                        void* dq, const int64_t* a, float scale, void* stream) {
+                                        const void* o, const void* g, const void* lse,
+                                        void* delta, void* dq, const int64_t* a, float scale,
+                                        void* stream) {
   BwdArgs fa;
   BwdParams p;
   int rc = bwd_parse(a, &fa, &p);
@@ -727,7 +798,13 @@ extern "C" int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void
   p.scale = scale;
   p.scale_log2 = scale * SM90_LOG2E;
   p.lse = (const float*)lse;
-  p.delta = (const float*)delta;
+  if (o != nullptr) {
+    p.o = (const __nv_bfloat16*)o;
+    p.g = (const __nv_bfloat16*)g;
+    p.delta_out = (float*)delta;
+  } else {
+    p.delta = (const float*)delta;
+  }
   CUtensorMap mq, mk, mv, mg, mdq;
   rc = bwd_map(&mq, encode, q, fa, 0, p.slot_q);
   if (rc == 0) rc = bwd_map(&mk, encode, k, fa, 1, p.slot_k);

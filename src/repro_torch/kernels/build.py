@@ -81,7 +81,7 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (
             _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, ctypes.POINTER(_L), _I, _I, _L, _F, _I, _P),
-        "flash_decode_launch": (_P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _I, _P),
         "flash_combine_launch": (_P, _P, _P, ctypes.POINTER(_L), _P),
         "flash_resident_launch": (_P, _P, _P, _P, ctypes.POINTER(_L), _F, _P, _P),
     },
@@ -97,7 +97,8 @@ _SIGNATURES = {
     "flash_attention_bwd_sm90": {
         "flash_bwd_dkdv_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F,
                                        _P),
-        "flash_bwd_dq_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F, _P),
+        "flash_bwd_dq_sm90_launch": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _F,
+                                     _P),
     },
     "flash_attention_bwd_resident": {
         "flash_bwd_resident_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L),
@@ -121,15 +122,19 @@ _SIGNATURES = {
 # memory; ``cluster_scores_general``).  The attention
 # launcher counts each call as ``flash_attention_kernel`` and each launch
 # of the variant it took: ``flash_attention_sm90`` (bf16 tensor-core
-# prefill), ``flash_attention_decode`` and ``flash_attention_combine``
-# (split-K decode, two launches a call), ``flash_attention_resident`` (K and
-# V of a head in shared memory) or ``flash_attention_general``.  The
-# backward (``kernel.flash_attention_bwd_cuda``) launches, by
-# ``kernel.bwd_route``, ``flash_bwd_resident`` (fp32 at the resident
-# forward's calls: one kernel, given the forward's log-sum-exp), or
-# ``flash_bwd_prep`` and then either ``flash_bwd_dkdv_sm90`` and
-# ``flash_bwd_dq_sm90`` (bf16 tensor cores) or ``flash_bwd_dkdv`` and
-# ``flash_bwd_dq`` (the general backward), once each a call.  PNA's
+# prefill), ``flash_attention_decode`` (split-K decode: one launch a call,
+# its last blocks merge the splits), ``flash_attention_resident`` (K and
+# V of a head in shared memory) or ``flash_attention_general``;
+# ``flash_attention_combine`` counts the mesh decode's merges of its
+# shards' partials (``ops.flash_decode_combine``).  The backward
+# (``kernel.flash_attention_bwd_cuda``) launches the kernels
+# ``kernel.bwd_launches`` lists, once each a call: by ``kernel.bwd_route``,
+# ``flash_bwd_resident`` (fp32 at the resident forward's calls: one kernel,
+# given the forward's log-sum-exp), ``flash_bwd_dq_sm90`` (computing delta)
+# then ``flash_bwd_dkdv_sm90`` (bf16 tensor cores, given it), or
+# ``flash_bwd_prep`` and then the general pair ``flash_bwd_dkdv`` and
+# ``flash_bwd_dq``; without the forward's log-sum-exp, ``flash_bwd_prep``
+# first on every route.  PNA's
 # aggregation counts ``segment_aggregate_fwd`` and ``_bwd`` (the ring
 # design, the main path) and ``segment_aggregate_fwd_registers`` and
 # ``_bwd_registers`` (the register design, forced), one a call each.

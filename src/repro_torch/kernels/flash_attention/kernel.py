@@ -11,9 +11,13 @@ device, dtype, shapes and strides, allocates the output with
 by dtype and shape (:func:`flash_route`), with no fallback:
 
 - ``"decode"``: Lq·(H/Hkv) <= :data:`DECODE_MAX_ROWS` and D·itemsize a
-  multiple of 16 bytes, fp32 or bf16.  The split-K kernel
-  (:func:`decode_partials_cuda`, one block per batch, KV head and key
-  split, fp32 arithmetic) then the combine (:func:`combine_cuda`).
+  multiple of 16 bytes, fp32 or bf16.  One launch of the split-K kernel
+  (one block per batch, KV head and key split, fp32 arithmetic) in its
+  fused mode: the last block of each (batch, KV head) to finish merges
+  the splits into the output, as the combine kernel does
+  (:func:`combine_cuda`, which the mesh decode still launches after
+  :func:`decode_partials_cuda`), bit for bit.  It counts arrivals on the
+  device's counter buffer (:func:`decode_counters`).
 - ``"sm90"``: bf16 with D in :data:`SM90_HEAD_DIMS` otherwise.  The
   tensor-core prefill kernel (wgmma, TMA); P is rounded to bf16 for P·V.
 - ``"resident"``: fp32, not causal, no window, D a multiple of 4 up to
@@ -35,20 +39,23 @@ launchers cut B·H (B·Hkv for decode) into launches of at most that many
 pairs on the same stream, with no host sync; a call still counts once.
 
 The backward (:func:`flash_attention_bwd_cuda`) takes the kernels
-:func:`bwd_route` names.  ``"resident"`` (fp32, not causal, no window, D a
-multiple of 4 up to :data:`RESIDENT_MAX_HEAD_DIM`, K, V, Q and dO of one
-(batch, KV head) within :data:`RESIDENT_SMEM_BYTES`:
-:func:`resident_bwd_smem_bytes`; BERT4Rec's encoder call): one kernel,
-:func:`bwd_resident_cuda`, which computes delta itself and reads the
-forward's log-sum-exp (:func:`flash_attention_lse_cuda` returns it on the
-resident and sm90 routes; without it, prep's recompute).  Else prep (each
-row's log-sum-exp and delta = rowsum(dO ∘ O); delta alone given the
-forward's log-sum-exp), then dK/dV and dQ: ``"sm90"`` for bf16 with D in
-:data:`SM90_HEAD_DIMS` (wgmma and TMA: :func:`bwd_dkdv_sm90_cuda`,
-:func:`bwd_dq_sm90_cuda`; P and dS rounded to bf16 for their products),
-``"general"`` otherwise (fp32 arithmetic: :func:`bwd_dkdv_cuda`,
-:func:`bwd_dq_cuda`).  The sm90 and resident kernels need 16-byte aligned
-bases and strides, or raise ``ValueError``.
+:func:`bwd_route` names, in the order :func:`bwd_launches` lists.
+``"resident"`` (fp32, not causal, no window, D a multiple of 4 up to
+:data:`RESIDENT_MAX_HEAD_DIM`, K, V, Q and dO of one (batch, KV head)
+within :data:`RESIDENT_SMEM_BYTES`: :func:`resident_bwd_smem_bytes`;
+BERT4Rec's encoder call): one kernel, :func:`bwd_resident_cuda`, which
+computes delta itself and reads the forward's log-sum-exp
+(:func:`flash_attention_lse_cuda` returns it on the resident and sm90
+routes; without it, prep's recompute first).  ``"sm90"`` for bf16 with D
+in :data:`SM90_HEAD_DIMS` (wgmma and TMA; P and dS rounded to bf16 for
+their products): given the forward's log-sum-exp, dQ computing delta =
+rowsum(dO ∘ O) itself (:func:`bwd_dq_delta_sm90_cuda`), then dK/dV
+reading it (:func:`bwd_dkdv_sm90_cuda`); without it, prep (each row's
+log-sum-exp and delta), dK/dV, then dQ reading delta
+(:func:`bwd_dq_sm90_cuda`).  ``"general"`` otherwise: prep (delta alone
+given the forward's log-sum-exp), then the fp32-arithmetic
+:func:`bwd_dkdv_cuda` and :func:`bwd_dq_cuda`.  The sm90 and resident
+kernels need 16-byte aligned bases and strides, or raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -62,8 +69,9 @@ import torch
 from repro_torch.kernels.build import LAUNCHES, check, lib, stream_of
 
 __all__ = ["DECODE_MAX_ROWS", "MAX_HEAD_DIM", "RESIDENT_MAX_HEAD_DIM", "RESIDENT_SMEM_BYTES",
-           "SM90_HEAD_DIMS", "combine_cuda", "decode_partials_cuda", "decode_plan",
-           "bwd_dkdv_cuda", "bwd_dkdv_sm90_cuda", "bwd_dq_cuda", "bwd_dq_sm90_cuda",
+           "SM90_HEAD_DIMS", "combine_cuda", "decode_counter_numel", "decode_counters",
+           "decode_partials_cuda", "decode_plan", "bwd_dkdv_cuda", "bwd_dkdv_sm90_cuda",
+           "bwd_dq_cuda", "bwd_dq_delta_sm90_cuda", "bwd_dq_sm90_cuda", "bwd_launches",
            "bwd_prep_cuda", "bwd_resident_cuda", "bwd_route", "flash_attention_bwd_cuda",
            "flash_attention_cuda", "flash_attention_lse_cuda", "flash_route", "resident_q_chunk",
            "resident_bwd_smem_bytes", "resident_smem_bytes", "sm_count"]
@@ -88,6 +96,9 @@ RESIDENT_SMEM_BYTES = 232448
 # RESIDENT_MIN_CHUNK query positions a block.
 RESIDENT_BLOCKS_PER_SM = 2
 RESIDENT_MIN_CHUNK = 64
+# flash_decode_launch's modes: the partials alone (the mesh decode), or
+# merged into the output by each (batch, KV head)'s last block.
+_PARTIALS_ONLY, _FUSED = 0, 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _INT32_MAX = 2**31 - 1
@@ -141,6 +152,22 @@ def bwd_route(dtype: torch.dtype, h: int, hkv: int, lq: int, lk: int, d: int, ca
     return "general"
 
 
+def bwd_launches(route: str, lse_given: bool) -> Tuple[str, ...]:
+    """The kernels, in launch order, that :func:`flash_attention_bwd_cuda`
+    launches once each on ``route`` (:func:`bwd_route`), given the
+    forward's log-sum-exp or not: without it ``flash_bwd_prep`` recomputes
+    it first (and writes delta beside it on the sm90 and general routes);
+    with it the sm90 route's dQ computes delta for dK/dV, the resident
+    kernel computes its own and the general route's prep computes delta
+    alone."""
+    if route == "resident":
+        return ("flash_bwd_resident",) if lse_given else ("flash_bwd_prep", "flash_bwd_resident")
+    if route == "sm90":
+        return (("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90") if lse_given
+                else ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"))
+    return ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
 def _bwd_route_of(q, k, causal, window) -> str:
     """:func:`bwd_route` of these inputs; ``"general"`` (whose checks then
     raise) where they are not (B, H, L, D) with Hkv dividing H."""
@@ -175,6 +202,36 @@ def decode_plan(lq: int, lk: int, window: Optional[int], bhkv: int,
     chunk = max(DECODE_CHUNK_STEP, -(-span // want))
     chunk = -(-chunk // DECODE_CHUNK_STEP) * DECODE_CHUNK_STEP
     return j_begin, lk, chunk, -(-span // chunk)
+
+
+def decode_counter_numel(need: int, have: int) -> int:
+    """Counters the decode buffer holds after a geometry of ``need``
+    (batch, KV head) pairs when it held ``have``: ``have`` while that
+    suffices, else the larger of ``need`` and twice ``have`` (a run of
+    growing geometries reallocates it a few times, not at each)."""
+    return have if need <= have else max(need, 2 * have)
+
+
+# The fused decode's arrival counters: one int32 buffer a device, all 0
+# between launches (each (batch, KV head)'s last block sets its counter
+# back to 0), indexed by the (batch, KV head).  One stream at a time uses
+# it, as the port runs: two decode launches in flight at once on two
+# streams would share counters.  A geometry's first call (``_Launch``)
+# grows it, before any capture of that call into a CUDA graph.
+_DECODE_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def decode_counters(device: torch.device) -> Optional[torch.Tensor]:
+    """The fused decode's counter buffer on ``device`` (None before its
+    first decode call); all zeros whenever no decode launch is in flight."""
+    return _DECODE_COUNTERS.get(torch.device(device))
+
+
+def _grow_decode_counters(device: torch.device, need: int) -> None:
+    have = _DECODE_COUNTERS.get(device)
+    numel = decode_counter_numel(need, 0 if have is None else have.numel())
+    if have is None or numel != have.numel():
+        _DECODE_COUNTERS[device] = torch.zeros(numel, dtype=torch.int32, device=device)
 
 
 def _check_inputs(q, k, v, causal, window, name) -> None:
@@ -225,7 +282,7 @@ class _Launch:
     """What one input geometry (shapes, strides, dtype, device, masks)
     needs at every call, checked and computed once: the variant, the
     strides handed to the kernels (q, k, v and the output), the mask
-    arguments and the decode plan."""
+    arguments, the decode plan and room on the decode counter buffer."""
 
     def __init__(self, q, k, v, causal, window, name):
         _check_inputs(q, k, v, causal, window, name)
@@ -245,12 +302,16 @@ class _Launch:
             self.plan = decode_plan(lq, lk, window, b * hkv,
                                     sm_count(q.device.index) if not self.empty else 1)
             rows = lq * (h // hkv)
-            self.ml_numel = b * hkv * self.plan[3] * rows * 2
+            # (max, sum) pairs, padded so that acc after them is 16-byte
+            # aligned (the fused merge reads it with 16-byte loads).
+            self.ml_numel = -(-b * hkv * self.plan[3] * rows * 2 // 4) * 4
             self.scratch_numel = self.ml_numel + b * hkv * self.plan[3] * rows * d
-            self.decode_args = _decode_args(self.dims, self.strides[:9], self.mask, self.plan,
+            self.decode_args = _decode_args(self.dims, self.strides, self.mask, self.plan,
                                             self.dtype_code)
             self.combine_args = _int64s((b, h, hkv, lq, d, self.plan[3], *out_stride[:3],
                                          self.dtype_code))
+            if not self.empty:
+                _grow_decode_counters(q.device, b * hkv)
         if self.route == "resident":
             self.q_chunk = resident_q_chunk(lq, b * hkv,
                                             sm_count(q.device.index) if not self.empty else 1)
@@ -305,9 +366,9 @@ def decode_partials_cuda(q, k, v, causal: bool, window: Optional[int],
     rows = lq * (h // hkv)
     ml = torch.empty((b * hkv, plan[3], rows, 2), dtype=torch.float32, device=q.device)
     acc = torch.empty((b * hkv, plan[3], rows, d), dtype=torch.float32, device=q.device)
-    _decode(ml.data_ptr(), acc.data_ptr(), q, k, v,
-            _decode_args(launch.dims, launch.strides[:9], launch.mask, plan, launch.dtype_code),
-            launch.scale, stream_of(q.device))
+    _decode(ml.data_ptr(), acc.data_ptr(), None, None, q, k, v,
+            _decode_args(launch.dims, launch.strides, launch.mask, plan, launch.dtype_code),
+            launch.scale, _PARTIALS_ONLY, stream_of(q.device))
     return ml, acc
 
 
@@ -323,14 +384,18 @@ def combine_cuda(ml: torch.Tensor, acc: torch.Tensor, out: torch.Tensor, hkv: in
 
 def _decode_args(dims, strides, mask, plan, dtype_code) -> ctypes.Array:
     """The decode launcher's scalar arguments, packed (see
-    ``flash_decode_launch``): a call then converts 8 arguments, not 23."""
+    ``flash_decode_launch``): dims, the 12 strides of q, k, v and the
+    output, mask, plan and dtype; a call then converts 11 arguments, not
+    36."""
     return _int64s((*dims, *strides, *mask, *plan, dtype_code))
 
 
-def _decode(ml_ptr: int, acc_ptr: int, q, k, v, args, scale: float, stream: int) -> None:
+def _decode(ml_ptr: int, acc_ptr: int, out_ptr: Optional[int], count_ptr: Optional[int], q, k,
+            v, args, scale: float, mode: int, stream: int) -> None:
     name = "flash_attention_decode"
     status = lib("flash_attention").flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ml_ptr, acc_ptr, args, scale, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ml_ptr, acc_ptr, out_ptr, count_ptr, args,
+        scale, mode, stream)
     check(status, name)
     LAUNCHES[name] += 1
 
@@ -382,13 +447,10 @@ def _flash(q, k, v, causal, window, want_lse):
     stream = stream_of(q.device)
     route = launch.route
     if route == "decode":
-        # One fp32 scratch for the partials: (max, sum) first, then acc.
         launch.check_bases("flash_attention_decode", q, k, v)
-        scratch = torch.empty(launch.scratch_numel, dtype=torch.float32, device=q.device)
-        ml_ptr = scratch.data_ptr()
-        acc_ptr = ml_ptr + 4 * launch.ml_numel
-        _decode(ml_ptr, acc_ptr, q, k, v, launch.decode_args, launch.scale, stream)
-        _combine(ml_ptr, acc_ptr, out, launch.combine_args, stream)
+        ml_ptr, acc_ptr, scratch = _decode_scratch(launch, q.device)  # alive past the launch
+        _decode(ml_ptr, acc_ptr, out.data_ptr(), _DECODE_COUNTERS[q.device].data_ptr(), q, k, v,
+                launch.decode_args, launch.scale, _FUSED, stream)
     elif route == "sm90":
         launch.check_bases("flash_attention_sm90", q, k, v, out)
         status = lib("flash_attention_sm90").flash_attention_sm90_launch(
@@ -408,6 +470,35 @@ def _flash(q, k, v, causal, window, want_lse):
         _general(q, k, v, out, launch, stream)
     LAUNCHES[name] += 1
     return out, lse
+
+
+def _decode_scratch(launch: _Launch, device):
+    """One fp32 scratch for the decode's partials, (max, sum) first, then
+    acc: their two pointers and the tensor."""
+    scratch = torch.empty(launch.scratch_numel, dtype=torch.float32, device=device)
+    ml_ptr = scratch.data_ptr()
+    return ml_ptr, ml_ptr + 4 * launch.ml_numel, scratch
+
+
+def _decode_two_kernels_forced(q, k, v, causal: bool = True,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """:func:`flash_attention_cuda` on the decode route through the split
+    kernel's partials then the combine kernel, two launches (the design
+    before the fused merge), to check and time it beside the one-launch
+    call on the same inputs."""
+    name = "flash_attention_decode"
+    launch = _launch_of(q, k, v, causal, window, name)
+    if launch.route != "decode":
+        raise ValueError(f"{name}: these inputs take the {launch.route} variant")
+    out = torch.empty_like(q)
+    if not launch.empty:
+        launch.check_bases(name, q, k, v)
+        stream = stream_of(q.device)
+        ml_ptr, acc_ptr, scratch = _decode_scratch(launch, q.device)
+        _decode(ml_ptr, acc_ptr, None, None, q, k, v, launch.decode_args, launch.scale,
+                _PARTIALS_ONLY, stream)
+        _combine(ml_ptr, acc_ptr, out, launch.combine_args, stream)
+    return out
 
 
 def _general(q, k, v, out, launch: _Launch, stream: int) -> None:
@@ -468,25 +559,27 @@ def _stats_checked(q, stats, name) -> None:
                              f"q's device")
 
 
-def _sm90_bwd_checked(q, k, v, dout, causal, window, name) -> None:
+def _sm90_bwd_checked(q, k, v, dout, causal, window, name, out=None) -> None:
     """What the sm90 backward takes beyond the general one: bf16, D in
-    :data:`SM90_HEAD_DIMS`, 16-byte aligned bases and strides (TMA), and
-    lengths within its 32-bit indices and grid rows.  The shape checks
+    :data:`SM90_HEAD_DIMS`, 16-byte aligned bases and strides (TMA, and
+    the 16-byte loads of O and dO where dQ computes delta: ``out`` given),
+    and lengths within its 32-bit indices and grid rows.  The shape checks
     come before the device's, so they hold on any machine.  (The
     gradients, ``torch.empty_like`` of aligned inputs with D·2 a multiple
     of 16 bytes, are aligned too.)"""
     if _bwd_route_of(q, k, causal, window) != "sm90":
         raise ValueError(f"{name}: bf16 with head dim in {SM90_HEAD_DIMS} required, got "
                          f"{q.dtype} and head dim {q.shape[-1]}")
-    for t in (q, k, v, dout):
+    tensors = (q, k, v, dout) if out is None else (q, k, v, dout, out)
+    for t in tensors:
         why = _misaligned("sm90 backward", t.shape, t.stride(), 2, 0)
         if why:
             raise ValueError(f"{name}: {why}")
     b, h, lq, _ = q.shape
     if b * h * lq >= 2**31 or -(-max(lq, k.shape[2]) // 64) > 65535:
         raise ValueError(f"{name}: B·H·Lq below 2**31 and lengths up to 64·65,535 required")
-    _bwd_checked(q, k, v, dout, dout, causal, window, name)
-    for t in (q, k, v, dout):
+    _bwd_checked(q, k, v, dout if out is None else out, dout, causal, window, name)
+    for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: " + _misaligned("sm90 backward", t.shape, t.stride(), 2,
                                                        t.data_ptr()))
@@ -571,18 +664,43 @@ def bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal: bool = True,
 def bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal: bool = True,
                      window: Optional[int] = None):
     """``flash_bwd_dq_sm90``: :func:`bwd_dq_cuda` on the bf16 tensor cores
-    (``csrc/flash_attention_bwd_sm90.cu``), for the inputs
-    :func:`bwd_route` sends there; raises ``ValueError`` for any other."""
+    (``csrc/flash_attention_bwd_sm90.cu``), reading prep's delta, for the
+    inputs :func:`bwd_route` sends there; raises ``ValueError`` for any
+    other."""
     name = "flash_bwd_dq_sm90"
     _sm90_bwd_checked(q, k, v, dout, causal, window, name)
     _stats_checked(q, (lse, delta), name)
+    return _dq_sm90(q, k, v, None, dout, lse, delta, causal, window)
+
+
+def bwd_dq_delta_sm90_cuda(q, k, v, out, dout, lse, causal: bool = True,
+                           window: Optional[int] = None):
+    """``flash_bwd_dq_sm90`` computing delta itself: (dq, delta), dq like q
+    and delta = rowsum(dO ∘ O) float32 (B·H, Lq), which the kernel's
+    consumers sum from O and dO before their main loop and write for
+    :func:`bwd_dkdv_sm90_cuda`, given the forward's log-sum-exp ``lse``.
+    O needs the 16-byte aligned base and strides of q; raises
+    ``ValueError`` for any input the sm90 backward does not take."""
+    name = "flash_bwd_dq_sm90"
+    _sm90_bwd_checked(q, k, v, dout, causal, window, name, out=out)
+    _stats_checked(q, (lse,), name)
+    delta = torch.empty((q.shape[0] * q.shape[1], q.shape[2]), dtype=torch.float32,
+                        device=q.device)
+    return _dq_sm90(q, k, v, out, dout, lse, delta, causal, window), delta
+
+
+def _dq_sm90(q, k, v, out, dout, lse, delta, causal, window):
+    """The dQ kernel's launch: reading ``delta``, or (``out`` given)
+    writing it."""
+    name = "flash_bwd_dq_sm90"
     dq = torch.empty_like(q)
-    launch = _BwdLaunch(q, k, v, dout, dout, dq, k, v, causal, window)
+    launch = _BwdLaunch(q, k, v, dout if out is None else out, dout, dq, k, v, causal, window)
     if launch.empty:
         return dq
     check(lib("flash_attention_bwd_sm90").flash_bwd_dq_sm90_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), launch.args, launch.scale, launch.stream), name)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if out is None else out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), launch.args,
+        launch.scale, launch.stream), name)
     LAUNCHES[name] += 1
     return dq
 
@@ -645,28 +763,43 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, causal: bool = True,
     """(dq, dk, dv), the gradient of :func:`flash_attention_cuda` (any
     variant: they compute one function) at output ``out`` for the output
     gradient ``dout``, through the kernels :func:`bwd_route` names, one
-    launch each: on the resident route :func:`bwd_resident_cuda` alone,
-    given the forward's ``lse`` (without it, ``flash_bwd_prep`` first
-    recomputes it); else ``flash_bwd_prep`` (delta = rowsum(dO ∘ O) into
-    float32 scratch (B·H, Lq), and each row's log-sum-exp unless the
-    forward's ``lse`` is given: the sm90 forward's, or the resident
-    forward's where the resident backward does not fit), then dK/dV (the
-    group's heads summed) and dQ.  The same inputs as the forward (every row must see a key);
+    launch each in the order :func:`bwd_launches` lists: on the resident
+    route :func:`bwd_resident_cuda` alone, given the forward's ``lse``
+    (without it, ``flash_bwd_prep`` first recomputes it); on the sm90 route,
+    given the sm90 forward's ``lse``, dQ computing delta = rowsum(dO ∘ O)
+    into float32 scratch (B·H, Lq) (:func:`bwd_dq_delta_sm90_cuda`), then
+    dK/dV (the group's heads summed) reading it; else ``flash_bwd_prep``
+    (delta, and each row's log-sum-exp unless the forward's ``lse`` is
+    given: the resident forward's where the resident backward does not
+    fit), then dK/dV and dQ.  The same inputs as the forward (every row must see a key);
     ``out`` and ``dout`` (B, H, Lq, D) in q's dtype on q's device, last
-    dimension dense.  Gradients come in ``torch.empty_like`` of q, k and v
+    dimension dense (on the sm90 route with ``lse``, ``out`` 16-byte
+    aligned too).  Gradients come in ``torch.empty_like`` of q, k and v
     (their layouts)."""
     route = _bwd_route_of(q, k, causal, window)
     if route == "sm90":
-        _sm90_bwd_checked(q, k, v, dout, causal, window, "flash_attention_bwd_sm90")
-        lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
-        dk, dv = bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
-        return bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv
+        if lse is None:
+            return _sm90_bwd_prep_forced(q, k, v, out, dout, causal, window)
+        dq, delta = bwd_dq_delta_sm90_cuda(q, k, v, out, dout, lse, causal, window)
+        return (dq, *bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window))
     if route == "resident":
         if lse is None:
             _resident_bwd_checked(q, k, v, out, dout, causal, window, "flash_bwd_resident")
             lse, _ = bwd_prep_cuda(q, k, out, dout, causal, window, v=v)
         return bwd_resident_cuda(q, k, v, out, dout, lse, causal, window)
     return _general_bwd_forced(q, k, v, out, dout, causal, window, lse)
+
+
+def _sm90_bwd_prep_forced(q, k, v, out, dout, causal: bool = True,
+                          window: Optional[int] = None, lse=None):
+    """The sm90 backward through prep (delta, and the log-sum-exp unless
+    ``lse`` is given), dK/dV, then dQ reading prep's delta: the route
+    without the forward's log-sum-exp, and with it the three-launch design
+    before dQ computed delta, to check and time it beside the route's."""
+    _sm90_bwd_checked(q, k, v, dout, causal, window, "flash_attention_bwd_sm90")
+    lse, delta = bwd_prep_cuda(q, k, out, dout, causal, window, v=v, lse=lse)
+    dk, dv = bwd_dkdv_sm90_cuda(q, k, v, dout, lse, delta, causal, window)
+    return bwd_dq_sm90_cuda(q, k, v, dout, lse, delta, causal, window), dk, dv
 
 
 def _general_bwd_forced(q, k, v, out, dout, causal: bool = True, window: Optional[int] = None,

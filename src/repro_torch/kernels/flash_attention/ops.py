@@ -13,9 +13,10 @@ and it saves q, k, v, the output and, where the forward computed it (the
 sm90 and resident variants on the card, ``ref.attention_lse_ref`` on the
 CPU), each row's log-sum-exp; its backward is :func:`flash_attention_bwd`:
 the kernels ``kernel.bwd_route`` picks on the card (the fp32 resident
-backward of ``csrc/flash_attention_bwd_resident.cu`` in one kernel, or
-prep and the bf16 tensor-core pair of ``csrc/flash_attention_bwd_sm90.cu``
-or the general pair of ``csrc/flash_attention_bwd.cu``),
+backward of ``csrc/flash_attention_bwd_resident.cu`` in one kernel, the
+bf16 tensor-core pair of ``csrc/flash_attention_bwd_sm90.cu``, dQ
+computing delta then dK/dV, or prep and the general pair of
+``csrc/flash_attention_bwd.cu``),
 ``ref.attention_bwd_ref`` on the CPU.  The JAX package differentiates its jnp attention with XLA;
 its Pallas kernel has no backward.
 """
@@ -68,19 +69,23 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
     """(dq, dk, dv) of :func:`flash_attention` at output ``out`` for the
     output gradient ``dout``, given the forward's log-sum-exp ``lse``
     where it saved one: the backward kernels on the card, the plain
-    recompute on the CPU.  On the card ``dout`` is made contiguous when
-    its last dimension is not dense, or when the bf16 tensor-core route or
-    the resident route would get a base or stride its TMA, cp.async or
-    16-byte loads cannot take."""
+    recompute on the CPU.  On the card ``out`` and ``dout`` are made
+    contiguous when their last dimension is not dense, or when the bf16
+    tensor-core route or the resident route would get a base or stride
+    its TMA, cp.async or 16-byte loads cannot take."""
     if q.is_cuda:
         route = _bwd_route_of(q, k, causal, window)
         itemsize = {"sm90": 2, "resident": 4}.get(route)
-        if (dout.stride(3) != 1 and dout.shape[3] > 1) or itemsize and (
-                0 in dout.stride()[:3]
-                or _misaligned(route, dout.shape, dout.stride(), itemsize, dout.data_ptr())):
-            dout = dout.contiguous()
-        return flash_attention_bwd_cuda(q, k, v, out, dout, causal=causal, window=window,
-                                        lse=lse)
+
+        def dense(t):
+            if (t.stride(3) != 1 and t.shape[3] > 1) or itemsize and (
+                    0 in t.stride()[:3]
+                    or _misaligned(route, t.shape, t.stride(), itemsize, t.data_ptr())):
+                return t.contiguous()
+            return t
+
+        return flash_attention_bwd_cuda(q, k, v, dense(out), dense(dout), causal=causal,
+                                        window=window, lse=lse)
     return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window, lse=lse)
 
 

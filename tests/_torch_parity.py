@@ -110,12 +110,13 @@ FLASH_CASES = [
     (2, 2, 2, 16, 1, 32, False, None), (1, 2, 2, 64, 1000, 32, False, None),
 ]
 # The counter of each attention variant's kernels (kernel.flash_route picks
-# one a call; decode launches its split kernel and its combine), and what a
-# call of each variant adds to them.
+# one a call; decode launches its split kernel once, whose last blocks
+# merge the splits: the combine kernel is the mesh decode's alone), and
+# what a call of each variant adds to them.
 FLASH_VARIANTS = ("flash_attention_sm90", "flash_attention_decode", "flash_attention_combine",
                   "flash_attention_resident", "flash_attention_general")
 VARIANT_LAUNCHES = {
-    "decode": {"flash_attention_decode": 1, "flash_attention_combine": 1},
+    "decode": {"flash_attention_decode": 1},
     "sm90": {"flash_attention_sm90": 1},
     "resident": {"flash_attention_resident": 1},
     "general": {"flash_attention_general": 1},

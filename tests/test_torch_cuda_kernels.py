@@ -25,10 +25,14 @@ float32 from the same inputs (TF32 off), at the cases and within the
 tolerance of ``_torch_parity`` (``FLASH_CASES``, ``FLASH_TOL``, plus
 ``p_rounding_term`` for the sm90 variant, which rounds P to bf16) that
 ``chip_smoke.py`` uses too; each case asserts from the launch counters
-which variant it took (``kernel.flash_route``).  The decode variant's two
-kernels are also held one by one against their plain versions, and the
-launcher must refuse a misaligned base or stride for the variants that
-read with 16-byte loads, cp.async or TMA.  Each variant also runs past
+which variant it took (``kernel.flash_route``).  The decode variant's
+split kernel and the mesh decode's combine are also held one by one
+against their plain versions, the one-launch decode call (the split
+kernel's last blocks merging the splits) equals the two-kernel call
+(``kernel._decode_two_kernels_forced``) bit for bit and leaves the
+counter buffer all zeros, and the launcher must refuse a misaligned base
+or stride for the variants that read with 16-byte loads, cp.async or
+TMA.  Each variant also runs past
 gridDim.y's 65,535 (batch, head) rows (``BIG_BH_CASES``: B·H = 65,536 and
 131,072, BERT4Rec's call among them), which its launcher cuts into
 launches; at BERT4Rec's call the resident variant and the general kernel
@@ -39,13 +43,17 @@ The attention's backward is held against ``attention_bwd_ref`` at
 ``ops.flash_attention``, one launch of each kernel of the route
 ``kernel.bwd_route`` names a call: the fp32 resident kernel alone
 (``csrc/flash_attention_bwd_resident.cu``, fp32, not causal, no window,
-given the resident forward's lse; ``FLASH_BWD_TOL``), or prep
-(``csrc/flash_attention_bwd.cu``), then the bf16 tensor-core dK/dV and dQ
-(``csrc/flash_attention_bwd_sm90.cu``, bf16 with D in {64, 128, 256};
-limit ``FLASH_BWD_TOL`` plus ``bwd_rounding_terms``, the rounding of P
-and dS) or the general pair (``FLASH_BWD_TOL``).  The sm90 kernels are
-also held one by one against their plain parts fed the same lse and
-delta, the sm90 and resident kernels bit for bit across two runs and
+given the resident forward's lse; ``FLASH_BWD_TOL``), the bf16
+tensor-core dQ computing delta then dK/dV
+(``csrc/flash_attention_bwd_sm90.cu``, bf16 with D in {64, 128, 256},
+given the sm90 forward's lse; limit ``FLASH_BWD_TOL`` plus
+``bwd_rounding_terms``, the rounding of P and dS), or prep
+(``csrc/flash_attention_bwd.cu``) first where the forward saved no lse,
+then the general pair (``FLASH_BWD_TOL``) or the sm90 pair
+(``kernel.bwd_launches``).  The sm90 kernels are also held one by one
+against their plain parts fed the same lse and delta, dQ's own delta
+within its fp32 summation limit of a float64 rowsum, the sm90 and
+resident kernels bit for bit across two runs and
 past one launch chunk of B·H, and the sm90 and resident forwards'
 log-sum-exp against ``bwd_prep_ref``'s within
 ``FLASH_BWD_TOL["float32"]``.
@@ -561,7 +569,9 @@ def test_cluster_scores_is_deterministic(cuda_device):
 
 BWD_KERNELS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_sm90",
                "flash_bwd_dq_sm90", "flash_bwd_resident")
-BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_prep", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90"),
+# The kernels of one backward call on each route given the forward's lse
+# (kernel.bwd_launches, in launch order): dQ computing delta, then dK/dV.
+BWD_ROUTE_KERNELS = {"sm90": ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"),
                      "general": ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"),
                      "resident": ("flash_bwd_resident",)}
 SM90_BWD_CASES = [c for c in FLASH_BWD_CASES if c[5] in FK.SM90_HEAD_DIMS]
@@ -589,12 +599,16 @@ def test_flash_attention_backward_equals_plain(cuda_device, dtype, b, h, hkv, lq
     q, k, v, dout = _bwd_case(cuda_device, dtype, b, h, hkv, lq, lk, d, 3 * lq + lk + d)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     route = FK.bwd_route(dtype, h, hkv, lq, lk, d, causal, window)
+    # The sm90 and resident forwards save the lse; the decode forward (one
+    # query row) does not, and prep then recomputes it.
+    saved_lse = FK.flash_route(dtype, h, hkv, lq, lk, d, causal, window) in ("sm90", "resident")
+    assert FK.bwd_launches(route, True) == BWD_ROUTE_KERNELS[route]
     out = flash_attention(q, k, v, causal=causal, window=window)
     before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
-        n: int(n in BWD_ROUTE_KERNELS[route]) for n in BWD_KERNELS}
+        n: int(n in FK.bwd_launches(route, saved_lse)) for n in BWD_KERNELS}
     qf, kf, vf, of = (t.detach().float() for t in (q, k, v, out))
     want = attention_bwd_ref(qf, kf, vf, of, dout.float(), causal, window)
     terms = (_plain_terms(q.detach(), k.detach(), v.detach(), of, dout, causal, window)[2]
@@ -697,6 +711,67 @@ def test_sm90_backward_refuses_misaligned_bases_and_strides(cuda_device):
             fn(shifted, k, v, dout, lse, lse)
         with pytest.raises(ValueError, match="lse and delta"):
             fn(q, k, v, dout, lse[:, :63], lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window",
+                         SM90_BWD_CASES + [(2, 32, 4, 300, 300, 128, True, None)])
+def test_sm90_backward_given_lse_is_dq_with_delta_then_dkdv(cuda_device, monkeypatch, b, h, hkv,
+                                                            lq, lk, d, causal, window):
+    """Given the forward's lse the route launches dQ, which computes delta,
+    then dK/dV, which reads it: delta within the fp32 sum's limit
+    D·2**-24·Σ|dO ∘ O| of a float64 rowsum, the gradients within the sm90
+    route's limit of the plain backward, and a rerun bit for bit.  (Where
+    the forward is the decode variant, which saves no lse, prep's stands
+    in for it.)"""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, b, h, hkv, lq, lk, d, 3 * lq + d)
+    out, lse = FK.flash_attention_lse_cuda(q, k, v, causal, window)
+    if lse is None:
+        lse = FK.bwd_prep_cuda(q, k, out, dout, causal, window, v=v)[0]
+    order = []
+    for fn in ("bwd_dq_delta_sm90_cuda", "bwd_dkdv_sm90_cuda"):
+        def recorded(*args, real=getattr(FK, fn), fn=fn, **kwargs):
+            order.append(fn)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(FK, fn, recorded)
+    before = {n: B.LAUNCHES[n] for n in BWD_KERNELS}
+    got = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window, lse=lse)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert order == ["bwd_dq_delta_sm90_cuda", "bwd_dkdv_sm90_cuda"]
+    assert {n: B.LAUNCHES[n] - before[n] for n in BWD_KERNELS} == {
+        n: int(n in BWD_ROUTE_KERNELS["sm90"]) for n in BWD_KERNELS}
+    dq, delta = FK.bwd_dq_delta_sm90_cuda(q, k, v, out, dout, lse, causal, window)
+    assert torch.equal(dq, got[0])
+    prod = (dout.double() * out.double()).reshape(b * h, lq, d)
+    assert delta.dtype == torch.float32 and delta.shape == (b * h, lq)
+    assert bool(((delta.double() - prod.sum(-1)).abs()
+                 <= d * 2**-24 * prod.abs().sum(-1)).all())
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), dout.float(), causal,
+                             window)
+    terms = _plain_terms(q, k, v, out, dout, causal, window)[2]
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms, strict=True):
+        flash_bwd_close(name, g, w, t)
+    again = FK.flash_attention_bwd_cuda(q, k, v, out, dout, causal, window, lse=lse)
+    for a, b_ in zip(got, again, strict=True):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_sm90_dq_with_delta_refuses_a_misaligned_o(cuda_device):
+    q, k, v, dout = _bwd_case(cuda_device, torch.bfloat16, 1, 4, 2, 64, 64, 64, 2)
+    lse = torch.zeros((4, 64), device=cuda_device)
+    wide = torch.zeros((1, 4, 64, 68), dtype=torch.bfloat16, device=cuda_device)[..., :64]
+    flat = torch.zeros(4 * 64 * 64 + 1, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:].view(1, 4, 64, 64)  # base 2 bytes past 16
+    before = dict(B.LAUNCHES)
+    for bad in (wide, shifted):
+        with pytest.raises(ValueError, match="16-byte"):
+            FK.bwd_dq_delta_sm90_cuda(q, k, v, bad, dout, lse)
+        with pytest.raises(ValueError, match="16-byte"):
+            FK.flash_attention_bwd_cuda(q, k, v, bad, dout, lse=lse)
+    assert B.LAUNCHES == before  # refused before any launch, no fallback
 
 
 def _resident_bwd_call(q, k, v, dout):
@@ -853,6 +928,83 @@ def test_flash_decode_kernels_equal_their_plain_versions(cuda_device, dtype, b, 
         torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
     else:  # one rounding to bf16 of nearly the same fp32 value
         torch.testing.assert_close(out.float(), want, rtol=2**-8, atol=1e-5)
+
+
+# The decode cases of the fused merge: FLASH_CASES' (one split at Lk = 1,
+# windows of 1 and 1024 keys), a window whose keys fill whole splits, a
+# last split of one key, and B·Hkv = 65,537 (two launches: the counters
+# are indexed by the global (batch, KV head)).
+FUSED_DECODE_CASES = [c for c in FLASH_CASES if FK.flash_route(torch.bfloat16, *c[1:]) == "decode"]
+FUSED_DECODE_CASES += [(2, 8, 4, 1, 2048, 256, True, 1024), (1, 4, 2, 1, 100, 128, True, 33),
+                       (65537, 1, 1, 1, 40, 64, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,lq,lk,d,causal,window", FUSED_DECODE_CASES)
+def test_fused_decode_equals_the_two_kernel_call(cuda_device, dtype, b, h, hkv, lq, lk, d,
+                                                 causal, window):
+    """One launch, whose last block of each (batch, KV head) merges the
+    splits, gives the bits of the split kernel then the combine kernel on
+    the same inputs, and leaves the counter buffer all zeros."""
+    q, k, v = flash_inputs(cuda_device, dtype, b, h, hkv, lq, lk, d, seed=lk + d + 1,
+                           model_layout=True)
+    assert FK.flash_route(dtype, h, hkv, lq, lk, d, causal, window) == "decode"
+    before = dict(B.LAUNCHES)
+    got = FK.flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in FLASH_VARIANTS} == {
+        n: int(n == "flash_attention_decode") for n in FLASH_VARIANTS}
+    two = FK._decode_two_kernels_forced(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+    counters = FK.decode_counters(cuda_device)
+    assert counters.numel() >= b * hkv and not bool(counters.any())
+
+
+@pytest.mark.cuda
+def test_decode_counters_grow_and_stay_zero(cuda_device):
+    """A geometry past the counter buffer's size replaces it by a larger
+    zeroed one at its first call; calls of both geometries leave it all
+    zeros."""
+    small = flash_inputs(cuda_device, torch.bfloat16, 2, 4, 2, 1, 70, 64, seed=1)
+    first = FK.flash_attention_cuda(*small)
+    have = FK.decode_counters(cuda_device).numel()
+    big = flash_inputs(cuda_device, torch.bfloat16, have + 1, 1, 1, 1, 70, 64, seed=2)
+    FK.flash_attention_cuda(*big)
+    again = FK.flash_attention_cuda(*small)
+    torch.cuda.synchronize()
+    counters = FK.decode_counters(cuda_device)
+    assert counters.numel() == FK.decode_counter_numel(have + 1, have) > have
+    assert not bool(counters.any())
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,lk,d", [(4, 40, 40, 513, 128), (8, 32, 4, 513, 128),
+                                          (2, 4, 4, 1, 64)])
+def test_mesh_decode_partials_and_combine_equal_their_plain_versions(cuda_device, b, h, hkv, lk,
+                                                                     d):
+    """The mesh decode's shard partials (``ops.flash_decode_partials``,
+    the split kernel alone) and their merge (``ops.flash_decode_combine``,
+    the combine kernel): one launch each, against ``decode_partials_ref``
+    and ``combine_ref``."""
+    from repro_torch.kernels.flash_attention.ops import flash_decode_combine, flash_decode_partials
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = flash_inputs(cuda_device, torch.bfloat16, b, h, hkv, 1, lk, d, seed=lk + h,
+                           model_layout=True)
+    before = dict(B.LAUNCHES)
+    ml, acc = flash_decode_partials(q, k, v)
+    out = flash_decode_combine(ml, acc, (b, h, hkv, 1, d), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert {n: B.LAUNCHES[n] - before[n] for n in FLASH_VARIANTS} == {
+        n: int(n in ("flash_attention_decode", "flash_attention_combine")) for n in FLASH_VARIANTS}
+    plan = FK.decode_plan(1, lk, None, b * hkv, FK.sm_count(cuda_device.index))
+    want_ml, want_acc = decode_partials_ref(q, k, v, True, None, plan)
+    torch.testing.assert_close(ml, want_ml, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-4 * float(want_acc.abs().max()))
+    flash_close(out, combine_ref(ml, acc, b, h, hkv, 1, torch.float32))
 
 
 def _offset_view(shape, dtype, device, offset):

@@ -54,6 +54,14 @@ reversed every other turn; ptxas's registers and spills of its kernel
 are kept.  Results go to ``chiprun_out/kernel_ab.json`` with the card's
 name and power limit.
 
+    python3 tools/kernel_ab.py --decode         # on the GPU
+
+times the one-launch decode at the LM path's single-device decode shapes
+split into its parts (the split kernel alone, the counter protocol alone,
+the merge's weights without its outputs, the whole design) beside the
+two-kernel call it replaced, as graph-replay device ms, in turns, into
+``chiprun_out/kernel_ab_decode.json``.
+
     python3 tools/kernel_ab.py --train <tree>   # on the GPU
 
 runs ``chip_smoke.py``'s first train phase (gemma3-4b, ``TRAIN_PHASES[0]``)
@@ -147,6 +155,16 @@ ABLATIONS = [
      [("  asm(\n      \"mma.sync", "  asm volatile(\n      \"mma.sync")]),
     # 8 warps a block (2 blocks an SM) instead of 4 (4 blocks an SM)
     ("flash_attention", "eight_warps", [("#define FR_WARPS 4", "#define FR_WARPS 8")]),
+    # The one-launch decode's tail (``--decode``): the counter protocol
+    # alone (the last block resets its counter and merges nothing: no
+    # output), and the merge's weights without its outputs.
+    ("flash_attention", "decode_protocol_only",
+     [("    if (!fd_last) return;\n    __threadfence();",
+       "    if (!fd_last) return;\n    __threadfence();\n"
+       "    if (threadIdx.x == 0) count[bh] = 0;\n    return;")]),
+    ("flash_attention", "decode_weights_only",
+     [("for (int base = first; base < units; base += K * step) {",
+       "for (int base = first; base < 0; base += K * step) {")]),
     # The bf16 tensor-core backward (dkdv and dq), one part undone each.
     ("flash_attention_bwd_sm90", "design", []),
     # no operand tiles from device memory: the producer arrives on each
@@ -371,7 +389,8 @@ def attention_ab(torch) -> dict:
 
     logs = {}
     built = {variant: lib for (_stem, variant), lib in
-             build_ablations(B, ("flash_attention",), logs).items()}
+             build_ablations(B, ("flash_attention",), logs).items()
+             if not variant.startswith("decode_")}
     missing = [variant for variant, lib in built.items() if lib is None]
     if missing:
         raise RuntimeError(f"ablations whose text is not in flash_attention.cu: {missing}")
@@ -410,6 +429,67 @@ def attention_ab(torch) -> dict:
               f"max |err| {row['max_abs_err']:.3g} ({row['share_of_limit']:.3g} of FLASH_TOL)",
               flush=True)
     return {"shape": ATTENTION_SHAPE, "turns": ATTENTION_TURNS, "rows": rows}
+
+
+def decode_ab(torch) -> dict:
+    """The one-launch decode at the LM path's single-device decode shapes
+    (``chip_smoke.FLASH_ROW_SHAPES``), split into its parts by graph-replay
+    device ms: the split kernel alone (PartialsOnly), the counter protocol
+    alone, the merge's weights without its outputs, the whole design, and
+    the two-kernel call it replaced (``kernel._decode_two_kernels_forced``),
+    in ``ATTENTION_TURNS`` turns (the order reversed every other turn); the
+    design's output equal to the two-kernel call's bit for bit.  Each build
+    counts on its own buffer, set back to 0 after the variants that leave
+    counters set."""
+    import chip_smoke as S
+    from _torch_parity import flash_inputs
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    built = {variant: lib for (_stem, variant), lib in
+             build_ablations(B, ("flash_attention",)).items()
+             if variant == "design" or variant.startswith("decode_")}
+    missing = [variant for variant, lib in built.items() if lib is None]
+    if missing:
+        raise RuntimeError(f"ablations whose text is not in flash_attention.cu: {missing}")
+    dev = torch.device("cuda", 0)
+    report = {}
+    for n, (label, b, h, hkv, lq, lk, d, window, _copies) in enumerate(S.FLASH_ROW_SHAPES):
+        if FK.flash_route(torch.bfloat16, h, hkv, lq, lk, d, True, window) != "decode" \
+                or "mesh" in label:
+            continue
+        q, k, v = flash_inputs(dev, torch.bfloat16, b, h, hkv, lq, lk, d, seed=100 + n,
+                               model_layout=True)
+        launch = FK._launch_of(q, k, v, True, window, "kernel_ab")
+        ml_ptr, acc_ptr, scratch = FK._decode_scratch(launch, dev)
+        counts = torch.zeros(b * hkv, dtype=torch.int32, device=dev)
+        out = torch.empty_like(q)
+
+        def call(lib, mode):
+            B.check(lib.flash_decode_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), ml_ptr, acc_ptr, out.data_ptr(),
+                counts.data_ptr(), launch.decode_args, launch.scale, mode, B.stream_of(dev)),
+                "flash_attention_decode")
+
+        calls = {"partials only": lambda: call(built["design"], FK._PARTIALS_ONLY),
+                 **{variant: (lambda lib=lib: call(lib, FK._FUSED))
+                    for variant, lib in built.items()},
+                 "two kernels": lambda: FK._decode_two_kernels_forced(q, k, v, True, window)}
+        call(built["design"], FK._FUSED)
+        if not torch.equal(out, FK._decode_two_kernels_forced(q, k, v, True, window)):
+            raise AssertionError(f"the one-launch decode differs from the two kernels at {label}")
+        rows = {name: [] for name in calls}
+        for turn in range(ATTENTION_TURNS):
+            for name in (list(calls) if turn % 2 == 0 else list(calls)[::-1]):
+                rows[name].append(S.graph_ms(calls[name], reps=20))
+                counts.zero_()  # the protocol-only build leaves its last counts set
+        report[label] = {name: float(np.median(t)) for name, t in rows.items()}
+        report[label]["plan"] = launch.plan
+        print(f"decode {label} {launch.plan}: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in report[label].items() if name != "plan")
+              + " (device ms, medians)", flush=True)
+        del q, k, v, out, scratch, counts
+    return {"turns": ATTENTION_TURNS, "shapes": report}
 
 
 def attention_bwd_ab(torch) -> dict:
@@ -453,7 +533,7 @@ def attention_bwd_ab(torch) -> dict:
 
         def dq_call(lib):
             B.check(lib.flash_bwd_dq_sm90_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), args_q.args, args_q.scale, B.stream_of(dev)),
                 "flash_bwd_dq_sm90")
 
@@ -571,7 +651,7 @@ def train_ab(tree: Path) -> list:
 def main(argv) -> int:
     import torch
 
-    if argv == ["--bwd"]:
+    if argv in (["--bwd"], ["--decode"]):
         if not torch.cuda.is_available():
             print(__doc__, file=sys.stderr)
             return 2
@@ -580,9 +660,12 @@ def main(argv) -> int:
 
         report = {"card": S.card_line()}
         print(report["card"], flush=True)
-        report["attention_bwd"] = attention_bwd_ab(torch)
-        report["resident_bwd"] = resident_bwd_ab(torch)
-        out = ROOT / "chiprun_out" / "kernel_ab_bwd.json"
+        if argv == ["--decode"]:
+            report["decode"] = decode_ab(torch)
+        else:
+            report["attention_bwd"] = attention_bwd_ab(torch)
+            report["resident_bwd"] = resident_bwd_ab(torch)
+        out = ROOT / "chiprun_out" / f"kernel_ab_{argv[0][2:]}.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1))
         return 0
