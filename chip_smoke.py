@@ -8,7 +8,9 @@
    registers and spills of each kernel;
 3. holds each kernel against its plain PyTorch version on the card, on
    random and edge-case inputs: the search kernels exactly (their outputs
-   are integers; the fold also on the hand-built layouts of
+   are integers; the count kernels' row and split forms, forced, on
+   ``tests/_torch_parity.count_form_cases``; the fold also on the
+   hand-built layouts of
    ``tests/_torch_parity.FOLD_CASES`` and against the CPU emulation of its
    algorithm, twice), ``cluster_scores`` within ``rtol=2e-5, atol=1e-5``
    through the variant ``kernel.score_route`` picks (read from the
@@ -24,7 +26,16 @@
    engine bit for bit, one fold launch a batch — with every launch
    counter set to 0 just before and the search kernels' counters read
    just after (the fold's arguments of each batch are recorded, for its
-   timing in step 12);
+   timing in step 12; the block path must launch only the row form of the
+   count kernels); then the paper's non-clustered baseline
+   (``baseline_phase``): the arity-2 log's pairs binned over the fit's
+   randomized-id ``base_index`` by ``index.batched.batch_queries`` on the
+   host, uploaded, each bin counted by ``count_intersections`` (the count
+   kernel in the form ``kernel.count_route`` picks: the split form at the
+   bins' few, long rows) between a counter reset and read, the per-query
+   counts equal to the host and device engines' bit for bit and each
+   bin's to the plain version; each bin timed in turns through the route
+   and the row form forced, beside the fold over the same log's batches;
 5. drives the serving tier over the same fit through the launcher's
    functions (``serve_sharded``, ``replay_sealed``, ``replay_async``,
    ``replay_chaos``), on ``TIER_SHARDS`` shard slots of the card: both
@@ -463,6 +474,8 @@ SOURCES = {
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:203"),
     "intersect_count_kernel": (
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
+    "intersect_count_split": (
+        "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
     "cluster_scores_kernel": (
         "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
     "cluster_scores_staged": (
@@ -497,8 +510,11 @@ SOURCES = {
        for name in ("segment_aggregate_fwd", "segment_aggregate_bwd",
                     "segment_aggregate_fwd_registers", "segment_aggregate_bwd_registers")},
 }
+# The search kernels' counters.  The block path keeps the row form of the
+# count kernels at its shapes (its runs must launch no split form); the
+# non-clustered baseline's few, long rows take the split form.
 SEARCH_KERNELS = ("segment_fold", "intersect_members_kernel", "intersect_members_count_kernel",
-                  "intersect_count_kernel")
+                  "intersect_count_kernel", "intersect_count_split")
 # Terms of the queries that take the fold past one launch's 64 stages.
 DEEP_QUERY_TERMS = (70, 131)
 # The serving tier: shard slots on the one card, and the replays' arrival
@@ -656,6 +672,36 @@ def check_intersect_cases(torch, dev) -> None:
                      R.intersect_count_ref(s_sorted, l))
     torch.cuda.synchronize()
     print(f"intersect trio: {len(cases)} random/edge cases equal to the plain versions")
+    check_count_forms(torch, dev)
+
+
+def check_count_forms(torch, dev) -> None:
+    """Both count forms, forced, on ``_torch_parity.count_form_cases``:
+    the count (short rows sorted) and the members count (PAD holes
+    anywhere) equal to their plain versions; the launch counters name the
+    form of each launch."""
+    from _torch_parity import count_form_cases, count_forms
+
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.intersect import ref as R
+
+    n, cases = 0, count_form_cases()
+    for name, (short_np, long_np) in cases.items():
+        s, l = torch.from_numpy(short_np).to(dev), torch.from_numpy(long_np).to(dev)
+        s_sorted = torch.sort(s, dim=1).values
+        want_members = R.intersect_members_ref(s, l).sum(dim=1).to(torch.int32)
+        want = R.intersect_count_ref(s_sorted, l)
+        for form, forced in count_forms():
+            before = B.LAUNCHES[f"intersect_count_{form}"]
+            assert_equal(f"intersect_count_{form} {name}", forced(s_sorted, l), want)
+            assert_equal(f"intersect_members_count {form} {name}",
+                         forced(s, l, members=True), want_members)
+            if B.LAUNCHES[f"intersect_count_{form}"] != before + 2:
+                raise AssertionError(f"{name}: the {form} form was not counted")
+            n += 2
+    torch.cuda.synchronize()
+    print(f"count kernels: {n} forced launches of the row and split forms on "
+          f"{len(cases)} cases equal to the plain versions")
 
 
 def check_fold_cases(torch, dev) -> None:
@@ -792,8 +838,9 @@ def serving_tier(torch, svc, logs, corpus, n_queries):
         raise AssertionError(f"{launches['segment_fold']} fold launches for {n_batches} "
                              f"batches on {S} shards")
     counting = launches["intersect_count_kernel"] + launches["intersect_members_count_kernel"]
-    if counting != S * len(logs):
-        raise AssertionError(f"block path over {S} devices: {counting} count launches")
+    if counting != S * len(logs) or launches["intersect_count_split"]:
+        raise AssertionError(f"block path over {S} devices: {counting} count launches, "
+                             f"{launches['intersect_count_split']} of the split form")
     print(f"sharded serving: {S} slots of one card, {n_batches} batches, launches {launches}",
           flush=True)
     out["sharded"], out["sharded_launches"] = served, launches
@@ -1277,6 +1324,205 @@ def intersect_rows(torch, svc, logs, launches):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
         }]))
     return entries
+
+
+def baseline_bins(torch, dev, base_index, queries) -> dict:
+    """The non-clustered baseline's padded bins of the (n, 2) ``queries``
+    over ``base_index`` (``index/batched.py``), binned on the host and
+    uploaded to ``dev``, with the seconds each step took."""
+    from repro_torch.index.batched import batch_queries
+
+    t0 = time.perf_counter()
+    batched = batch_queries(base_index, queries)
+    binning_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tensors = [(torch.from_numpy(b.short).to(dev), torch.from_numpy(b.long).to(dev))
+               for b in batched.bins]
+    torch.cuda.synchronize()
+    return {"batched": batched, "tensors": tensors, "binning_s": binning_s,
+            "upload_s": time.perf_counter() - t0}
+
+
+def count_row(torch, name, s, l, n_true, route, reps=10) -> dict:
+    """One count call at (s, l): through the route and with the row form
+    forced, in turns (eager) and as graph replays, beside the plain version
+    and the byte bound of the ``n_true`` postings the function must read
+    (the PAD tails are never read) and its output."""
+    from repro_torch.index.batched import count_intersections
+    from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.kernels.intersect.ref import intersect_count_ref
+
+    err = assert_equal(name, count_intersections(s, l), intersect_count_ref(s, l))
+
+    def routed():
+        return count_intersections(s, l)
+
+    def row_form():
+        return K._row_form_forced(s, l)
+
+    turns = ab_turns(routed, row_form, reps=reps)
+    nbytes = 4 * (n_true + s.shape[0])
+    return {
+        "shape": f"{tuple(s.shape)} x {tuple(l.shape)}", "route": route, "max_abs_err": err,
+        "ms": turns["ms"], "old_ms": turns["old_ms"], "ms_turns": turns["turns"],
+        "device_ms": graph_ms(routed, reps=reps), "old_device_ms": graph_ms(row_form, reps=reps),
+        "plain_ms": time_ms(lambda: intersect_count_ref(s, l), reps=3, warmup=1),
+        "padded_bytes": 4 * (s.numel() + l.numel() + s.shape[0]), "bytes": nbytes,
+        "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+    }
+
+
+SUM_KEYS = ("ms", "old_ms", "device_ms", "old_device_ms", "plain_ms", "padded_bytes", "bytes",
+            "bound_ms")
+
+
+def sum_rows(rows, shape) -> dict:
+    total = {key: sum(r[key] for r in rows) for key in SUM_KEYS}
+    total.update(shape=shape, max_abs_err=max((r["max_abs_err"] for r in rows), default=0))
+    return total
+
+
+def block_path_below_cut(torch, svc, log) -> tuple:
+    """The block path (``device_counts``) over rows the route sends to the
+    split form at the block path's widths: the first half of the row
+    form's cut (``ROW_FORM_ROWS_PER_SM`` rows a multiprocessor) of the
+    pairs of ``log``'s first :data:`BLOCK_QUERIES` queries.  The
+    per-query counts must equal the plain per-row counts summed by query,
+    with one split-form launch; returns the launches and the timed row."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.kernels.intersect.ref import PAD, intersect_count_ref
+    from repro_torch.launch.search import BLOCK_QUERIES
+    from repro_torch.serve.search_service import PackedClusters
+
+    full = svc.pack(log.queries[:BLOCK_QUERIES])
+    sms = K.device_sms(svc.device)
+    m = K.ROW_FORM_ROWS_PER_SM * sms // 2
+    packed = PackedClusters(
+        segments=tuple(np.ascontiguousarray(b[:m]) for b in full.segments),
+        row_query=full.row_query[:m], row_arity=full.row_arity[:m], n_queries=full.n_queries)
+    if K.count_route(*packed.short.shape, packed.long.shape[1], sms) != "split":
+        raise AssertionError(f"block path: {packed.short.shape} rows do not take the split form")
+    B.reset_launch_counts()
+    counts = svc.device_counts(packed).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = {name: k for name, k in B.LAUNCHES.items() if k}
+    s, l = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(svc.device)
+            for a in packed.segments)
+    want = np.bincount(packed.row_query, weights=intersect_count_ref(s, l).cpu().numpy(),
+                       minlength=packed.n_queries)
+    if not np.array_equal(counts, want) or launches != {
+            "intersect_count_kernel": 1, "intersect_count_split": 1}:
+        raise AssertionError(f"block path over {m} rows: launches {launches}, or counts "
+                             f"disagree with the plain version")
+    n_true = int((s != int(PAD)).sum() + (l != int(PAD)).sum())
+    row = count_row(torch, f"block path over {m} rows", s, l, n_true, "split")
+    return launches, row
+
+
+def baseline_phase(torch, dev, svc, log, fold_batches) -> tuple:
+    """The paper's non-clustered baseline on the card: ``log``'s term pairs
+    binned over the fit's randomized-id ``base_index`` and each bin counted
+    by ``index.batched.count_intersections`` (the count kernel in the form
+    ``kernel.count_route`` picks), counters set to 0 just before and read
+    just after; per query, the counts scattered by ``query_ids`` must equal
+    the host engine's and the device engine's (the fold over the clustered
+    index) bit for bit, and each bin's counts the plain version's.  Then
+    each bin timed in turns through the route and the row form forced
+    (eager, and as a CUDA-graph replay), beside the plain version and the
+    byte bound of its true postings, and the fold's own time over the same
+    log's batches (``fold_batches``: its recorded arguments); and the block
+    path over a batch small enough for the split form
+    (:func:`block_path_below_cut`).  Returns the report and the split
+    form's kernel entry (the bins it counts and that block-path shape)."""
+    from repro_torch.core.queries import as_queries
+    from repro_torch.index.batched import count_intersections
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.launch.search import SERVE_BATCH
+
+    queries = log.queries
+    inputs = baseline_bins(torch, dev, svc.res.base_index, queries)
+    batched, tensors = inputs["batched"], inputs["tensors"]
+    B.reset_launch_counts()
+    counted = [count_intersections(s, l) for s, l in tensors]
+    torch.cuda.synchronize()
+    launches = {name: n for name, n in B.LAUNCHES.items() if n}
+    sms = K.device_sms(dev)
+    routes = [K.count_route(*s.shape, l.shape[1], sms) for s, l in tensors]
+    expect = {"intersect_count_kernel": len(tensors),
+              "intersect_count_split": routes.count("split"),
+              "intersect_count_row": routes.count("row")}
+    if {name: n for name, n in expect.items() if n} != launches or not expect[
+            "intersect_count_split"]:
+        raise AssertionError(f"baseline: launches {launches}, expected {expect}")
+    got = np.zeros(len(queries), np.int64)
+    for b, c in zip(batched.bins, counted, strict=True):
+        got[b.query_ids] = c.cpu().numpy()
+    host = svc.serve_counts(queries)[0]
+    cq = as_queries(queries)
+    device, t_fold = [], []
+    for i in range(0, cq.n_queries, SERVE_BATCH):
+        counts, info = svc.serve_counts_device(cq[i : i + SERVE_BATCH])
+        device.append(counts)
+        t_fold.append(float(info["t_fold_s"]))
+    if not (np.array_equal(got, host) and np.array_equal(got, np.concatenate(device))):
+        raise AssertionError("baseline: per-query counts disagree with the host or the device "
+                             "engine")
+
+    rows = [count_row(torch, f"baseline bin {tuple(s.shape)} x {tuple(l.shape)}", s, l,
+                      int(b.n_short.sum() + b.n_long.sum()), route)
+            for (s, l), b, route in zip(tensors, batched.bins, routes, strict=True)]
+    split_rows = [r for r in rows if r["route"] == "split"]
+    total = sum_rows(rows, f"{len(rows)} bins")
+    split = sum_rows(split_rows, f"{len(split_rows)} bins of the split form")
+    row_bins = sum_rows([r for r in rows if r["route"] == "row"],
+                        f"{len(rows) - len(split_rows)} bins of the row form")
+    block_launches, block = block_path_below_cut(torch, svc, log)
+    n_fold = len(t_fold)
+    fold = [(time_ms(lambda a=a: K.segment_fold_cuda(*a), reps=10),
+             graph_ms(lambda a=a: K.segment_fold_cuda(*a), reps=10)) for a in fold_batches[:n_fold]]
+    report = {
+        "n_queries": len(queries), "n_bins": len(rows), "binning_s": inputs["binning_s"],
+        "upload_s": inputs["upload_s"], "padding_overhead": batched.padding_overhead(),
+        "launches": launches, "sum": total, "split_bins": split, "row_bins": row_bins,
+        "block_path": {"launches": block_launches, **block},
+        "fold": {"n_batches": n_fold, "ms": sum(f[0] for f in fold),
+                 "device_ms": sum(f[1] for f in fold), "t_fold_s": t_fold},
+        "bins": rows,
+    }
+    print(f"baseline (non-clustered, {len(queries)} arity-2 queries): {len(rows)} bins, "
+          f"padding overhead {report['padding_overhead']:.4f}, host binning "
+          f"{inputs['binning_s']:.3f} s, upload {inputs['upload_s']:.3f} s "
+          f"({total['padded_bytes'] / 1e6:.1f} MB); launches {launches}; counts equal to the "
+          f"host and device engines per query", flush=True)
+    for part in (total, split, row_bins):
+        print(f"baseline count, {part['shape']} (sums, ms): route eager {part['ms']:.4f} graph "
+              f"{part['device_ms']:.4f}; row form forced eager {part['old_ms']:.4f} graph "
+              f"{part['old_device_ms']:.4f}; plain {part['plain_ms']:.4f}; bound "
+              f"{part['bound_ms']:.5f} (bytes of the true postings; padded "
+              f"{part['padded_bytes'] / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
+    print(f"the fold over the same log's {n_fold} batches: eager {report['fold']['ms']:.4f} "
+          f"graph {report['fold']['device_ms']:.4f}, t_fold_s sum {sum(t_fold):.6f}",
+          flush=True)
+    print(f"block path below the row form's cut ({block['shape']}): launches "
+          f"{block_launches}, counts equal to the plain version; "
+          f"split {block['ms']:.4f} (device {block['device_ms']:.4f}), row form forced "
+          f"{block['old_ms']:.4f} (device {block['old_device_ms']:.4f}), bound "
+          f"{block['bound_ms']:.5f}", flush=True)
+    for r in sorted(rows, key=lambda r: -r["old_device_ms"])[:8]:
+        print(f"  baseline bin {r['shape']} [{r['route']}]: device {r['device_ms']:.4f} ms, row "
+              f"form {r['old_device_ms']:.4f}, bound {r['bound_ms']:.5f}", flush=True)
+    entry = kernel_entry(
+        "intersect_count_split",
+        {"intersect_count_split": launches["intersect_count_split"]
+         + block_launches["intersect_count_split"]},
+        [split, block, *split_rows],
+        variant="split (the baseline bins it takes; block-path rows below the cut)")
+    for key in ("device_ms", "old_ms", "old_device_ms"):
+        entry[key] = split[key]
+    entry["routed_total"] = {key: total[key] for key in (*SUM_KEYS, "shape")}
+    return report, entry
 
 
 def score_bound(ell_numel, tc, k, n, n_valid):
@@ -5461,19 +5707,29 @@ def main() -> int:
     launches.update({name: B.LAUNCHES[name] for name in SEARCH_KERNELS})
     print(f"launches on the search path: { {n: launches[n] for n in SEARCH_KERNELS} }",
           flush=True)
-    missing = [name for name in SEARCH_KERNELS if launches[name] <= 0]
-    if missing:
-        raise AssertionError(f"kernels the search path never launched: {missing}")
+    missing = [name for name in SEARCH_KERNELS[:-1] if launches[name] <= 0]
+    if missing or launches["intersect_count_split"]:
+        raise AssertionError(f"kernels the search path never launched: {missing}; split-form "
+                             f"count launches on the block path: "
+                             f"{launches['intersect_count_split']}")
     n_batches = sum(report[f"engine_{name}"]["n_batches"] for name in logs)
     if not launches["segment_fold"] == len(fold_batches) == n_batches:
         raise AssertionError(f"{launches['segment_fold']} fold launches for {n_batches} batches")
     print("search path: n_docs={n_docs} n_postings={n_postings} index_nbytes={index_nbytes} "
           "fit_s={fit_s:.1f}".format(**report))
-    phase_done("search path", t0)
+    t0 = phase_done("search path", t0)
     for name in logs:
         e = report[f"engine_{name}"]
         print(f"  {name}: median t_plan_s={e['t_plan_s_median']:.6f} "
               f"t_lower_s={e['t_lower_s_median']:.6f} t_fold_s={e['t_fold_s_median']:.6f}")
+
+    # The non-clustered baseline over the fit's randomized-id index, on the
+    # arity-2 log: its own counter window (the split form's launches).
+    baseline, baseline_entry = baseline_phase(torch, dev, svc, logs["arity2"], fold_batches)
+    launches["intersect_count_split"] = baseline_entry["launches"]
+    baseline["wall_s"] = time.perf_counter() - t0
+    phase_line("baseline", baseline["wall_s"])
+    torch.cuda.empty_cache()
 
     # The sanitizer on the warm fold, before the tier shards the service.
     t0 = time.perf_counter()
@@ -5513,7 +5769,7 @@ def main() -> int:
     buckets, score_excess = topdown_score_buckets(torch, dev, kmeans["score_shapes"], launches)
     staged = kernel_entry("cluster_scores_staged", launches, scores["shapes"][:1], variant="staged")
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
-    kernels = [fold, *intersect_rows(torch, svc, logs, launches), scores, staged,
+    kernels = [fold, *intersect_rows(torch, svc, logs, launches), baseline_entry, scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
     t0 = phase_done("search and attention kernel rows", t0)
     kernels += flash_bwd_rows(torch, dev, launches, bwd_errs)
@@ -5607,7 +5863,7 @@ def main() -> int:
     out.write_text(json.dumps({
         "card": card_line(), "report": report, "tier": tier, "kmeans": kmeans, "lm": lm,
         "mesh_lm": mesh_lm, "recsys": recsys, "train": train, "pna": pna_report,
-        "sanitize": sanitize, "dryrun": dry,
+        "sanitize": sanitize, "dryrun": dry, "baseline": baseline,
         "flash_cases": flash_errs, "flash_bwd_cases": bwd_errs, "ptxas": B.PTXAS, "kernels": kernels,
         "phase_s": PHASE_S, "decode_counters_zero_after": COUNTERS_ZERO_AFTER,
         "wall_s": time.perf_counter() - t_start,

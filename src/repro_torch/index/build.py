@@ -13,11 +13,12 @@ pairs — O(nnz), fully vectorized.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
-from repro_torch.data.corpus import Corpus
+if TYPE_CHECKING:  # the data package imports the index (through core) in turn
+    from repro_torch.data.corpus import Corpus
 
 __all__ = ["InvertedIndex", "build_index", "permute_docs"]
 

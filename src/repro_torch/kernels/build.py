@@ -67,12 +67,13 @@ _SIGNATURES = {
             _P, _L, _P, _L, _P, _L, _I, ctypes.POINTER(_I), _I, _I, _P, _P, _P, _P),
     },
     "intersect": {
-        name: (_P, _P, _L, _L, _L, _P, _P)
-        for name in (
-            "intersect_members_launch",
-            "intersect_members_count_launch",
-            "intersect_count_launch",
-        )
+        **{name: (_P, _P, _L, _L, _L, _P, _P)
+           for name in (
+               "intersect_members_launch",
+               "intersect_members_count_launch",
+               "intersect_count_launch",
+           )},
+        "intersect_count_split_launch": (_P, _P, _L, _L, _L, _L, _P, _P),
     },
     "cluster_score": {
         name: (_P, _L, _L, _P, _P, _L, _L, _P, _P)
@@ -116,7 +117,11 @@ _SIGNATURES = {
 }
 
 # Launch counts of the kernels: one per launch, incremented only where a
-# kernel is launched (never on the plain CPU path).  The scoring launcher
+# kernel is launched (never on the plain CPU path).  The two count
+# launchers count each call as ``intersect_count_kernel`` or
+# ``intersect_members_count_kernel`` and each launch of the form it took
+# (``kernel.count_route``): ``intersect_count_row`` (one block a row) or
+# ``intersect_count_split`` (one block a chunk of a row).  The scoring launcher
 # counts each call as ``cluster_scores_kernel`` and each launch of the
 # variant it took (``cluster_scores_staged``: the weighted table in shared
 # memory; ``cluster_scores_general``).  The attention
@@ -143,6 +148,8 @@ LAUNCHES: Dict[str, int] = {
     "intersect_members_kernel": 0,
     "intersect_members_count_kernel": 0,
     "intersect_count_kernel": 0,
+    "intersect_count_row": 0,
+    "intersect_count_split": 0,
     "cluster_scores_kernel": 0,
     "cluster_scores_staged": 0,
     "cluster_scores_general": 0,

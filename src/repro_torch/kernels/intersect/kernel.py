@@ -1,5 +1,7 @@
 """Launchers of the search path's CUDA kernels: the fold
-(``csrc/fold.cu``) and the intersect trio (``csrc/intersect.cu``).
+(``csrc/fold.cu``) and the intersect trio (``csrc/intersect.cu``), whose
+two count launchers take the row or the split form by
+:func:`count_route`.
 
 The libraries are built, loaded and counted by
 :mod:`repro_torch.kernels.build`.  Every launcher checks device, dtype,
@@ -24,6 +26,9 @@ __all__ = [
     "intersect_members_cuda",
     "intersect_members_count_cuda",
     "intersect_count_cuda",
+    "count_route",
+    "device_sms",
+    "split_chunk",
 ]
 
 
@@ -106,10 +111,15 @@ def segment_fold_cuda(
     return counts, entering, members if return_members else None
 
 
-def _rows_call(fn_name: str, counter: str, short, long, out):
-    device = _check_int32_cuda(counter, short, long)
+def _check_rows(name: str, short, long) -> torch.device:
+    device = _check_int32_cuda(name, short, long)
     if short.dim() != 2 or long.dim() != 2 or short.shape[0] != long.shape[0]:
-        raise ValueError(f"{counter}: short (B, Ls) and long (B, Ll) expected")
+        raise ValueError(f"{name}: short (B, Ls) and long (B, Ll) expected")
+    return device
+
+
+def _rows_call(fn_name: str, counter: str, short, long, out):
+    device = _check_rows(counter, short, long)
     status = getattr(lib("intersect"), fn_name)(
         short.data_ptr(),
         long.data_ptr(),
@@ -130,15 +140,101 @@ def intersect_members_cuda(short: torch.Tensor, long: torch.Tensor) -> torch.Ten
     return _rows_call("intersect_members_launch", "intersect_members_kernel", short, long, out)
 
 
+# The count kernels' two forms (csrc/intersect.cu).  The row form runs one
+# block of 128 threads a row; the split form one block of SPLIT_THREADS a
+# (row, chunk of short elements), each block probing only the window of the
+# long row its chunk's values span (windows of up to 4,096 elements staged
+# in shared memory), its count added to the row's output by an atomic.
+# The cuts are tools/count_ab.py's on an H100 (PERF.md), at the
+# non-clustered baseline's bins, the block path's packs and random rows:
+# at <= ROW_FORM_LS short elements a row the row form's one launch wins by
+# ~1 us (the split form also zeroes its output); past that the split form
+# wins at few rows (2-3x at 1,024 short elements, 60-100x at 131,072) and
+# the row form from 4-8 rows a streaming multiprocessor (ROW_FORM_ROWS_PER_SM
+# between), where its grid fills the card, except at more than WIDE_LS
+# short elements, where the split form wins at every row count; chunks of
+# 512 are fastest up to WIDE_LS short elements, chunks of 2,048 beyond.
+SPLIT_THREADS = 256
+SPLIT_CHUNKS = (SPLIT_THREADS * 2, SPLIT_THREADS * 8)
+ROW_FORM_ROWS_PER_SM = 6
+ROW_FORM_LS = 256
+WIDE_LS = 16384
+
+
+_SMS: dict = {}
+
+
+def device_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (asked once)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def count_route(n_rows: int, ls: int, ll: int, sms: int) -> str:
+    """The count form a (n_rows, ls) x (n_rows, ll) call launches on a
+    card of ``sms`` streaming multiprocessors: ``"split"`` when a short row
+    holds more than :data:`ROW_FORM_LS` elements and either more than
+    :data:`WIDE_LS` or there are fewer than :data:`ROW_FORM_ROWS_PER_SM`
+    rows a multiprocessor, else ``"row"``."""
+    if ll > 0 and ls > ROW_FORM_LS and (ls > WIDE_LS or n_rows < ROW_FORM_ROWS_PER_SM * sms):
+        return "split"
+    return "row"
+
+
+def split_chunk(ls: int) -> int:
+    """Short elements a block of the split form takes at short rows of
+    ``ls``."""
+    return SPLIT_CHUNKS[0] if ls <= WIDE_LS else SPLIT_CHUNKS[1]
+
+
+def _count_call(members: bool, short, long, form: Optional[str] = None) -> torch.Tensor:
+    """One launch of the count (``members``: the members count) in
+    ``form`` (None: the one :func:`count_route` picks), counted as the call
+    (``intersect_count_kernel`` or ``intersect_members_count_kernel``) and
+    as the form (``intersect_count_row`` or ``intersect_count_split``)."""
+    counter = "intersect_members_count_kernel" if members else "intersect_count_kernel"
+    device = _check_rows(counter, short, long)
+    n_rows, ls, ll = short.shape[0], short.shape[1], long.shape[1]
+    if form is None:
+        form = count_route(n_rows, ls, ll, device_sms(device))
+    if form == "row":
+        fn_name = "intersect_members_count_launch" if members else "intersect_count_launch"
+        out = _rows_call(fn_name, counter,
+                         short, long, torch.empty(n_rows, dtype=torch.int32, device=device))
+    else:
+        out = torch.zeros(n_rows, dtype=torch.int32, device=device)
+        status = lib("intersect").intersect_count_split_launch(
+            short.data_ptr(), long.data_ptr(), n_rows, ls, ll, split_chunk(ls),
+            out.data_ptr(), stream_of(device))
+        check(status, counter)
+        LAUNCHES[counter] += 1
+    LAUNCHES[f"intersect_count_{form}"] += 1
+    return out
+
+
 def intersect_members_count_cuda(short: torch.Tensor, long: torch.Tensor) -> torch.Tensor:
-    """(B,) int32 hit count of the members probe."""
-    out = torch.empty(short.shape[0], dtype=torch.int32, device=short.device)
-    return _rows_call(
-        "intersect_members_count_launch", "intersect_members_count_kernel", short, long, out
-    )
+    """(B,) int32 hit count of the members probe, in the form
+    :func:`count_route` picks."""
+    return _count_call(True, short, long)
 
 
 def intersect_count_cuda(short: torch.Tensor, long: torch.Tensor) -> torch.Tensor:
-    """(B,) int32 |short ∩ long| per row."""
-    out = torch.empty(short.shape[0], dtype=torch.int32, device=short.device)
-    return _rows_call("intersect_count_launch", "intersect_count_kernel", short, long, out)
+    """(B,) int32 |short ∩ long| per row, in the form :func:`count_route`
+    picks."""
+    return _count_call(False, short, long)
+
+
+def _row_form_forced(short: torch.Tensor, long: torch.Tensor,
+                     members: bool = False) -> torch.Tensor:
+    """The count (``members``: the members count) in the row form on any
+    shape: the design the split form replaced at few, long rows."""
+    return _count_call(members, short, long, "row")
+
+
+def _split_form_forced(short: torch.Tensor, long: torch.Tensor,
+                       members: bool = False) -> torch.Tensor:
+    """The count in the split form (chunks of :func:`split_chunk`) on any
+    shape."""
+    return _count_call(members, short, long, "split")

@@ -71,6 +71,52 @@ def make_rows(rng, b, ls, ll, universe, holes=False):
     return short, long
 
 
+COUNT_FORM_CASE_NAMES = ("baseline widest", "baseline 22 rows", "baseline pad holes",
+                         "ragged chunk", "one row of 4", "all-PAD short row",
+                         "short beyond long", "identical rows", "wide windows")
+
+
+def count_forms() -> tuple:
+    """(form, forced launcher) of the count kernels' two forms."""
+    from repro_torch.kernels.intersect import kernel as K
+
+    return (("row", K._row_form_forced), ("split", K._split_form_forced))
+
+
+def count_form_cases(seed: int = 0) -> dict:
+    """name -> (short, long) int32 rows for the count kernels' two forms
+    (``kernel.count_route``): the non-clustered baseline's shapes (few
+    rows, short rows of thousands to 131,072 elements against 262,144)
+    and the split form's edges — one row of 4 against 262,144, an all-PAD
+    short row, short values all beyond the long row's last one, identical
+    rows, PAD holes, and windows wider than the shared-memory stage."""
+    from repro_torch.kernels.intersect.ref import PAD
+
+    rng = np.random.default_rng(seed)
+    cases = {
+        "baseline widest": make_rows(rng, 3, 131072, 262144, universe=1 << 19),
+        "baseline 22 rows": make_rows(rng, 22, 4096, 32768, universe=200_000),
+        "baseline pad holes": make_rows(rng, 5, 8192, 65536, universe=200_000, holes=True),
+        "ragged chunk": make_rows(rng, 7, 3000, 5001, universe=20_000, holes=True),
+    }
+    long = np.sort(rng.choice(1 << 20, 262144, replace=False)).astype(np.int32)[None]
+    cases["one row of 4"] = (np.sort(np.r_[long[0, [7, 200_000]], 5, 1 << 20 | 1])
+                             .astype(np.int32)[None], long)
+    short, long = make_rows(rng, 4, 2048, 8192, universe=50_000)
+    short[1] = PAD
+    cases["all-PAD short row"] = (short, long)
+    long = np.full((2, 4096), PAD, np.int32)
+    long[:, :3000] = np.arange(3000, dtype=np.int32)
+    short = np.arange(5000, 5000 + 2 * 2048, dtype=np.int32).reshape(2, 2048)
+    cases["short beyond long"] = (short, long)
+    ident = np.sort(rng.choice(1 << 20, size=(2, 6000), replace=False), axis=1).astype(np.int32)
+    cases["identical rows"] = (ident, ident.copy())
+    # every short value spread over the whole long row: windows of ~50,000
+    spread = np.sort(rng.choice(1 << 20, size=(3, 1500), replace=False), axis=1).astype(np.int32)
+    cases["wide windows"] = (spread, make_rows(rng, 3, 60_000, 60_000, universe=1 << 20)[1])
+    return cases
+
+
 # (B, H, Hkv, Lq, Lk, D, causal, window) of the flash-attention kernel's
 # checks against its plain version on the card (chip_smoke.py and
 # tests/test_torch_cuda_kernels.py): Lq = 1, Lq = Lk, ragged Lk > Lq, D in

@@ -9,7 +9,11 @@ that has only PyTorch:
 The search kernels' outputs are integers: kernel and plain version must
 be equal (the fold also on the hand-built layouts of
 ``_torch_parity.FOLD_CASES``, equal to the CPU emulation of its
-algorithm, twice, and inside a CUDA graph).  The δ⁺ scores of
+algorithm, twice, and inside a CUDA graph; the count kernels' row and
+split forms, forced, on ``_torch_parity.count_form_cases``, the route's form read from the
+counters, the split form inside a CUDA graph, and the non-clustered
+baseline's bins of a fitted index equal to the host and device engines).
+The δ⁺ scores of
 ``cluster_scores`` are fp32 sums over at most L terms, taken in another
 order than the plain version's, so they must agree within
 ``rtol=2e-5, atol=1e-5`` (the tolerance of the reference's
@@ -81,7 +85,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (AGGREGATE_CASES, FLASH_BWD_CASES, FLASH_BWD_TOL, FLASH_CASES,
+from _torch_parity import (AGGREGATE_CASES, COUNT_FORM_CASE_NAMES, FLASH_BWD_CASES,
+                           FLASH_BWD_TOL, FLASH_CASES, count_form_cases, count_forms,
                            FLASH_VARIANTS, AggregateCheck, aggregate_grads, aggregate_inputs,
                            FOLD_CASES, RESIDENT_BWD_CASES, VARIANT_LAUNCHES, attention_ref_chunked,
                            bwd_rounding_terms, flash_bwd_close, flash_close,
@@ -211,6 +216,99 @@ def test_intersect_trio_equals_plain(cuda_device, b, ls, ll, holes):
     assert B.LAUNCHES["intersect_members_kernel"] == before["intersect_members_kernel"] + 2
     for name in ("intersect_members_count_kernel", "intersect_count_kernel"):
         assert B.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.fixture(scope="module")
+def count_cases():
+    cases = count_form_cases()
+    assert tuple(cases) == COUNT_FORM_CASE_NAMES
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COUNT_FORM_CASE_NAMES)
+def test_count_forms_equal_plain(cuda_device, count_cases, name):
+    short, long = count_cases[name]
+    s, l = torch.from_numpy(short).to(cuda_device), torch.from_numpy(long).to(cuda_device)
+    s_sorted = torch.sort(s, dim=1).values
+    want = ref.intersect_count_ref(s_sorted, l)
+    want_members = ref.intersect_members_ref(s, l).sum(dim=1).to(torch.int32)
+    for form, forced in count_forms():
+        before = dict(B.LAUNCHES)
+        assert torch.equal(forced(s_sorted, l), want), form
+        assert torch.equal(forced(s, l, members=True), want_members), form
+        other = "split" if form == "row" else "row"
+        assert B.LAUNCHES[f"intersect_count_{form}"] == before[f"intersect_count_{form}"] + 2
+        assert B.LAUNCHES[f"intersect_count_{other}"] == before[f"intersect_count_{other}"]
+        for counter in ("intersect_count_kernel", "intersect_members_count_kernel"):
+            assert B.LAUNCHES[counter] == before[counter] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ls,ll", [(30, 8192, 32768), (3, 1025, 4096), (2200, 2048, 4096),
+                                     (64, 512, 896), (396, 512, 896), (900, 512, 896),
+                                     (1200, 32768, 65536), (1, 4, 262144)])
+def test_count_route_launches_its_form(cuda_device, b, ls, ll):
+    rng = np.random.default_rng(b + ls)
+    short, long = make_rows(rng, b, ls, ll, universe=4 * ll, holes=True)
+    s, l = torch.from_numpy(short).to(cuda_device), torch.from_numpy(long).to(cuda_device)
+    s_sorted = torch.sort(s, dim=1).values
+    form = K.count_route(b, ls, ll, K.device_sms(cuda_device))
+    before = dict(B.LAUNCHES)
+    assert torch.equal(ops.intersect_count(s_sorted, l), ref.intersect_count_ref(s_sorted, l))
+    assert torch.equal(ops.intersect_members(s, l, reduce="count"),
+                       ref.intersect_members_ref(s, l).sum(dim=1).to(torch.int32))
+    assert B.LAUNCHES[f"intersect_count_{form}"] == before[f"intersect_count_{form}"] + 2
+    assert (B.LAUNCHES["intersect_count_row"] + B.LAUNCHES["intersect_count_split"]
+            == before["intersect_count_row"] + before["intersect_count_split"] + 2)
+
+
+@pytest.mark.cuda
+def test_split_form_captures_in_a_cuda_graph(cuda_device, count_cases):
+    s, l = (torch.from_numpy(a).to(cuda_device) for a in count_cases["baseline 22 rows"])
+    want = ref.intersect_count_ref(s, l)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K._split_form_forced(s, l)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K._split_form_forced(s, l)
+    for _ in range(2):  # each replay zeroes its output again
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_baseline_bins_on_the_card_equal_host(cuda_device):
+    from repro_torch.core.seclud import SecludPipeline
+    from repro_torch.data.corpus import CorpusSpec, synth_corpus
+    from repro_torch.data.query_log import synth_query_log
+    from repro_torch.index.batched import batch_queries, count_intersections
+    from repro_torch.serve.search_service import SearchService
+
+    corpus = synth_corpus(CorpusSpec.wiki_like(n_docs=20_000))
+    log = synth_query_log(corpus, n_queries=400, seed=1)
+    res = SecludPipeline(tc=800, doc_grained_below=512).fit(corpus, 32, log=log, device="cpu")
+    batched = batch_queries(res.base_index, log.queries)
+    got = np.zeros(len(log.queries), np.int64)
+    before = dict(B.LAUNCHES)
+    for b in batched.bins:
+        counts = count_intersections(torch.from_numpy(b.short).to(cuda_device),
+                                     torch.from_numpy(b.long).to(cuda_device))
+        assert counts.is_cuda
+        got[b.query_ids] = counts.cpu().numpy()
+    sms = K.device_sms(cuda_device)
+    n_split = sum(K.count_route(*b.short.shape, b.long.shape[1], sms) == "split"
+                  for b in batched.bins)
+    assert B.LAUNCHES["intersect_count_kernel"] == before["intersect_count_kernel"] + len(
+        batched.bins)
+    assert B.LAUNCHES["intersect_count_split"] == before["intersect_count_split"] + n_split > 0
+    svc = SearchService(res, device=cuda_device)
+    np.testing.assert_array_equal(got, svc.serve_counts(log.queries)[0])
+    np.testing.assert_array_equal(got, svc.serve_counts_device(log.queries)[0])
 
 
 @pytest.fixture(scope="module")
