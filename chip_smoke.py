@@ -476,6 +476,8 @@ SOURCES = {
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
     "intersect_count_split": (
         "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
+    "intersect_count_bins": (
+        "src/repro_torch/csrc/intersect.cu", "src/repro/kernels/intersect/kernel.py:223"),
     "cluster_scores_kernel": (
         "src/repro_torch/csrc/cluster_score.cu", "src/repro/kernels/cluster_score/kernel.py:67"),
     "cluster_scores_staged": (
@@ -702,6 +704,7 @@ def check_count_forms(torch, dev) -> None:
     torch.cuda.synchronize()
     print(f"count kernels: {n} forced launches of the row and split forms on "
           f"{len(cases)} cases equal to the plain versions")
+    check_bins_cases(torch, dev)
 
 
 def check_fold_cases(torch, dev) -> None:
@@ -1329,18 +1332,54 @@ def intersect_rows(torch, svc, logs, launches):
 def baseline_bins(torch, dev, base_index, queries) -> dict:
     """The non-clustered baseline's padded bins of the (n, 2) ``queries``
     over ``base_index`` (``index/batched.py``), binned on the host and
-    uploaded to ``dev``, with the seconds each step took."""
-    from repro_torch.index.batched import batch_queries
+    uploaded to ``dev`` as one ``DeviceBins`` (the bins' rows end to end,
+    the work table built on the host), with the seconds each step took."""
+    from repro_torch.index.batched import batch_queries, upload_bins
 
     t0 = time.perf_counter()
     batched = batch_queries(base_index, queries)
     binning_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tensors = [(torch.from_numpy(b.short).to(dev), torch.from_numpy(b.long).to(dev))
-               for b in batched.bins]
+    dbins = upload_bins(batched, dev)
     torch.cuda.synchronize()
-    return {"batched": batched, "tensors": tensors, "binning_s": binning_s,
+    return {"batched": batched, "dbins": dbins, "binning_s": binning_s,
             "upload_s": time.perf_counter() - t0}
+
+
+def check_bins_cases(torch, dev) -> None:
+    """The count of every bin in one launch (``index.batched.count_queries``)
+    against its plain version on ``_torch_parity.count_form_cases`` packed
+    as bins (each alone and all together), random skewed bins and the
+    hand-built batch, at the default design, all merge items and all
+    search items: equal per query, one launch a call."""
+    from _torch_parity import batch_of_bins, count_form_cases, handbuilt_batch, skewed_batch
+
+    from repro_torch.index.batched import count_queries, upload_bins
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.kernels.intersect.ref import intersect_count_bins_ref
+
+    cases = count_form_cases()
+    batches = {name: batch_of_bins([rows]) for name, rows in cases.items()}
+    batches["all count cases"] = batch_of_bins(list(cases.values()))
+    batches["skewed"], batches["hand-built"] = skewed_batch(), handbuilt_batch()
+    n = 0
+    for name, batched in batches.items():
+        dbins = upload_bins(batched, dev)
+        want = intersect_count_bins_ref(dbins.short, dbins.long, dbins.bins, dbins.query_ids,
+                                        dbins.n_queries)
+        for design in ((K.MERGE_TILE, K.SEARCH_CHUNK, K.RATIO_CUT),
+                       (K.MERGE_TILE, K.SEARCH_CHUNK, float("inf")),
+                       (K.MERGE_TILE, K.SEARCH_CHUNK, 0.0)):
+            d = dbins.with_design(*design)
+            before = B.LAUNCHES["intersect_count_bins"]
+            assert_equal(f"intersect_count_bins {name} {design}", count_queries(d), want)
+            if B.LAUNCHES["intersect_count_bins"] != before + (1 if len(d.items) else 0):
+                raise AssertionError(f"intersect_count_bins {name}: not one launch")
+            n += 1
+    torch.cuda.synchronize()
+    print(f"count of every bin in one launch: {n} calls on {len(batches)} batches equal to the "
+          f"plain version", flush=True)
 
 
 def count_row(torch, name, s, l, n_true, route, reps=10) -> dict:
@@ -1370,16 +1409,6 @@ def count_row(torch, name, s, l, n_true, route, reps=10) -> dict:
         "padded_bytes": 4 * (s.numel() + l.numel() + s.shape[0]), "bytes": nbytes,
         "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
     }
-
-
-SUM_KEYS = ("ms", "old_ms", "device_ms", "old_device_ms", "plain_ms", "padded_bytes", "bytes",
-            "bound_ms")
-
-
-def sum_rows(rows, shape) -> dict:
-    total = {key: sum(r[key] for r in rows) for key in SUM_KEYS}
-    total.update(shape=shape, max_abs_err=max((r["max_abs_err"] for r in rows), default=0))
-    return total
 
 
 def block_path_below_cut(torch, svc, log) -> tuple:
@@ -1422,43 +1451,46 @@ def block_path_below_cut(torch, svc, log) -> tuple:
 
 def baseline_phase(torch, dev, svc, log, fold_batches) -> tuple:
     """The paper's non-clustered baseline on the card: ``log``'s term pairs
-    binned over the fit's randomized-id ``base_index`` and each bin counted
-    by ``index.batched.count_intersections`` (the count kernel in the form
-    ``kernel.count_route`` picks), counters set to 0 just before and read
-    just after; per query, the counts scattered by ``query_ids`` must equal
-    the host engine's and the device engine's (the fold over the clustered
-    index) bit for bit, and each bin's counts the plain version's.  Then
-    each bin timed in turns through the route and the row form forced
-    (eager, and as a CUDA-graph replay), beside the plain version and the
-    byte bound of its true postings, and the fold's own time over the same
-    log's batches (``fold_batches``: its recorded arguments); and the block
-    path over a batch small enough for the split form
-    (:func:`block_path_below_cut`).  Returns the report and the split
-    form's kernel entry (the bins it counts and that block-path shape)."""
+    binned over the fit's randomized-id ``base_index``, uploaded as one
+    ``DeviceBins`` and counted by ``index.batched.count_queries`` (one
+    launch of the count of every bin), counters set to 0 just before and
+    read just after (exactly one ``intersect_count_bins`` launch); per
+    query, the counts must equal the plain version's and the host
+    engine's and the device engine's (the fold over the clustered index)
+    bit for bit.  Then the one launch timed in turns against the per-bin
+    route it replaces (each bin through ``count_intersections`` in the
+    form ``kernel.count_route`` picks, 103 launches; eager, and as CUDA
+    graph replays), beside the plain version and the byte bound of the
+    bins' true postings; the route's split and row bins apart, the row
+    form forced on the split bins (graph replays); the fold's own time
+    over the same log's batches (``fold_batches``: its recorded
+    arguments); and the block path over a batch small enough for the
+    split form (:func:`block_path_below_cut`).  Returns the report and the
+    kernel entries of the one launch and of the split form (the block
+    path's call; the route's split bins as the replaced design)."""
     from repro_torch.core.queries import as_queries
-    from repro_torch.index.batched import count_intersections
+    from repro_torch.index.batched import count_intersections, count_queries
     from repro_torch.kernels import build as B
     from repro_torch.kernels.intersect import kernel as K
+    from repro_torch.kernels.intersect.ref import intersect_count_bins_ref, intersect_count_ref
     from repro_torch.launch.search import SERVE_BATCH
 
     queries = log.queries
     inputs = baseline_bins(torch, dev, svc.res.base_index, queries)
-    batched, tensors = inputs["batched"], inputs["tensors"]
+    batched, dbins = inputs["batched"], inputs["dbins"]
     B.reset_launch_counts()
-    counted = [count_intersections(s, l) for s, l in tensors]
+    counted = count_queries(dbins)
     torch.cuda.synchronize()
     launches = {name: n for name, n in B.LAUNCHES.items() if n}
-    sms = K.device_sms(dev)
-    routes = [K.count_route(*s.shape, l.shape[1], sms) for s, l in tensors]
-    expect = {"intersect_count_kernel": len(tensors),
-              "intersect_count_split": routes.count("split"),
-              "intersect_count_row": routes.count("row")}
-    if {name: n for name, n in expect.items() if n} != launches or not expect[
-            "intersect_count_split"]:
-        raise AssertionError(f"baseline: launches {launches}, expected {expect}")
-    got = np.zeros(len(queries), np.int64)
-    for b, c in zip(batched.bins, counted, strict=True):
-        got[b.query_ids] = c.cpu().numpy()
+    if launches != {"intersect_count_bins": 1}:
+        raise AssertionError(f"baseline: launches {launches}, expected one intersect_count_bins")
+
+    def plain():
+        return intersect_count_bins_ref(dbins.short, dbins.long, dbins.bins, dbins.query_ids,
+                                        dbins.n_queries)
+
+    err = assert_equal("intersect_count_bins (baseline)", counted, plain())
+    got = counted.cpu().numpy().astype(np.int64)
     host = svc.serve_counts(queries)[0]
     cq = as_queries(queries)
     device, t_fold = [], []
@@ -1470,38 +1502,84 @@ def baseline_phase(torch, dev, svc, log, fold_batches) -> tuple:
         raise AssertionError("baseline: per-query counts disagree with the host or the device "
                              "engine")
 
-    rows = [count_row(torch, f"baseline bin {tuple(s.shape)} x {tuple(l.shape)}", s, l,
-                      int(b.n_short.sum() + b.n_long.sum()), route)
-            for (s, l), b, route in zip(tensors, batched.bins, routes, strict=True)]
-    split_rows = [r for r in rows if r["route"] == "split"]
-    total = sum_rows(rows, f"{len(rows)} bins")
-    split = sum_rows(split_rows, f"{len(split_rows)} bins of the split form")
-    row_bins = sum_rows([r for r in rows if r["route"] == "row"],
-                        f"{len(rows) - len(split_rows)} bins of the row form")
+    # The per-bin route (the replaced design), each bin checked once.
+    tensors = dbins.bin_rows()
+    sms = K.device_sms(dev)
+    routes = [K.count_route(*s.shape, l.shape[1], sms) for s, l in tensors]
+    route_err = max(assert_equal(f"baseline bin {tuple(s.shape)} x {tuple(l.shape)}",
+                                 count_intersections(s, l), intersect_count_ref(s, l))
+                    for s, l in tensors)
+    split_bins = [t for t, r in zip(tensors, routes, strict=True) if r == "split"]
+    row_bins = [t for t, r in zip(tensors, routes, strict=True) if r == "row"]
+
+    def route(bins=tensors):
+        for s, l in bins:
+            count_intersections(s, l)
+
+    def one_launch():
+        return count_queries(dbins)
+
+    def true_bytes(part):
+        n_true = sum(int(b.n_short.sum() + b.n_long.sum())
+                     for b, r in zip(batched.bins, routes, strict=True) if r in part)
+        return 4 * (n_true + sum(int(b.short.shape[0]) for b, r in
+                                 zip(batched.bins, routes, strict=True) if r in part))
+
+    turns = ab_turns(one_launch, route, reps=10)
+    nbytes = true_bytes(("split", "row"))
+    padded = 4 * (int(dbins.short.numel()) + int(dbins.long.numel()) + len(queries))
+    items = dbins.items[:, 7].cpu()
+    row = {
+        "shape": f"{len(tensors)} bins, {len(queries)} queries: {len(dbins.items)} items "
+                 f"({int((items == K.SEARCH).sum())} search), merge tile {dbins.merge_tile}, "
+                 f"search chunk {dbins.search_chunk}, ratio cut {dbins.ratio_cut}",
+        "max_abs_err": err, "ms": turns["ms"], "old_ms": turns["old_ms"],
+        "ms_turns": turns["turns"], "device_ms": graph_ms(one_launch, reps=10),
+        "old_device_ms": graph_ms(route, reps=5),
+        "plain_ms": time_ms(plain, reps=3, warmup=1), "bytes": nbytes, "padded_bytes": padded,
+        "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+    }
+    split_bytes = true_bytes(("split",))
+    split = {
+        "shape": f"{len(split_bins)} bins of the split form (the per-bin route)",
+        "max_abs_err": route_err, "ms": time_ms(lambda: route(split_bins), reps=5),
+        "device_ms": graph_ms(lambda: route(split_bins), reps=5),
+        "old_device_ms": graph_ms(
+            lambda: [K._row_form_forced(s, l) for s, l in split_bins], reps=2),
+        "plain_ms": time_ms(lambda: [intersect_count_ref(s, l) for s, l in split_bins], reps=3,
+                            warmup=1),
+        "bytes": split_bytes, "bound_ms": split_bytes / MEM_BYTES_PER_S * 1e3,
+        "row_bins_device_ms": graph_ms(lambda: route(row_bins), reps=5),
+        "row_bins_bound_ms": true_bytes(("row",)) / MEM_BYTES_PER_S * 1e3,
+    }
     block_launches, block = block_path_below_cut(torch, svc, log)
     n_fold = len(t_fold)
     fold = [(time_ms(lambda a=a: K.segment_fold_cuda(*a), reps=10),
              graph_ms(lambda a=a: K.segment_fold_cuda(*a), reps=10)) for a in fold_batches[:n_fold]]
     report = {
-        "n_queries": len(queries), "n_bins": len(rows), "binning_s": inputs["binning_s"],
+        "n_queries": len(queries), "n_bins": len(tensors), "binning_s": inputs["binning_s"],
         "upload_s": inputs["upload_s"], "padding_overhead": batched.padding_overhead(),
-        "launches": launches, "sum": total, "split_bins": split, "row_bins": row_bins,
-        "block_path": {"launches": block_launches, **block},
+        "launches": launches, "one_launch": row, "routes": {r: routes.count(r) for r in set(routes)},
+        "split_bins": split, "block_path": {"launches": block_launches, **block},
         "fold": {"n_batches": n_fold, "ms": sum(f[0] for f in fold),
                  "device_ms": sum(f[1] for f in fold), "t_fold_s": t_fold},
-        "bins": rows,
     }
-    print(f"baseline (non-clustered, {len(queries)} arity-2 queries): {len(rows)} bins, "
+    print(f"baseline (non-clustered, {len(queries)} arity-2 queries): {len(tensors)} bins, "
           f"padding overhead {report['padding_overhead']:.4f}, host binning "
           f"{inputs['binning_s']:.3f} s, upload {inputs['upload_s']:.3f} s "
-          f"({total['padded_bytes'] / 1e6:.1f} MB); launches {launches}; counts equal to the "
-          f"host and device engines per query", flush=True)
-    for part in (total, split, row_bins):
-        print(f"baseline count, {part['shape']} (sums, ms): route eager {part['ms']:.4f} graph "
-              f"{part['device_ms']:.4f}; row form forced eager {part['old_ms']:.4f} graph "
-              f"{part['old_device_ms']:.4f}; plain {part['plain_ms']:.4f}; bound "
-              f"{part['bound_ms']:.5f} (bytes of the true postings; padded "
-              f"{part['padded_bytes'] / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
+          f"({padded / 1e6:.1f} MB); launches {launches}; counts equal to the plain version, "
+          f"the host and device engines per query", flush=True)
+    print(f"baseline count, {row['shape']}: one launch eager {row['ms']:.4f} ms graph "
+          f"{row['device_ms']:.4f}; the per-bin route ({len(tensors)} launches) eager "
+          f"{row['old_ms']:.4f} graph {row['old_device_ms']:.4f}; turns "
+          f"{'/'.join(f'{t:.4f}' for t in row['ms_turns'])}; plain {row['plain_ms']:.4f}; "
+          f"bound {row['bound_ms']:.5f} (bytes of the true postings; padded "
+          f"{padded / MEM_BYTES_PER_S * 1e3:.5f})", flush=True)
+    print(f"the per-bin route's {split['shape']}: eager {split['ms']:.4f} graph "
+          f"{split['device_ms']:.4f} (row form forced, graph {split['old_device_ms']:.4f}), "
+          f"bound {split['bound_ms']:.5f}; its {len(row_bins)} row-form bins graph "
+          f"{split['row_bins_device_ms']:.4f}, bound {split['row_bins_bound_ms']:.5f}",
+          flush=True)
     print(f"the fold over the same log's {n_fold} batches: eager {report['fold']['ms']:.4f} "
           f"graph {report['fold']['device_ms']:.4f}, t_fold_s sum {sum(t_fold):.6f}",
           flush=True)
@@ -1510,19 +1588,16 @@ def baseline_phase(torch, dev, svc, log, fold_batches) -> tuple:
           f"split {block['ms']:.4f} (device {block['device_ms']:.4f}), row form forced "
           f"{block['old_ms']:.4f} (device {block['old_device_ms']:.4f}), bound "
           f"{block['bound_ms']:.5f}", flush=True)
-    for r in sorted(rows, key=lambda r: -r["old_device_ms"])[:8]:
-        print(f"  baseline bin {r['shape']} [{r['route']}]: device {r['device_ms']:.4f} ms, row "
-              f"form {r['old_device_ms']:.4f}, bound {r['bound_ms']:.5f}", flush=True)
-    entry = kernel_entry(
-        "intersect_count_split",
-        {"intersect_count_split": launches["intersect_count_split"]
-         + block_launches["intersect_count_split"]},
-        [split, block, *split_rows],
-        variant="split (the baseline bins it takes; block-path rows below the cut)")
+    bins_entry = kernel_entry("intersect_count_bins", launches, [row],
+                              variant="one launch over the work table")
     for key in ("device_ms", "old_ms", "old_device_ms"):
-        entry[key] = split[key]
-    entry["routed_total"] = {key: total[key] for key in (*SUM_KEYS, "shape")}
-    return report, entry
+        bins_entry[key] = row[key]
+    split_entry = kernel_entry(
+        "intersect_count_split", block_launches, [split, block],
+        variant="split (the block path's rows below the cut; the per-bin route's bins, replaced)")
+    split_entry["device_ms"], split_entry["old_device_ms"] = split["device_ms"], split[
+        "old_device_ms"]
+    return report, [bins_entry, split_entry]
 
 
 def score_bound(ell_numel, tc, k, n, n_valid):
@@ -5725,8 +5800,9 @@ def main() -> int:
 
     # The non-clustered baseline over the fit's randomized-id index, on the
     # arity-2 log: its own counter window (the split form's launches).
-    baseline, baseline_entry = baseline_phase(torch, dev, svc, logs["arity2"], fold_batches)
-    launches["intersect_count_split"] = baseline_entry["launches"]
+    baseline, baseline_entries = baseline_phase(torch, dev, svc, logs["arity2"], fold_batches)
+    for entry in baseline_entries:
+        launches[entry["name"]] = entry["launches"]
     baseline["wall_s"] = time.perf_counter() - t0
     phase_line("baseline", baseline["wall_s"])
     torch.cuda.empty_cache()
@@ -5769,7 +5845,7 @@ def main() -> int:
     buckets, score_excess = topdown_score_buckets(torch, dev, kmeans["score_shapes"], launches)
     staged = kernel_entry("cluster_scores_staged", launches, scores["shapes"][:1], variant="staged")
     staged["device_ms"], staged["old_ms"] = scores["device_ms"], scores["old_ms"]
-    kernels = [fold, *intersect_rows(torch, svc, logs, launches), baseline_entry, scores, staged,
+    kernels = [fold, *intersect_rows(torch, svc, logs, launches), *baseline_entries, scores, staged,
                *flash_rows(torch, dev, launches, flash_errs)]
     t0 = phase_done("search and attention kernel rows", t0)
     kernels += flash_bwd_rows(torch, dev, launches, bwd_errs)

@@ -74,6 +74,7 @@ _SIGNATURES = {
                "intersect_count_launch",
            )},
         "intersect_count_split_launch": (_P, _P, _L, _L, _L, _L, _P, _P),
+        "intersect_count_bins_launch": (_P, _P, _P, _L, _P, _L, _L, _L, _I, _P),
     },
     "cluster_score": {
         name: (_P, _L, _L, _P, _P, _L, _L, _P, _P)
@@ -121,7 +122,9 @@ _SIGNATURES = {
 # launchers count each call as ``intersect_count_kernel`` or
 # ``intersect_members_count_kernel`` and each launch of the form it took
 # (``kernel.count_route``): ``intersect_count_row`` (one block a row) or
-# ``intersect_count_split`` (one block a chunk of a row).  The scoring launcher
+# ``intersect_count_split`` (one block a chunk of a row).  The
+# non-clustered baseline's one launch over every bin of a batch counts as
+# ``intersect_count_bins``.  The scoring launcher
 # counts each call as ``cluster_scores_kernel`` and each launch of the
 # variant it took (``cluster_scores_staged``: the weighted table in shared
 # memory; ``cluster_scores_general``).  The attention
@@ -150,6 +153,7 @@ LAUNCHES: Dict[str, int] = {
     "intersect_count_kernel": 0,
     "intersect_count_row": 0,
     "intersect_count_split": 0,
+    "intersect_count_bins": 0,
     "cluster_scores_kernel": 0,
     "cluster_scores_staged": 0,
     "cluster_scores_general": 0,

@@ -1,7 +1,8 @@
 """Launchers of the search path's CUDA kernels: the fold
 (``csrc/fold.cu``) and the intersect trio (``csrc/intersect.cu``), whose
 two count launchers take the row or the split form by
-:func:`count_route`.
+:func:`count_route`, and the non-clustered baseline's count of every bin
+of a batch in one launch (:func:`intersect_count_bins_cuda`).
 
 The libraries are built, loaded and counted by
 :mod:`repro_torch.kernels.build`.  Every launcher checks device, dtype,
@@ -29,6 +30,10 @@ __all__ = [
     "count_route",
     "device_sms",
     "split_chunk",
+    "intersect_count_bins_cuda",
+    "ITEM_COLUMNS",
+    "MERGE",
+    "SEARCH",
 ]
 
 
@@ -238,3 +243,58 @@ def _split_form_forced(short: torch.Tensor, long: torch.Tensor,
     """The count in the split form (chunks of :func:`split_chunk`) on any
     shape."""
     return _count_call(members, short, long, "split")
+
+
+# The baseline's one launch over a work table (csrc/intersect.cu's
+# bins_count_kernel): one row of ITEM_COLUMNS int64 words an item, one
+# warp an item.  A MERGE item is a range of merge-path positions of a row
+# (start, length: at most the merge tile), a SEARCH item a chunk of a
+# row's short elements (at most the search chunk), each searched in the
+# whole long row.  index/batched.py's work_table builds the table: a row
+# whose long list is more than RATIO_CUT times its short one, and too long
+# for one merge tile, takes search items.  MERGE_TILES and SEARCH_CHUNKS
+# are the kernel's compiled sizes; the defaults are tools/count_ab.py's
+# fastest of its 108 designs at the baseline's bins on an H100 (PERF.md).
+# A block stages two tiles a warp, so a larger tile also costs the search
+# items occupancy.
+ITEM_COLUMNS = ("short_off", "long_off", "n_short", "n_long", "start", "length", "query_id",
+                "kind")
+MERGE, SEARCH = 0, 1
+MERGE_TILES = (256, 512, 1024, 2048)
+SEARCH_CHUNKS = (64, 128, 256)
+MERGE_TILE = 256
+SEARCH_CHUNK = 256
+RATIO_CUT = 1.0
+
+
+def intersect_count_bins_cuda(short: torch.Tensor, long: torch.Tensor, items: torch.Tensor,
+                              n_queries: int, merge_tile: int = MERGE_TILE,
+                              search_chunk: int = SEARCH_CHUNK) -> torch.Tensor:
+    """(n_queries,) int32 per-query |short ∩ long| of every bin of a batch
+    in one launch over the work table ``items`` (n_items, 8) int64, built
+    with ``merge_tile`` and ``search_chunk``; ``short`` and ``long`` are the
+    bins' padded rows laid end to end (1-D int32, 16-byte aligned).  The
+    output is zeroed by a memset on the stream, then the kernel adds each
+    item's count into its query: nothing is copied from the host, so a
+    call can be captured in a CUDA graph.  A table of no items launches
+    nothing (the counts are 0)."""
+    device = _check_int32_cuda("intersect_count_bins", short, long)
+    if short.dim() != 1 or long.dim() != 1:
+        raise ValueError("intersect_count_bins: short and long must be 1-D buffers")
+    if (items.device != device or items.dtype != torch.int64 or not items.is_contiguous()
+            or items.dim() != 2 or items.shape[1] != len(ITEM_COLUMNS)):
+        raise ValueError(f"intersect_count_bins: items must be a contiguous (n, "
+                         f"{len(ITEM_COLUMNS)}) int64 table on {device}")
+    if merge_tile not in MERGE_TILES or search_chunk not in SEARCH_CHUNKS:
+        raise ValueError(f"intersect_count_bins: merge tile {merge_tile} not in {MERGE_TILES} "
+                         f"or search chunk {search_chunk} not in {SEARCH_CHUNKS}")
+    if short.data_ptr() % 16 or long.data_ptr() % 16:
+        raise ValueError("intersect_count_bins: short and long must be 16-byte aligned")
+    out = torch.empty(n_queries, dtype=torch.int32, device=device)
+    status = lib("intersect").intersect_count_bins_launch(
+        short.data_ptr(), long.data_ptr(), items.data_ptr(), items.shape[0], out.data_ptr(),
+        n_queries, merge_tile, search_chunk, device_sms(device), stream_of(device))
+    check(status, "intersect_count_bins")
+    if items.shape[0]:
+        LAUNCHES["intersect_count_bins"] += 1
+    return out

@@ -15,12 +15,13 @@ import torch
 from repro_torch.kernels.intersect import kernel as _k
 from repro_torch.kernels.intersect.ref import (
     PAD,
+    intersect_count_bins_ref,
     intersect_count_ref,
     intersect_members_ref,
     segment_fold_ref,
 )
 
-__all__ = ["intersect_count", "intersect_members", "segment_fold"]
+__all__ = ["intersect_count", "intersect_count_bins", "intersect_members", "segment_fold"]
 
 
 def _as_rows(x) -> torch.Tensor:
@@ -34,6 +35,21 @@ def intersect_count(short, long) -> torch.Tensor:
     if short.is_cuda:
         return _k.intersect_count_cuda(short, long)
     return intersect_count_ref(short, long)
+
+
+def intersect_count_bins(short: torch.Tensor, long: torch.Tensor, items: torch.Tensor,
+                         bins: Sequence[Tuple[int, int, int, int, int, int]],
+                         query_ids: torch.Tensor, n_queries: int,
+                         merge_tile: int = _k.MERGE_TILE,
+                         search_chunk: int = _k.SEARCH_CHUNK) -> torch.Tensor:
+    """Per-query counts (n_queries,) int32 of a batch of padded bins laid
+    end to end: one launch over the work table ``items`` for CUDA tensors
+    (``kernel.intersect_count_bins_cuda``), each bin through the plain
+    version (``bins`` and ``query_ids``) for tensors on the CPU."""
+    if short.is_cuda:
+        return _k.intersect_count_bins_cuda(short, long, items, n_queries, merge_tile,
+                                            search_chunk)
+    return intersect_count_bins_ref(short, long, bins, query_ids, n_queries)
 
 
 def intersect_members(short, long, reduce: str = "docs") -> torch.Tensor:

@@ -29,6 +29,7 @@ __all__ = [
     "intersect_members_ref",
     "intersect_members_docs_ref",
     "intersect_count_ref",
+    "intersect_count_bins_ref",
     "segment_fold_ref",
 ]
 
@@ -53,6 +54,22 @@ def intersect_members_docs_ref(short: torch.Tensor, long: torch.Tensor) -> torch
 def intersect_count_ref(short: torch.Tensor, long: torch.Tensor) -> torch.Tensor:
     """Per-row |short ∩ long| as int32 (B,)."""
     return intersect_members_ref(short, long).sum(dim=1).to(torch.int32)
+
+
+def intersect_count_bins_ref(short: torch.Tensor, long: torch.Tensor,
+                             bins: Sequence[Tuple[int, int, int, int, int, int]],
+                             query_ids: torch.Tensor, n_queries: int) -> torch.Tensor:
+    """Per-query |short ∩ long| (n_queries,) int32 of a batch of padded
+    bins laid end to end in the 1-D ``short`` and ``long``: each bin
+    ``(short_base, long_base, rows, ls, ll, row_base)`` counted by
+    :func:`intersect_count_ref` and scattered by its rows'
+    ``query_ids[row_base:row_base + rows]``."""
+    out = torch.zeros(n_queries, dtype=torch.int32, device=short.device)
+    for short_base, long_base, rows, ls, ll, row_base in bins:
+        s = short[short_base:short_base + rows * ls].view(rows, ls)
+        l = long[long_base:long_base + rows * ll].view(rows, ll)
+        out[query_ids[row_base:row_base + rows].long()] = intersect_count_ref(s, l)
+    return out
 
 
 def _search_segments(post_docs, cur, lo, hi, iters: int):

@@ -117,6 +117,227 @@ def count_form_cases(seed: int = 0) -> dict:
     return cases
 
 
+def batch_of_rows(short, long, query_ids=None):
+    """One bin of a ``BatchedQueries`` from PAD-padded (B, Ls), (B, Ll)
+    rows: widened with PAD to multiples of 4, short rows sorted (PAD holes
+    moved to the end), true lengths counted, query ids in order unless
+    given."""
+    from repro_torch.index.batched import QueryBin
+    from repro_torch.kernels.intersect.ref import PAD
+
+    def widened(rows):  # PAD columns up to a multiple of 4
+        rows = np.asarray(rows, np.int32)
+        extra = -rows.shape[1] % 4
+        return np.pad(rows, ((0, 0), (0, extra)), constant_values=PAD)
+
+    short = np.sort(widened(short), axis=1)
+    long = np.ascontiguousarray(widened(long))
+    n = short.shape[0]
+    return QueryBin(short=short, long=long,
+                    n_short=(short != PAD).sum(axis=1).astype(np.int32),
+                    n_long=(long != PAD).sum(axis=1).astype(np.int32),
+                    query_ids=(np.arange(n) if query_ids is None else query_ids).astype(np.int32))
+
+
+def batch_of_bins(bins, seed: int = 0):
+    """A ``BatchedQueries`` of ``bins`` (each a (short, long) pair of
+    padded rows) with the query ids of all rows shuffled."""
+    from repro_torch.index.batched import BatchedQueries
+
+    sizes = [s.shape[0] for s, _ in bins]
+    ids = np.random.default_rng(seed).permutation(sum(sizes))
+    offsets = np.cumsum([0] + sizes)
+    return BatchedQueries(bins=[batch_of_rows(s, l, ids[offsets[i]:offsets[i + 1]])
+                                for i, (s, l) in enumerate(bins)], n_queries=int(sum(sizes)))
+
+
+def _padded(rows, width):
+    from repro_torch.kernels.intersect.ref import PAD
+
+    out = np.full((len(rows), width), PAD, np.int32)
+    for r, v in enumerate(rows):
+        out[r, :len(v)] = v
+    return out
+
+
+def handbuilt_batch(seed: int = 0):
+    """The count-all-bins kernel's edges as a ``BatchedQueries``: a bin of
+    one row of 262,144 short elements against 262,144 long ones; a bin of
+    one row of one short element (present in its long row of 262,144); a
+    bin of 91 rows of up to 4 short elements against up to 64 long ones,
+    an empty short row, a one-element row and an empty long row among
+    them; and 91 skewed rows of up to 256 short elements against up to
+    8,192 long ones."""
+    rng = np.random.default_rng(seed)
+
+    def draw(n, universe):
+        return np.sort(rng.choice(universe, size=n, replace=False)).astype(np.int32)
+
+    wide = (draw(262144, 1 << 20)[None], draw(262144, 1 << 20)[None])
+    long = draw(262144, 1 << 21)
+    one = (_padded([long[[123_456]]], 4), long[None])
+    small_short = [draw(int(rng.integers(0, 5)), 96) for _ in range(91)]
+    small_long = [draw(int(rng.integers(1, 65)), 96) for _ in range(91)]
+    small_short[0], small_short[1], small_long[2] = draw(0, 96), small_long[1][-1:], draw(0, 96)
+    small = (_padded(small_short, 4), _padded(small_long, 64))
+    skew_long = [draw(int(rng.integers(4000, 8193)), 1 << 16) for _ in range(91)]
+    skew_short = [np.sort(np.concatenate([rng.choice(l, size=int(k), replace=False),
+                                          draw(int(256 - k), 1 << 16)]))[:256]
+                  for l, k in zip(skew_long, rng.integers(0, 129, 91), strict=True)]
+    skew_short = [np.unique(s).astype(np.int32) for s in skew_short]
+    skewed = (_padded(skew_short, 256), _padded(skew_long, 8192))
+    return batch_of_bins([wide, one, small, skewed], seed)
+
+
+def skewed_batch(seed: int = 0, n_bins: int = 12):
+    """Random bins of the baseline's kinds: rows of 4-16,384 short elements
+    (powers of two) against 1-64 times as many long ones, each row's true
+    lengths drawn below its bin's widths, about a quarter of each short
+    row drawn from its long row."""
+    rng = np.random.default_rng(seed)
+    bins = []
+    for _ in range(n_bins):
+        ls = 1 << int(rng.integers(2, 15))
+        ll = ls << int(rng.integers(0, 7))
+        rows = int(rng.integers(1, 40))
+        universe = 4 * ll
+        shorts, longs = [], []
+        for _ in range(rows):
+            nl = int(rng.integers(1, ll + 1))
+            l = np.sort(rng.choice(universe, size=nl, replace=False))
+            ns = int(rng.integers(1, ls + 1))
+            mine = rng.choice(l, size=min(ns // 4, nl), replace=False)
+            rest = rng.choice(universe, size=ns - len(mine), replace=False)
+            shorts.append(np.unique(np.concatenate([mine, rest]))[:ls].astype(np.int32))
+            longs.append(l.astype(np.int32))
+        bins.append((_padded(shorts, ls), _padded(longs, ll)))
+    return batch_of_bins(bins, seed)
+
+
+class _Staged:
+    """A warp's staging buffer in the emulation: reads of a slot the
+    copies did not fill raise."""
+
+    def __init__(self, cap):
+        self.vals = np.zeros(cap, np.int64)
+        self.filled = np.zeros(cap, bool)
+
+    def put(self, at, values):
+        assert at % 4 == 0 and at + len(values) <= len(self.vals), "buffer overrun"
+        self.vals[at:at + len(values)] = values
+        self.filled[at:at + len(values)] = True
+
+    def __call__(self, i):
+        assert self.filled[i], f"read of an unstaged slot {i}"
+        return int(self.vals[i])
+
+
+def _corank_first(d, ns, nl, lo, hi):
+    if hi - lo <= 32:
+        return lo, 1
+    f = np.float32
+    q = f(ns) / f(ns + nl)
+    guess = int(f(d) * q)
+    step = int(np.sqrt(f(d) * q * (f(1) - q)) * f(0.25)) + 1
+    return min(max(guess - 16 * step, lo), hi - 1), step
+
+
+def _warp_corank(a, b, d):
+    """``warp_coranks`` of csrc/intersect.cu for one diagonal: 32 samples a
+    step, the first around the random-ids guess; every read inside the
+    rows' true elements."""
+    ns, nl = len(a), len(b)
+    lo, hi = max(0, d - nl), min(d, ns)
+    base, step = _corank_first(d, ns, nl, lo, hi)
+    while lo < hi:
+        x = base + step * np.arange(32)
+        live = x < hi
+        assert (x[live] >= 0).all() and (x[live] < ns).all() and (d - 1 - x[live] >= 0).all()
+        p = np.zeros(32, bool)
+        p[live] = a[x[live]] <= b[d - 1 - x[live]]
+        c = int(p.sum())
+        assert p[:c].all(), "co-rank predicate not monotone"
+        if c == 0:
+            hi = min(hi, base)
+        else:
+            lo = base + (c - 1) * step + 1
+            if c < 32:
+                hi = min(hi, base + c * step)
+        base, step = lo, (hi - lo + 31) >> 5
+    return lo
+
+
+def _merge_item(a, b, d0, d1, tile):
+    """A merge item of the kernel: co-ranks, the staged layout (16-byte
+    aligned starts, the ragged ends, the long element past the range) and
+    each lane's share of the merge path."""
+    ns, nl = len(a), len(b)
+    a0, a1 = _warp_corank(a, b, d0), _warp_corank(a, b, d1)
+    b0, b1 = d0 - a0, d1 - a1
+    ga, gb = a0 & ~3, b0 & ~3
+    sb = (a1 - ga + 3) & ~3
+    b_end = min(b1 + 1, nl)
+    buf = _Staged(tile + 16)
+    if a1 > a0:
+        buf.put(0, a[ga:a1])
+    buf.put(sb, b[gb:b_end])
+    na, nb = a1 - a0, b1 - b0
+    nb_seen = nb + (1 if b1 < nl else 0)
+
+    def A(i):
+        return buf(a0 - ga + i)
+
+    def B(j):
+        return buf(sb + b0 - gb + j)
+
+    total = na + nb
+    per = (total + 31) >> 5
+    hits = 0
+    for lane in range(32):
+        p0 = min(lane * per, total)
+        p1 = min(p0 + per, total)
+        lo, hi = max(0, p0 - nb), min(p0, na)
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if A(mid) <= B(p0 - 1 - mid):
+                lo = mid + 1
+            else:
+                hi = mid
+        i, j = lo, p0 - lo
+        for _ in range(p0, p1):
+            if i < na and (j >= nb or A(i) <= B(j)):
+                hits += int(j < nb_seen and A(i) == B(j))
+                i += 1
+            else:
+                j += 1
+    return hits
+
+
+def bins_count_emulation(dbins) -> np.ndarray:
+    """The count-all-bins kernel's algorithm on the CPU over a
+    ``DeviceBins`` on the CPU (``index.batched.upload_bins``): each item
+    of the work table as one warp counts it (merge items: co-ranks, the
+    staged tiles and the lanes' merge paths; search items: each chunk
+    element searched in the long row), added into its query.  Reads past
+    a row's true elements, or of a slot the copies did not fill, raise."""
+    from repro_torch.kernels.intersect import kernel as K
+
+    short, long = dbins.short.numpy(), dbins.long.numpy()
+    out = np.zeros(dbins.n_queries, np.int64)
+    for so, lo, ns, nl, start, length, query, kind in dbins.items.numpy().tolist():
+        a, b = short[so:so + ns], long[lo:lo + nl]
+        if kind == K.SEARCH:
+            assert start + length <= ns and length <= dbins.search_chunk
+            x = a[start:start + length]
+            pos = np.searchsorted(b, x)
+            hits = int((b[np.minimum(pos, nl - 1)] == x).sum())
+        else:
+            assert start + length <= ns + nl and length <= dbins.merge_tile
+            hits = _merge_item(a, b, start, start + length, dbins.merge_tile)
+        out[query] += hits
+    return out
+
+
 # (B, H, Hkv, Lq, Lk, D, causal, window) of the flash-attention kernel's
 # checks against its plain version on the card (chip_smoke.py and
 # tests/test_torch_cuda_kernels.py): Lq = 1, Lq = Lk, ragged Lk > Lq, D in

@@ -149,3 +149,195 @@ def test_split_form_refuses_what_its_kernel_does_not_take():
         K._row_form_forced(s, s, members=True)
     assert {K.split_chunk(ls) for ls in (1, 2**20)} == set(K.SPLIT_CHUNKS)
     assert all(c % K.SPLIT_THREADS == 0 for c in K.SPLIT_CHUNKS)
+
+
+# The count-all-bins kernel's work table and its one-call count.  Designs
+# (merge tile, search chunk, ratio cut): the kernel's defaults, and small
+# tiles and chunks that cut the test rows into many items of both kinds,
+# all merge items, all search items.
+DESIGNS = [(K.MERGE_TILE, K.SEARCH_CHUNK, K.RATIO_CUT), (32, 8, 2.0), (64, 64, float("inf")),
+           (16, 4, 0.0)]
+DESIGN_IDS = ["default", "tiny", "all-merge", "all-search"]
+
+
+def _coranks(a, b, d):
+    """How many of a's elements the first d positions of the merge of the
+    sorted a and b hold (ties: a first), for each d."""
+    return np.searchsorted(np.arange(len(a)) + np.searchsorted(b, a, side="left"), d)
+
+
+def check_work_table(batched, dbins):
+    """Every row of ``batched`` lies in the buffers at its table offsets,
+    and its items cover its true elements exactly once: merge items the
+    positions [0, n_short + n_long) of its merge path, and through their
+    co-ranks each short element once; search items each short element
+    once.  No item reaches past a row's true lengths or its kind's cap;
+    search items come first."""
+    short, long = dbins.short.numpy(), dbins.long.numpy()
+    rows = {}
+    for b, (sb, lb, n, ls, ll, rb) in zip(batched.bins, dbins.bins, strict=True):
+        assert (n, ls, ll) == (b.short.shape[0], b.short.shape[1], b.long.shape[1])
+        for r in range(n):
+            so, lo, ns, nl, q = dbins.rows[rb + r].tolist()
+            assert (so, lo) == (sb + r * ls, lb + r * ll)
+            assert (ns, nl, q) == (b.n_short[r], b.n_long[r], b.query_ids[r])
+            np.testing.assert_array_equal(short[so:so + ns], b.short[r, :ns])
+            np.testing.assert_array_equal(long[lo:lo + nl], b.long[r, :nl])
+            assert not (short[so:so + ns] == PAD).any() and not (long[lo:lo + nl] == PAD).any()
+            assert so % 4 == 0 and lo % 4 == 0
+            rows[so] = (lo, ns, nl, q, [])
+    assert dbins.query_ids.tolist() == dbins.rows[:, 4].tolist()
+    items = dbins.items.numpy()
+    assert items.dtype == np.int64 and items.shape[1] == len(K.ITEM_COLUMNS)
+    kinds = items[:, 7]
+    assert set(kinds.tolist()) <= {K.MERGE, K.SEARCH}
+    assert not (np.diff((kinds == K.MERGE).astype(int)) < 0).any(), "search items first"
+    for so, lo, ns, nl, start, length, q, kind in items.tolist():
+        assert rows[so][:4] == (lo, ns, nl, q)
+        cap, span = ((dbins.merge_tile, ns + nl) if kind == K.MERGE
+                     else (dbins.search_chunk, ns))
+        assert 0 < length <= cap and 0 <= start and start + length <= span
+        rows[so][4].append((kind, start, length))
+    for so, (lo, ns, nl, q, got) in rows.items():
+        if ns == 0 or nl == 0:
+            assert not got
+            continue
+        kinds = {k for k, _, _ in got}
+        assert len(kinds) == 1
+        kind = kinds.pop()
+        span = ns + nl if kind == K.MERGE else ns
+        cover = np.zeros(span, np.int64)
+        for _, start, length in got:
+            cover[start:start + length] += 1
+        assert (cover == 1).all()
+        if kind == K.MERGE:
+            starts = np.array([start for _, start, _ in got])
+            ends = starts + np.array([length for _, _, length in got])
+            a0, a1 = (_coranks(short[so:so + ns], long[lo:lo + nl], d) for d in (starts, ends))
+            owned = np.zeros(ns + 1, np.int64)
+            np.add.at(owned, a0, 1)
+            np.add.at(owned, a1, -1)
+            assert (np.cumsum(owned)[:ns] == 1).all()
+        else:
+            assert nl > dbins.ratio_cut * ns and ns + nl > dbins.merge_tile
+
+
+def _brute_force(batched):
+    want = np.zeros(batched.n_queries, np.int64)
+    for b in batched.bins:
+        for r in range(b.short.shape[0]):
+            want[b.query_ids[r]] = len(np.intersect1d(b.short[r, :b.n_short[r]],
+                                                      b.long[r, :b.n_long[r]]))
+    return want
+
+
+@pytest.fixture(scope="module")
+def handbuilt():
+    from _torch_parity import handbuilt_batch
+
+    return handbuilt_batch()
+
+
+@pytest.mark.parametrize("design", DESIGNS, ids=DESIGN_IDS)
+@pytest.mark.parametrize("max_list_len", [None, 8, 100])
+def test_work_table_covers_every_true_element_once(base_indexes, small_log, max_list_len,
+                                                   design):
+    batched = batch_queries(base_indexes[1], small_log.queries, max_list_len=max_list_len)
+    check_work_table(batched, port_batched.upload_bins(batched, "cpu", *design))
+
+
+@pytest.mark.parametrize("design", DESIGNS, ids=DESIGN_IDS)
+def test_work_table_of_the_hand_built_batch(handbuilt, design):
+    assert sorted(b.short.shape[0] for b in handbuilt.bins) == [1, 1, 91, 91]
+    assert max(b.short.shape[1] for b in handbuilt.bins) == 262144
+    assert {0, 1} <= {int(n) for b in handbuilt.bins for n in b.n_short}
+    dbins = port_batched.upload_bins(handbuilt, "cpu", *design)
+    check_work_table(handbuilt, dbins)
+    assert len(dbins.items) == len(port_batched.work_table(dbins.rows, *design))
+
+
+def test_work_table_puts_the_heaviest_items_first():
+    rows = np.array([[0, 0, 4, 8, 0], [4, 8, 600, 700, 1], [604, 708, 10, 5000, 2],
+                     [614, 5708, 20, 9000, 3]], np.int64)
+    table = port_batched.work_table(rows, 512, 64, 16.0)
+    kinds, n_long, length = table[:, 7], table[:, 3], table[:, 5]
+    assert kinds.tolist() == [K.SEARCH] * 2 + [K.MERGE] * 4
+    assert n_long[:2].tolist() == [9000, 5000] and length[2:].tolist() == [512, 512, 276, 12]
+
+
+@pytest.mark.parametrize("max_list_len", [None, 8, 100])
+def test_count_queries_equal_jax_and_brute_force(base_indexes, small_log, max_list_len):
+    jax_index, port_index = base_indexes
+    queries = small_log.queries
+    batched = batch_queries(port_index, queries, max_list_len=max_list_len)
+    got = port_batched.count_queries(port_batched.upload_bins(batched, "cpu"))
+    assert got.dtype == torch.int32 and got.device.type == "cpu" and got.shape == (len(queries),)
+    want = np.full(len(queries), -1, np.int64)
+    for jb in jax_batch_queries(jax_index, queries, max_list_len).bins:
+        want[np.asarray(jb.query_ids)] = np.asarray(count_intersections_jnp(jb.short, jb.long))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _brute_force(batched))
+
+
+def test_count_queries_of_the_hand_built_batch(handbuilt):
+    got = port_batched.count_queries(port_batched.upload_bins(handbuilt, "cpu"))
+    want = np.zeros(handbuilt.n_queries, np.int64)
+    for b in handbuilt.bins:
+        want[b.query_ids] = np.asarray(count_intersections_jnp(b.short, b.long))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), _brute_force(handbuilt))
+    assert got.numpy().max() > 10_000 and (got.numpy() == 0).any()
+
+
+@pytest.mark.parametrize("design", DESIGNS, ids=DESIGN_IDS)
+def test_kernel_algorithm_emulated_equals_brute_force(base_indexes, small_log, design):
+    """The kernel's co-ranks, staged tiles, lanes' merges and searches,
+    emulated on the CPU over the table, count every query exactly."""
+    from _torch_parity import bins_count_emulation
+
+    batched = batch_queries(base_indexes[1], small_log.queries)
+    got = bins_count_emulation(port_batched.upload_bins(batched, "cpu", *design))
+    np.testing.assert_array_equal(got, _brute_force(batched))
+
+
+@pytest.mark.parametrize("design", [DESIGNS[0], (512, 64, float("inf"))],
+                         ids=["default", "all-merge"])
+def test_kernel_algorithm_emulated_on_the_hand_built_batch(handbuilt, design):
+    from _torch_parity import bins_count_emulation
+
+    got = bins_count_emulation(port_batched.upload_bins(handbuilt, "cpu", *design))
+    np.testing.assert_array_equal(got, _brute_force(handbuilt))
+
+
+def test_upload_bins_runs_on_the_card_unless_told():
+    batched = BatchedQueries(bins=[], n_queries=0)
+    if torch.cuda.is_available():
+        assert port_batched.upload_bins(batched).short.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port_batched.upload_bins(batched)
+    empty = port_batched.upload_bins(batched, "cpu")
+    assert port_batched.count_queries(empty).shape == (0,) and empty.items.shape == (0, 8)
+
+
+@pytest.mark.parametrize("ls, ll", [(6, 8), (4, 10), (4, 1 << 31)])
+def test_upload_bins_refuses_widths_its_kernel_does_not_take(ls, ll):
+    """Rows must start 16-byte aligned, and their positions fit int32."""
+    empty = np.zeros(0, np.int32)
+    bin_ = port_batched.QueryBin(short=np.zeros((0, ls), np.int32),
+                                 long=np.zeros((0, ll), np.int32), n_short=empty,
+                                 n_long=empty, query_ids=empty)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        port_batched.upload_bins(BatchedQueries(bins=[bin_], n_queries=0), "cpu")
+
+
+def test_bins_launcher_refuses_what_its_kernel_does_not_take():
+    buf = torch.zeros(16, dtype=torch.int32)
+    items = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.intersect_count_bins_cuda(buf, buf, items, 4)
+    rows = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.intersect_count_bins_cuda(rows, rows, items, 4)
+    assert all(t % 32 == 0 for t in K.SEARCH_CHUNKS) and max(K.SEARCH_CHUNKS) == 256
+    assert K.MERGE_TILE in K.MERGE_TILES and K.SEARCH_CHUNK in K.SEARCH_CHUNKS

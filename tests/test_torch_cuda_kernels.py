@@ -12,7 +12,12 @@ be equal (the fold also on the hand-built layouts of
 algorithm, twice, and inside a CUDA graph; the count kernels' row and
 split forms, forced, on ``_torch_parity.count_form_cases``, the route's form read from the
 counters, the split form inside a CUDA graph, and the non-clustered
-baseline's bins of a fitted index equal to the host and device engines).
+baseline's bins of a fitted index equal to the host and device engines;
+the count of every bin in one launch, ``index.batched.count_queries``,
+equal per query to the plain version on those cases packed as bins, on
+random skewed bins and on ``_torch_parity.handbuilt_batch``, at every
+compiled design, one launch a call, inside a CUDA graph, and on the
+fitted index's baseline equal to the engines).
 The δ⁺ scores of
 ``cluster_scores`` are fp32 sums over at most L terms, taken in another
 order than the plain version's, so they must agree within
@@ -279,6 +284,106 @@ def test_split_form_captures_in_a_cuda_graph(cuda_device, count_cases):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# The count-all-bins kernel's designs (merge tile, search chunk, ratio
+# cut): the defaults, every compiled tile and chunk, all search, all merge.
+BINS_DESIGNS = [(K.MERGE_TILE, K.SEARCH_CHUNK, K.RATIO_CUT)] + [
+    (t, c, K.RATIO_CUT) for t in K.MERGE_TILES for c in K.SEARCH_CHUNKS
+    if (t, c) != (K.MERGE_TILE, K.SEARCH_CHUNK)] + [
+    (K.MERGE_TILE, K.SEARCH_CHUNK, 0.0), (K.MERGE_TILE, K.SEARCH_CHUNK, float("inf"))]
+BINS_CASES = (*COUNT_FORM_CASE_NAMES, "all count cases", "skewed", "hand-built")
+
+
+@pytest.fixture(scope="module")
+def bins_batches(count_cases):
+    from _torch_parity import batch_of_bins, handbuilt_batch, skewed_batch
+
+    batches = {name: batch_of_bins([count_cases[name]]) for name in COUNT_FORM_CASE_NAMES}
+    batches["all count cases"] = batch_of_bins([count_cases[n] for n in COUNT_FORM_CASE_NAMES])
+    batches["skewed"] = skewed_batch()
+    batches["hand-built"] = handbuilt_batch()
+    return batches
+
+
+def _bins_plain(dbins):
+    return ref.intersect_count_bins_ref(dbins.short, dbins.long, dbins.bins, dbins.query_ids,
+                                        dbins.n_queries)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BINS_CASES)
+def test_bins_kernel_equals_plain(cuda_device, bins_batches, name):
+    """One launch a call, equal to the plain version per query, at every
+    design."""
+    from repro_torch.index.batched import count_queries, upload_bins
+
+    dbins = upload_bins(bins_batches[name], cuda_device)
+    want = _bins_plain(dbins)
+    for design in BINS_DESIGNS:
+        d = dbins.with_design(*design)
+        before = dict(B.LAUNCHES)
+        got = count_queries(d)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), design
+        changed = {k: v - before[k] for k, v in B.LAUNCHES.items() if v != before[k]}
+        assert changed == ({"intersect_count_bins": 1} if len(d.items) else {}), design
+
+
+@pytest.mark.cuda
+def test_bins_kernel_captures_in_a_cuda_graph(cuda_device, bins_batches):
+    from repro_torch.index.batched import count_queries, upload_bins
+
+    dbins = upload_bins(bins_batches["skewed"], cuda_device)
+    want = _bins_plain(dbins)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        count_queries(dbins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = count_queries(dbins)
+    for _ in range(2):  # each replay zeroes its output again
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_bins_kernel_refuses_misaligned_buffers(cuda_device, bins_batches):
+    from repro_torch.index.batched import upload_bins
+
+    dbins = upload_bins(bins_batches["skewed"], cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.intersect_count_bins_cuda(dbins.short[1:], dbins.long, dbins.items, dbins.n_queries)
+    with pytest.raises(ValueError, match="int64"):
+        K.intersect_count_bins_cuda(dbins.short, dbins.long, dbins.items.int(), dbins.n_queries)
+    with pytest.raises(ValueError, match="merge tile"):
+        K.intersect_count_bins_cuda(dbins.short, dbins.long, dbins.items, dbins.n_queries, 384)
+
+
+@pytest.mark.cuda
+def test_baseline_count_queries_on_the_card_equal_host(cuda_device):
+    """The non-clustered baseline of a fitted index counted by
+    ``count_queries``: one launch, equal per query to the host and device
+    engines."""
+    from repro_torch.core.seclud import SecludPipeline
+    from repro_torch.data.corpus import CorpusSpec, synth_corpus
+    from repro_torch.data.query_log import synth_query_log
+    from repro_torch.index.batched import batch_queries, count_queries, upload_bins
+    from repro_torch.serve.search_service import SearchService
+
+    corpus = synth_corpus(CorpusSpec.wiki_like(n_docs=20_000))
+    log = synth_query_log(corpus, n_queries=400, seed=1)
+    res = SecludPipeline(tc=800, doc_grained_below=512).fit(corpus, 32, log=log, device="cpu")
+    dbins = upload_bins(batch_queries(res.base_index, log.queries), cuda_device)
+    B.reset_launch_counts()
+    got = count_queries(dbins).cpu().numpy()
+    assert {k: v for k, v in B.LAUNCHES.items() if v} == {"intersect_count_bins": 1}
+    svc = SearchService(res, device=cuda_device)
+    np.testing.assert_array_equal(got, svc.serve_counts(log.queries)[0])
+    np.testing.assert_array_equal(got, svc.serve_counts_device(log.queries)[0])
 
 
 @pytest.mark.cuda

@@ -1,9 +1,20 @@
-"""Time the count kernel's two forms on one GPU, at the non-clustered
+"""Time the count kernels on one GPU: the count of every bin of the
+non-clustered baseline in one launch (``index.batched.count_queries``) at
+each of its designs, to set its defaults (``kernel.MERGE_TILE``,
+``SEARCH_CHUNK``, ``RATIO_CUT``); and the per-bin count's two forms at the
 baseline's bins and at the block path's shapes, to set the cuts of
 ``kernel.count_route``: each shape's row form and split form, forced, as
 device time from CUDA-graph replays in turns (row, split, split, row).
 
-    python3 tools/count_ab.py            # on the GPU, ~4 min
+    python3 tools/count_ab.py            # on the GPU, ~5 min
+    python3 tools/count_ab.py --bins     # the one-launch count only, ~3 min
+
+The one-launch count's designs: every compiled merge tile and search
+chunk at each ratio cut of ``RATIO_CUTS``, each equal to the plain
+version, timed as graph-replay device ms in two passes (the second in the
+reverse order); the fastest and the defaults are then timed in turns
+(fastest, defaults, defaults, fastest), eager and as graph replays,
+beside the per-bin route of ``kernel.count_route`` (103 launches).
 
 The data are ``chip_smoke.py``'s: the ``wiki`` corpus at ``N_DOCS``
 documents fitted as its search phase fits it, the arity-2 log and the
@@ -35,6 +46,43 @@ ROWS_PER_SM = (0.5, 1, 2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 32, 48, 64, 96)
 WIDTHS = ((512, 8192), (1024, 8192), (4096, 65536), (16384, 262144), (32768, 262144),
           (65536, 262144), (131072, 262144))
 SYNTH_ROWS_PER_SM = (0.25, 0.5, 1, 2, 3, 4, 6, 8, 16, 32)
+# Ratio cuts (Ll / Ls past which a row takes search items) of the
+# one-launch count's designs.
+RATIO_CUTS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, float("inf"))
+
+
+def time_bins_designs(S, K, dbins, want, routed) -> dict:
+    """The one-launch count at each design against the plain version's
+    ``want``, timed (graph-replay device ms, two passes); the fastest and
+    the defaults in turns beside ``routed``, the per-bin route."""
+    from repro_torch.index.batched import count_queries
+
+    designs = [(t, c, r) for t in K.MERGE_TILES for c in K.SEARCH_CHUNKS for r in RATIO_CUTS]
+    tables = {}
+    for design in designs:
+        d = dbins.with_design(*design)
+        S.assert_equal(f"count_queries at {design}", count_queries(d), want)
+        tables[design] = d
+    ms = {design: [] for design in designs}
+    for order in (designs, designs[::-1]):
+        for design in order:
+            ms[design].append(S.graph_ms(lambda d=tables[design]: count_queries(d), reps=10))
+    rows = [{"merge_tile": t, "search_chunk": c, "ratio_cut": r, "items": len(tables[(t, c, r)].items),
+             "search_items": int((tables[(t, c, r)].items[:, 7] == K.SEARCH).sum()),
+             "device_ms": sum(ms[(t, c, r)]) / 2, "passes": ms[(t, c, r)]}
+            for t, c, r in designs]
+    rows.sort(key=lambda r: r["device_ms"])
+    best = rows[0]
+    fastest = tables[(best["merge_tile"], best["search_chunk"], best["ratio_cut"])]
+    default = dbins.with_design(K.MERGE_TILE, K.SEARCH_CHUNK, K.RATIO_CUT)
+    turns = {}
+    for name, timer in (("eager", S.time_ms), ("graph", S.graph_ms)):
+        t = [timer(lambda d=d: count_queries(d), reps=10)
+             for d in (fastest, default, default, fastest)]
+        turns[name] = {"fastest": (t[0] + t[3]) / 2, "default": (t[1] + t[2]) / 2, "turns": t}
+    turns["route_graph"] = S.graph_ms(routed, reps=10)
+    turns["route_eager"] = S.time_ms(routed, reps=10)
+    return {"designs": rows, "fastest": best, "in_turns": turns}
 
 
 def synth_rows(torch, dev, rows: int, ls: int, ll: int, gen):
@@ -68,6 +116,8 @@ def time_forms(S, K, R, torch, s, l, members: bool) -> dict:
 
 def main() -> int:
     import torch
+
+    bins_only = "--bins" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("count_ab: no CUDA device is available", file=sys.stderr)
@@ -105,7 +155,39 @@ def main() -> int:
                 "route": K.count_route(*s.shape, l.shape[1], sms), "device_ms": ms, **extra}
 
     inputs = S.baseline_bins(torch, dev, svc.res.base_index, logs["arity2"].queries)
-    bins = [record("baseline", s, l, False) for s, l in inputs["tensors"]]
+    dbins = inputs["dbins"]
+    tensors = dbins.bin_rows()
+    want = R.intersect_count_bins_ref(dbins.short, dbins.long, dbins.bins, dbins.query_ids,
+                                      dbins.n_queries)
+    from repro_torch.index.batched import count_intersections
+
+    def routed():
+        for s, l in tensors:
+            count_intersections(s, l)
+
+    one_launch = time_bins_designs(S, K, dbins, want, routed)
+    for row in one_launch["designs"][:12]:
+        print(f"count_queries tile {row['merge_tile']} chunk {row['search_chunk']} ratio cut "
+              f"{row['ratio_cut']}: {row['items']} items ({row['search_items']} search), device "
+              f"{row['device_ms']:.4f} ms (passes {row['passes'][0]:.4f}, {row['passes'][1]:.4f})",
+              flush=True)
+    default = next(r for r in one_launch["designs"] if (r["merge_tile"], r["search_chunk"],
+                   r["ratio_cut"]) == (K.MERGE_TILE, K.SEARCH_CHUNK, K.RATIO_CUT))
+    t = one_launch["in_turns"]
+    print(f"count_queries: the fastest design {one_launch['fastest']['merge_tile']}/"
+          f"{one_launch['fastest']['search_chunk']}/{one_launch['fastest']['ratio_cut']}, the "
+          f"defaults {K.MERGE_TILE}/{K.SEARCH_CHUNK}/{K.RATIO_CUT} ({default['device_ms']:.4f} "
+          f"ms in the sweep); in turns, eager {t['eager']['fastest']:.4f} / "
+          f"{t['eager']['default']:.4f}, device {t['graph']['fastest']:.4f} / "
+          f"{t['graph']['default']:.4f}; the per-bin route eager {t['route_eager']:.4f}, device "
+          f"{t['route_graph']:.4f}", flush=True)
+    out = ROOT / "chiprun_out" / "count_ab.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    report = {"card": card, "sms": sms, "count_queries": one_launch}
+    if bins_only:
+        out.write_text(json.dumps(report, indent=1))
+        return 0
+    bins = [record("baseline", s, l, False) for s, l in tensors]
     sums = {form: sum(b["device_ms"][form] for b in bins) for form in ("row", "split")}
     routed = sum(b["device_ms"][b["route"]] for b in bins)
     best = sum(min(b["device_ms"].values()) for b in bins)
@@ -168,9 +250,7 @@ def main() -> int:
     for kind, part in sums_by_kind.items():
         print(f"{kind} (device ms, sums): " + ", ".join(f"{k} {v:.4f}" for k, v in part.items()),
               flush=True)
-    out = ROOT / "chiprun_out" / "count_ab.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"card": card, "sms": sms, "baseline_sums_ms": sums,
+    out.write_text(json.dumps({**report, "baseline_sums_ms": sums,
                                "baseline_route_ms": routed, "baseline_best_ms": best,
                                "row_form_from_rows_per_sm": cut, "sums_by_kind": sums_by_kind, "bins": bins, "block": block},
                               indent=1))
